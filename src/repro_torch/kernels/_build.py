@@ -1,0 +1,108 @@
+"""Build and load the CUDA tick kernels.
+
+Each ``csrc/*.cu`` file is compiled by its own ``nvcc`` process for
+``sm_90a`` into a shared library with a plain C interface; the processes
+run side by side.  The libraries land in ``build/torch_kernels/<hash>/``
+at the repository root, where ``<hash>`` covers the sources and the
+flags, so an edit rebuilds and an unchanged tree reuses the build.  They
+are loaded with ``ctypes``.  A missing ``nvcc`` or a failed build
+raises; nothing falls back.
+
+Nothing here runs at import: the first call to :func:`library` builds.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
+              "-Xptxas", "-v")
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C entry point and argument types of each kernel's library
+SIGNATURES = {
+    "flow_agg": ("flow_agg_launch", (_P, _P, _P, _I, _I, _I, _P)),
+    "tick_rank": ("tick_rank_launch", (_P, _P, _I, _I, _P)),
+    "red_ecn": ("red_ecn_launch", (_P, _P, _P, _P, _P, _I, _I, _F, _F, _I,
+                                   _I, _P, _P, _P, _P, _P)),
+    "spritz_select": ("spritz_select_launch", (_P, _P, _P, _P, _I, _I, _I,
+                                               _P, _P, _P, _P)),
+}
+
+_FUNCS: dict = {}
+BUILD_INFO: dict = {}   # seconds, directory and ptxas report of the build
+
+
+def nvcc() -> str:
+    path = shutil.which("nvcc")
+    if path is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
+        path = "/usr/local/cuda/bin/nvcc"
+    if path is None:
+        raise RuntimeError("nvcc not found: the CUDA tick kernels need the "
+                           "CUDA toolkit (add its bin/ to PATH)")
+    return path
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in sorted(SIGNATURES):
+        h.update(name.encode())
+        h.update((CSRC / f"{name}.cu").read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> dict[str, Path]:
+    """Compile every kernel library that is not built yet; returns the
+    library path of each kernel."""
+    out = BUILD_ROOT / _digest()
+    libs = {name: out / f"lib{name}.so" for name in SIGNATURES}
+    todo = [n for n, p in libs.items() if not p.exists()]
+    if not todo:
+        BUILD_INFO.setdefault("seconds", 0.0)
+        BUILD_INFO.setdefault("dir", str(out))
+        return libs
+    out.mkdir(parents=True, exist_ok=True)
+    exe = nvcc()
+    t0 = time.perf_counter()
+    procs = {}
+    for name in todo:
+        tmp = out / f".lib{name}.{os.getpid()}.so"
+        cmd = [exe, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    failed, reports = [], {}
+    for name, (tmp, proc) in procs.items():
+        log, _ = proc.communicate()
+        reports[name] = log
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu (exit {proc.returncode}):\n{log}")
+        else:
+            os.replace(tmp, libs[name])
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    BUILD_INFO.update(seconds=time.perf_counter() - t0, dir=str(out),
+                      ptxas=reports)
+    return libs
+
+
+def library(name: str):
+    """The C launch function of kernel ``name``, building on first use."""
+    fn = _FUNCS.get(name)
+    if fn is None:
+        libs = build()
+        for kname, (sym, argtypes) in SIGNATURES.items():
+            f = getattr(ctypes.CDLL(str(libs[kname])), sym)
+            f.argtypes = list(argtypes)
+            f.restype = ctypes.c_int
+            _FUNCS[kname] = f
+        fn = _FUNCS[name]
+    return fn

@@ -1,0 +1,734 @@
+"""Packet-level network simulator with event-horizon time compression,
+on torch tensors.
+
+Port of ``repro.net.sim.engine`` (solo runs, static networks).  The
+model is the reference's (DESIGN.md §3-§4): the in-flight packet table
+is a fixed-shape structure of arrays, per-port FIFO order is kept
+analytically with one service-slot counter per port,
+
+    depart(pkt) = max(tail[port], t) + rank_within_tick + 1
+
+and time jumps to the next event tick (``build_horizon``), which is
+exact because every skipped tick would have been the identity.  Each
+step applies one ``build_tick`` transition, phases A (feedback, CC,
+policy feedback), B (service), C (propagation), D (injection with the
+policy's path choice) and E (enqueue: compaction, FIFO rank, RED/ECN,
+trim).
+
+Every operation reproduces the reference's arithmetic, so a run is
+bit-identical to ``repro.net.sim.engine.run`` on the same spec and seed:
+the random draws use the same threefry stream (``_parity``), f32 sums
+and fused steps follow XLA's order, and integer scatters are exact in
+any order.  With ``use_kernels`` (the default) the tick's dense phases
+go through ``kernels.ops``: the CUDA kernels on the card, their plain
+versions on the CPU.
+
+The run loop is plain Python: it reads the next event tick and the stop
+flag back from the device once per step.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch import _parity as PAR
+from repro_torch.kernels import ops as KOPS
+from repro_torch.net.policies import base as PB
+from repro_torch.net.policies import registry as REG
+from repro_torch.net.sim.types import (FB_NACK, FB_NONE, FB_TIMEOUT,
+                                       P_ACKWAIT, P_FREE, P_LOST,
+                                       P_NACKWAIT, P_PROP, P_QUEUED,
+                                       SimResult, SimSpec, enqueue_bound)
+
+INF_TICK = 1 << 30
+_NEVER_SVC = -(1 << 30)   # last_svc sentinel: first service always legal
+_I32 = torch.int32
+
+# one-hot intermediates ([M, n_ports] rank histogram, [N, n_flows] flow-sum
+# product) are used while they stay under this many cells; beyond it the
+# rank falls back to a stable argsort over the compacted enqueue set and
+# the per-flow sums to a segment scatter-add (the reference's switch).
+_ONEHOT_CELLS = 1 << 22
+
+
+class Carry(NamedTuple):
+    rng: torch.Tensor          # [2] int64 on the CPU: base key (uint32 words)
+    q_tail: torch.Tensor       # [n_ports] i32
+    port_up: torch.Tensor      # [n_ports] bool
+    port_ivl: torch.Tensor     # [n_ports] i32 live service interval
+    last_svc: torch.Tensor     # [n_ports] i32 last service tick
+    fail_idx: torch.Tensor     # [] i32 first unapplied timeline event
+    viol: torch.Tensor         # [] i32 services across a down port (== 0)
+    rviol: torch.Tensor        # [] i32 services above scheduled rate (== 0)
+    # packet table
+    pstate: torch.Tensor       # [N] i32
+    pflow: torch.Tensor        # [N] i32
+    ppath: torch.Tensor        # [N] i32
+    phop: torch.Tensor         # [N] i32
+    pevent: torch.Tensor       # [N] i32
+    pecn: torch.Tensor         # [N] bool
+    pexp: torch.Tensor         # [N] bool (exploration/sampled packet)
+    psent: torch.Tensor        # [N] i32
+    ppsn: torch.Tensor         # [N] i32
+    # flow state
+    next_seq: torch.Tensor     # [F] i32
+    acked: torch.Tensor
+    retx_pend: torch.Tensor
+    inflight: torch.Tensor
+    inj_cnt: torch.Tensor
+    exp_psn: torch.Tensor
+    cwnd: torch.Tensor         # [F] f32
+    alpha: torch.Tensor
+    exp_alpha: torch.Tensor    # [F] f32 ECN rate over exploration packets
+    round_acks: torch.Tensor
+    round_marks: torch.Tensor
+    round_nacks: torch.Tensor
+    round_size: torch.Tensor
+    policy: dict               # {family: substate} (DESIGN.md §11)
+    # stats
+    fct: torch.Tensor
+    delivered: torch.Tensor
+    trims: torch.Tensor
+    timeouts: torch.Tensor
+    ooo: torch.Tensor
+    retx: torch.Tensor
+
+
+def _device(device) -> torch.device:
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run on "
+                           "the CPU")
+    return dev
+
+
+def _check_spec(spec: SimSpec) -> None:
+    if len(spec.fail_event_tick):
+        raise NotImplementedError(
+            "failure timelines (fail_event_tick) are not ported to "
+            "repro_torch yet: ROADMAP.md Queue 1, item 4")
+
+
+def _use_kernels(spec: SimSpec) -> bool:
+    return spec.use_kernels is not False
+
+
+def _tick_keys(rng: torch.Tensor, t: int):
+    """Positional per-tick keys: skipping a tick leaves the stream intact."""
+    k0, k1 = rng.tolist()
+    return PAR.split(PAR.fold_in((k0, k1), t), 2)
+
+
+def _padded(a: torch.Tensor, fill) -> torch.Tensor:
+    return torch.cat([a, torch.full((1,), fill, dtype=a.dtype,
+                                    device=a.device)])
+
+
+def _scatter_at(base: torch.Tensor, idx: torch.Tensor, val) -> torch.Tensor:
+    """``base.at[idx].set(val)`` on a copy; ``idx`` is int64."""
+    out = base.clone()
+    if isinstance(val, torch.Tensor):
+        return out.scatter_(0, idx, val.to(base.dtype))
+    return out.scatter_(0, idx, val)
+
+
+def _scatter_add(size: int, idx: torch.Tensor, src: torch.Tensor):
+    out = torch.zeros(size, dtype=src.dtype, device=src.device)
+    return out.scatter_add_(0, idx, src)
+
+
+def build_tick(spec: SimSpec, device="cpu"):
+    """Returns the transition ``tick(carry, t) -> carry`` for ``spec``
+    (its scheme fixed) on ``device``; ``t`` is a Python int."""
+    _check_spec(spec)
+    dev = torch.device(device)
+    F = spec.n_flows
+    N = spec.n_pkt
+    NP_ = spec.n_ports
+
+    def tens(a, dtype):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                               device=dev)
+
+    path_ports = tens(spec.path_ports, _I32)          # [F,P,H]
+    path_len = tens(spec.path_len, _I32)              # [F,P]
+    path_lat = tens(spec.path_lat_ns, torch.float32)  # [F,P]
+    weights = tens(spec.weights, torch.float32)
+    valiant_w = tens(spec.valiant_w, torch.float32)
+    static_path = tens(spec.static_path, _I32)
+    min_path = tens(spec.min_path, _I32)
+    ret_ticks = tens(spec.ret_ticks, _I32)            # [F,P]
+    rem_ticks = tens(spec.rem_ticks, _I32)            # [F,P,H]
+    H_REM = rem_ticks.shape[2]
+    port_lat = tens(spec.port_lat, _I32)              # [ports]
+    src_ep = tens(spec.src_ep, torch.int64)
+    size_pkts = tens(spec.size_pkts, _I32)
+    start_tick = tens(spec.start_tick, _I32)
+    dep = tens(spec.dep, torch.int64)
+    bg_mask = tens(spec.bg_mask, torch.bool)
+    has_dep = bool((spec.dep >= 0).any())
+    has_bg = bool(spec.bg_mask.any())
+
+    n_eps = int(spec.src_ep.max()) + 1 if len(spec.src_ep) else 1
+    M = enqueue_bound(N, NP_, n_eps)
+    use_kernels = _use_kernels(spec)
+    use_onehot_rank = M * NP_ <= _ONEHOT_CELLS
+    use_gemm_sums = N * F <= _ONEHOT_CELLS
+
+    ar_f = torch.arange(F, dtype=_I32, device=dev)
+    ar_n = torch.arange(N, dtype=_I32, device=dev)
+    ar_m = torch.arange(M, dtype=_I32, device=dev)
+    prio_f = torch.arange(F, dtype=torch.int64, device=dev) * 9973
+    key_tie = F - 1 - ar_f
+    ar_np = torch.arange(NP_, dtype=_I32, device=dev)
+
+    # CC constants: the reference mixes Python floats into f32 math, which
+    # XLA evaluates with their f32 values
+    g = spec.dctcp_g
+    G_F32, ONE_MINUS_G = PAR.f32(g), PAR.f32(1 - g)
+    CWND_MAX = PAR.f32(spec.cwnd_max)
+    KMIN, RECIP = PAR.f32(spec.kmin), PAR.red_recip(spec.kmin, spec.kmax)
+
+    tables = PB.PolicyTables(path_ports=path_ports, path_len=path_len,
+                             path_lat=path_lat, valiant_w=valiant_w,
+                             min_path=min_path)
+    pol = REG.device_policy(spec.scheme)
+    cfg = pol.make_cfg(spec)
+
+    # ------------------------------------------------------- tick phases --
+    if use_kernels:
+        def flow_sums_fn(pflow):
+            def flow_sums(rows):                              # [K,N] -> [K,F]
+                return KOPS.flow_agg(rows.to(_I32), pflow, n_flows=F)
+            return flow_sums
+    elif use_gemm_sums:
+        def flow_sums_fn(pflow):
+            flow_oh = (pflow[:, None] == ar_f[None, :]).float()   # [N, F]
+
+            def flow_sums(rows):
+                return (rows.float() @ flow_oh).to(_I32)
+            return flow_sums
+    else:
+        def flow_sums_fn(pflow):
+            idx = pflow.long()[:, None]
+
+            def flow_sums(rows):
+                # one scatter pass over all K columns (integer adds are
+                # order-independent: bit-identical to the product)
+                src = rows.to(_I32).T
+                out = torch.zeros((F, src.shape[1]), dtype=_I32, device=dev)
+                return out.scatter_add_(0, idx.expand_as(src), src).T
+            return flow_sums
+
+    def enqueue_rank(cport):
+        """FIFO rank among same-tick enqueues per port, in compacted
+        space (the same rank for valid entries in every form)."""
+        if use_kernels:
+            return KOPS.tick_rank(cport, n_ports=NP_)
+        if use_onehot_rank:
+            oh = cport[:, None] == ar_np[None, :]
+            pos = torch.cumsum(oh.to(_I32), 0, dtype=_I32) * oh
+            return (pos.sum(-1) - 1).clamp_min(0).to(_I32)
+        order = torch.argsort(cport, stable=True)
+        sorted_port = cport[order]
+        is_start = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
+                              sorted_port[1:] != sorted_port[:-1]])
+        seg_start = torch.cummax(torch.where(is_start, ar_m, 0), 0).values
+        return torch.zeros(M, dtype=_I32, device=dev).scatter_(
+            0, order, (ar_m - seg_start).to(_I32))
+
+    def collect_feedback(c: Carry, pstate0, pevent0, t, flow_sums):
+        """A: feedback arrivals + timeouts -> per-flow counts and the
+        representative event per flow (priority TO > NACK > ECN > OK;
+        min packet index within the winning class) via one composite
+        scatter-min over key = (3 - class) * N + index."""
+        ack_m = (pstate0 == P_ACKWAIT) & (pevent0 == t)
+        nack_m = (pstate0 == P_NACKWAIT) & (pevent0 == t)
+        inflight_states = ((pstate0 == P_QUEUED) | (pstate0 == P_PROP)
+                           | (pstate0 == P_LOST))
+        to_m = inflight_states & (t - c.psent > spec.rto_ticks)
+
+        ecn_ack = ack_m & c.pecn
+        sums = flow_sums(torch.stack([
+            ack_m, ecn_ack, nack_m, to_m,
+            (ack_m | nack_m) & c.pexp,
+            (ecn_ack | nack_m) & c.pexp,
+        ]))                                                  # [6, F]
+
+        fb_m = ack_m | nack_m | to_m
+        fb_cat = torch.where(to_m, FB_TIMEOUT,
+                             torch.where(nack_m, FB_NACK,
+                                         ecn_ack.to(_I32)))
+        ckey = (FB_TIMEOUT - fb_cat) * N + ar_n
+        BIGK = (FB_TIMEOUT + 1) * N
+        kmin = torch.full((F + 1,), BIGK, dtype=_I32, device=dev)
+        kmin = kmin.scatter_reduce(
+            0, torch.where(fb_m, c.pflow, F).long(),
+            torch.where(fb_m, ckey, BIGK).to(_I32), "amin")[:F]
+        has_fb = kmin < BIGK
+        rep_idx = torch.where(has_fb, kmin % N, N)
+        fb_type = torch.where(has_fb, FB_TIMEOUT - kmin // N, FB_NONE)
+        fb_ev = torch.where(has_fb, _padded(c.ppath, 0)[rep_idx.clamp_max(N)],
+                            0)
+        return ack_m, nack_m, to_m, sums, fb_ev.to(_I32), fb_type.to(_I32)
+
+    def cc_round(c: Carry, n_ack, n_mark, n_nack, n_to):
+        """CC: DCTCP alpha + SMaRTT-style QuickAdapt/FastIncrease, the
+        reference's ``cc_round`` step for step."""
+        cwnd, alpha = c.cwnd, c.alpha
+        r_acks = c.round_acks + n_ack + n_nack
+        r_marks = c.round_marks + n_mark + n_nack
+        r_nacks = c.round_nacks + n_nack
+        round_thr = torch.minimum(c.round_size, cwnd.to(_I32)).clamp_min(1)
+        round_done = r_acks >= round_thr
+        denom = r_acks.clamp_min(1)
+        frac = r_marks / denom
+        frac_trim = r_nacks / denom
+        # XLA contracts (1 - g) * alpha + g * frac into one fma
+        alpha_new = PAR.fma_f32(torch.full_like(alpha, ONE_MINUS_G), alpha,
+                                frac * G_F32)
+        alpha = torch.where(round_done, alpha_new, alpha)
+        cw_cut = (cwnd * (1 - alpha / 2)).clamp_min(1.0)
+        cw_qa = (r_acks - r_nacks).float().clamp_min(1.0)
+        cw_fi = (cwnd * 1.25).clamp_max(CWND_MAX)
+        cw_round = torch.where(
+            (frac_trim > 0.5) & spec.quick_adapt, torch.minimum(cw_qa, cw_cut),
+            torch.where(r_marks > 0, cw_cut,
+                        cw_fi if spec.fast_increase else cwnd))
+        cwnd = torch.where(round_done, cw_round, cwnd)
+        r_size = torch.where(round_done, cwnd.to(_I32).clamp_min(1),
+                             c.round_size)
+        r_acks = torch.where(round_done, 0, r_acks)
+        r_marks = torch.where(round_done, 0, r_marks)
+        r_nacks = torch.where(round_done, 0, r_nacks)
+        # additive increase per clean ACK; hard reset only on timeout
+        cwnd = (cwnd + n_ack / cwnd.clamp_min(1.0)).clamp_max(CWND_MAX)
+        cwnd = torch.where(n_to > 0, 1.0, cwnd)
+        return (cwnd, alpha, r_acks.to(_I32), r_marks.to(_I32),
+                r_nacks.to(_I32), r_size.to(_I32))
+
+    def tick(c: Carry, t: int) -> Carry:
+        t = int(t)
+        k_path, k_mark = _tick_keys(c.rng, t)
+        # the tick's two draws (the policies' path draw and the RED draw)
+        # in one threefry pass
+        u_path, unif = PAR.uniforms([(k_path, (F, 1)), (k_mark, (M,))], dev)
+
+        # A0: static network — no timeline events
+        q_tail0, pstate0, pevent0 = c.q_tail, c.pstate, c.pevent
+        occ = (q_tail0 - t).clamp_min(0)
+
+        # ---------------- A. feedback arrivals + timeouts -------------------
+        flow_sums = flow_sums_fn(c.pflow)
+        ack_m, nack_m, to_m, sums, fb_ev, fb_type = collect_feedback(
+            c, pstate0, pevent0, t, flow_sums)
+        n_ack, n_mark, n_nack, n_to, n_exp, n_exp_bad = sums
+        # (1 - g2) * exp_alpha + g2 * n_exp_bad / max(n_exp, 1), contracted
+        exp_alpha = torch.where(
+            n_exp > 0,
+            PAR.fma_f32(torch.full_like(c.exp_alpha, ONE_MINUS_G),
+                        c.exp_alpha,
+                        (n_exp_bad * G_F32) / n_exp.clamp_min(1)),
+            c.exp_alpha)
+
+        cwnd, alpha, r_acks, r_marks, r_nacks, r_size = cc_round(
+            c, n_ack, n_mark, n_nack, n_to)
+
+        policy = c.policy
+        if pol.family and pol.on_feedback is not None:
+            fb_ctx = PB.FeedbackCtx(t=t, ev=fb_ev, fb_type=fb_type,
+                                    ecn_rate=exp_alpha, n_mark=n_mark,
+                                    n_nack=n_nack, n_to=n_to)
+            policy = {**policy, pol.family: pol.on_feedback(
+                policy[pol.family], cfg, tables, fb_ctx)}
+
+        acked = c.acked + n_ack
+        inflight = c.inflight - n_ack - n_nack - n_to
+        retx_pend = c.retx_pend + n_nack + n_to
+        done_now = (acked >= size_pkts) & (c.fct < 0)
+        fct = torch.where(done_now, t - start_tick, c.fct)
+
+        # free finished packet slots
+        pstate = torch.where(ack_m | nack_m | to_m, P_FREE, pstate0)
+
+        # ---------------- B. service (dequeue) ------------------------------
+        svc = (pstate == P_QUEUED) & (pevent0 == t)
+        cur_port = path_ports[c.pflow, c.ppath, c.phop]
+        plen = path_len[c.pflow, c.ppath]
+        at_delivery = c.phop == plen - 1
+        deliver = svc & at_delivery
+        forward = svc & ~at_delivery
+
+        # OOO accounting at delivery (<= 1 delivery per flow per tick)
+        dsums = flow_sums(torch.stack([
+            torch.where(deliver, c.ppsn, 0), deliver.to(_I32)]))
+        dpsn, has_del = dsums[0], dsums[1] > 0
+        is_ooo = has_del & (dpsn != c.exp_psn)
+        ooo = c.ooo + is_ooo.to(_I32)
+        exp_psn = torch.where(has_del, torch.maximum(c.exp_psn, dpsn + 1),
+                              c.exp_psn)
+
+        # conformance counter: a service never crosses a down port
+        cur_s = cur_port.clamp(0, NP_ - 1)
+        viol = c.viol + (svc & ~c.port_up[cur_s]).sum().to(_I32)
+
+        ret = ret_ticks[c.pflow, c.ppath]
+        pevent = torch.where(deliver, t + ret, pevent0)
+        pstate = torch.where(deliver, P_ACKWAIT, pstate)
+        pevent = torch.where(forward, t + port_lat[cur_port], pevent)
+        pstate = torch.where(forward, P_PROP, pstate)
+
+        # ---------------- C. propagation arrivals ---------------------------
+        arrive = (pstate == P_PROP) & (pevent == t)
+        phop = torch.where(arrive, c.phop + 1, c.phop)
+
+        # ---------------- D. injection --------------------------------------
+        work_left = (c.next_seq < size_pkts) | (retx_pend > 0)
+        eligible = ((t >= start_tick) & (acked < size_pkts) & work_left
+                    & (inflight < torch.floor(cwnd).to(_I32)) & (c.fct < 0))
+        if has_dep:
+            fct_x = _padded(fct, 0)
+            dep_done = (dep < 0) | (fct_x[dep.clamp_min(-1)] >= 0)
+            eligible = eligible & dep_done
+        # endpoint arbitration: one flow per source endpoint per tick.  The
+        # reference's int32 t * 40503 wraps; its low 16 bits are the same
+        # in int64.
+        prio = (((t * 40503 + prio_f) & 0xFFFF) + 1).to(_I32)
+        prio = torch.where(eligible, prio, 0)
+        key = prio * F + key_tie                              # unique
+        ep_best = torch.zeros(n_eps, dtype=_I32, device=dev).scatter_reduce(
+            0, src_ep, key, "amax")
+        win = eligible & (key == ep_best[src_ep])
+
+        # free-slot allocation: k-th winner takes the k-th free slot
+        free_m = pstate == P_FREE
+        n_free = torch.cumsum(free_m.to(_I32), 0, dtype=_I32)
+        win_rank = torch.cumsum(win.to(_I32), 0, dtype=_I32) - 1
+        have_slot = win & (win_rank < n_free[-1])
+        flow_slot = torch.searchsorted(n_free, win_rank.clamp_min(0) + 1,
+                                       side="left", out_int32=True)
+
+        # path choice through the scheme's registered policy
+        send_ctx = PB.SendCtx(u=u_path, t=t, active=have_slot, occ=occ,
+                              weights=weights, static_path=static_path)
+        path_sel, explored, sub2 = pol.choose_path(
+            policy.get(pol.family) if pol.family else None, cfg, tables,
+            send_ctx)
+        if pol.family:
+            policy = {**policy, pol.family: sub2}
+        path_sel = path_sel.to(_I32)
+        if has_bg:  # background jobs stay on static ECMP paths (paper §V-B)
+            path_sel = torch.where(bg_mask, static_path, path_sel)
+
+        # write new packets (scatter via trash row N)
+        tgt = torch.where(have_slot, flow_slot, N).long()
+
+        def scatter_new(arr, val):
+            return _scatter_at(_padded(arr, 0), tgt, val)[:N]
+
+        pflow = scatter_new(c.pflow, ar_f)
+        ppath = scatter_new(c.ppath, path_sel)
+        phop = scatter_new(phop, 0)
+        psent = scatter_new(c.psent, t)
+        ppsn = scatter_new(c.ppsn, c.inj_cnt)
+        pecn = scatter_new(c.pecn, False)
+        pexp = scatter_new(c.pexp, explored)
+        pstate = scatter_new(pstate, P_PROP)   # placeholder
+        pevent = scatter_new(pevent, t)
+        # injected packets "arrive" at the hop-0 port this tick
+        injected_pkt = scatter_new(torch.zeros(N, dtype=torch.bool,
+                                               device=dev), True)
+
+        is_retx = have_slot & (retx_pend > 0)
+        retx_pend = retx_pend - is_retx.to(_I32)
+        next_seq = c.next_seq + (have_slot & ~is_retx).to(_I32)
+        inj_cnt = c.inj_cnt + have_slot.to(_I32)
+        inflight = inflight + have_slot.to(_I32)
+        retx_stat = c.retx + is_retx.to(_I32)
+
+        # ---------------- E. enqueue (arrivals + injections) ----------------
+        enq0 = arrive | injected_pkt
+        eport_n = torch.where(enq0, path_ports[pflow, ppath, phop], NP_)
+        failed = enq0 & (eport_n < NP_) & \
+            ~c.port_up[eport_n.clamp_max(NP_ - 1)]
+        enq = enq0 & ~failed
+        pstate = torch.where(failed, P_LOST, pstate)
+
+        # compact the <= M enqueues of this tick
+        n_enq = torch.cumsum(enq.to(_I32), 0, dtype=_I32)
+        cidx = torch.searchsorted(n_enq, ar_m + 1, side="left",
+                                  out_int32=True)     # == N past the last
+        valid = cidx < N
+        cidx_s = cidx.clamp_max(N)
+        cflow = _padded(pflow, F)[cidx_s]
+        cpath = _padded(ppath, 0)[cidx_s]
+        chop = _padded(phop, 0)[cidx_s]
+        cport = _padded(eport_n, NP_)[cidx_s]
+
+        # FIFO rank among same-tick arrivals per port (compacted)
+        rank = enqueue_rank(cport)
+
+        if use_kernels:
+            _, trim, mark, slot = KOPS.red_ecn(
+                cport, rank, valid, unif, q_tail0, t, qsize=spec.qsize,
+                kmin=spec.kmin, kmax=spec.kmax, n_ports=NP_)
+        else:
+            tail_e = q_tail0[cport.clamp_max(NP_ - 1)]
+            occ_at = (tail_e - t).clamp_min(0) + rank
+            trim = valid & (occ_at >= spec.qsize)
+            # RED / ECN marking probability between kmin..kmax
+            pr = ((occ_at.float() - KMIN) * RECIP).clamp(0.0, 1.0)
+            mark = valid & ~trim & (unif < pr)
+            slot = tail_e.clamp_min(t) + rank + 1
+        accept = valid & ~trim
+        pecn = pecn | _scatter_at(
+            torch.zeros(N + 1, dtype=torch.bool, device=dev),
+            torch.where(mark, cidx_s, N).long(), True)[:N]
+        # trimmed: header continues + NACK returns (priority, prop-only)
+        nack_at = t + rem_ticks[cflow.clamp_max(F - 1), cpath,
+                                chop.clamp_max(H_REM - 1)]
+        new_state = torch.where(trim, P_NACKWAIT, P_QUEUED)
+        new_event = torch.where(trim, nack_at, slot)
+        ctgt = torch.where(valid, cidx_s, N).long()
+        pstate = _scatter_at(_padded(pstate, 0), ctgt,
+                             torch.where(valid, new_state, 0))[:N]
+        pevent = _scatter_at(_padded(pevent, 0), ctgt,
+                             torch.where(valid, new_event, 0))[:N]
+
+        trims = c.trims + _scatter_add(
+            F + 1, torch.where(trim, cflow, F).long(),
+            torch.ones(M, dtype=_I32, device=dev))[:F]
+        timeouts = c.timeouts + n_to
+        delivered = c.delivered + n_ack
+
+        # q_tail advances by one service slot per accepted packet
+        n_acc = _scatter_add(
+            NP_ + 1, torch.where(accept, cport, NP_).long(),
+            torch.ones(M, dtype=_I32, device=dev))[:NP_]
+        q_tail = torch.where(n_acc > 0, q_tail0.clamp_min(t) + n_acc, q_tail0)
+
+        return Carry(
+            rng=c.rng, q_tail=q_tail.to(_I32),
+            port_up=c.port_up, port_ivl=c.port_ivl, last_svc=c.last_svc,
+            fail_idx=c.fail_idx, viol=viol, rviol=c.rviol,
+            pstate=pstate.to(_I32), pflow=pflow, ppath=ppath, phop=phop,
+            pevent=pevent.to(_I32), pecn=pecn, pexp=pexp, psent=psent,
+            ppsn=ppsn, next_seq=next_seq, acked=acked, retx_pend=retx_pend,
+            inflight=inflight, inj_cnt=inj_cnt, exp_psn=exp_psn,
+            cwnd=cwnd, alpha=alpha, exp_alpha=exp_alpha,
+            round_acks=r_acks, round_marks=r_marks, round_nacks=r_nacks,
+            round_size=r_size, policy=policy,
+            fct=fct.to(_I32), delivered=delivered, trims=trims,
+            timeouts=timeouts, ooo=ooo, retx=retx_stat,
+        )
+
+    return tick
+
+
+def build_horizon(spec: SimSpec, device="cpu"):
+    """Returns ``horizon(carry, t) -> next event tick > t`` as a 0-d i32
+    tensor (DESIGN.md §4): the min over scheduled packet events, RTO
+    deadlines, injection eligibility (gated on a free table slot) and
+    deferred CC round closure.  Every tick strictly inside the jump is a
+    no-op of the transition."""
+    _check_spec(spec)
+    dev = torch.device(device)
+    size_pkts = torch.as_tensor(spec.size_pkts, dtype=_I32, device=dev)
+    start_tick = torch.as_tensor(spec.start_tick, dtype=_I32, device=dev)
+    dep = torch.as_tensor(spec.dep, dtype=torch.int64, device=dev)
+    has_dep = bool((spec.dep >= 0).any())
+    rto1 = spec.rto_ticks + 1
+
+    def horizon(c: Carry, t: int) -> torch.Tensor:
+        live = ((c.pstate == P_QUEUED) | (c.pstate == P_PROP)
+                | (c.pstate == P_ACKWAIT) | (c.pstate == P_NACKWAIT))
+        ev_pkt = torch.where(live, c.pevent, INF_TICK).min()
+        to_states = ((c.pstate == P_QUEUED) | (c.pstate == P_PROP)
+                     | (c.pstate == P_LOST))
+        ev_rto = torch.where(to_states, c.psent + rto1, INF_TICK).min()
+        # an eligible flow with a free table slot injects at every tick
+        work_left = (c.next_seq < size_pkts) | (c.retx_pend > 0)
+        elig = ((c.acked < size_pkts) & work_left & (c.fct < 0)
+                & (c.inflight < torch.floor(c.cwnd).to(_I32)))
+        if has_dep:
+            fct_x = _padded(c.fct, 0)
+            elig = elig & ((dep < 0) | (fct_x[dep.clamp_min(-1)] >= 0))
+        any_free = (c.pstate == P_FREE).any()
+        ev_inj = torch.where(
+            any_free,
+            torch.where(elig, start_tick.clamp_min(t + 1), INF_TICK).min(),
+            INF_TICK)
+        # deferred CC round closure
+        round_thr = torch.minimum(c.round_size,
+                                  c.cwnd.to(_I32)).clamp_min(1)
+        pend_round = ((c.round_acks >= round_thr) & (c.fct < 0)).any()
+        ev_cc = torch.where(pend_round, t + 1, INF_TICK)
+        h = torch.minimum(torch.minimum(ev_pkt, ev_rto),
+                          torch.minimum(ev_inj, ev_cc))
+        return h.clamp_min(t + 1).to(_I32)
+
+    return horizon
+
+
+def init_carry(spec: SimSpec, seed: int = 0, device="cpu",
+               weights: np.ndarray | None = None,
+               static_path: np.ndarray | None = None) -> Carry:
+    _check_spec(spec)
+    dev = torch.device(device)
+    F, N, NP_ = spec.n_flows, spec.n_pkt, spec.n_ports
+    w = spec.weights if weights is None else weights
+    sp = spec.static_path if static_path is None else static_path
+
+    def zi(n):
+        return torch.zeros(n, dtype=_I32, device=dev)
+
+    def zb(n):
+        return torch.zeros(n, dtype=torch.bool, device=dev)
+
+    def scalar(v):
+        return torch.tensor(v, dtype=_I32, device=dev)
+
+    return Carry(
+        rng=torch.tensor(PAR.prng_key(seed), dtype=torch.int64),
+        q_tail=zi(NP_),
+        port_up=torch.as_tensor(~np.asarray(spec.port_failed, bool),
+                                device=dev),
+        port_ivl=torch.ones(NP_, dtype=_I32, device=dev),
+        last_svc=torch.full((NP_,), _NEVER_SVC, dtype=_I32, device=dev),
+        fail_idx=scalar(0), viol=scalar(0), rviol=scalar(0),
+        pstate=zi(N), pflow=zi(N), ppath=zi(N), phop=zi(N), pevent=zi(N),
+        pecn=zb(N), pexp=zb(N), psent=zi(N), ppsn=zi(N),
+        next_seq=zi(F), acked=zi(F), retx_pend=zi(F), inflight=zi(F),
+        inj_cnt=zi(F), exp_psn=zi(F),
+        cwnd=torch.full((F,), PAR.f32(spec.cwnd_init), dtype=torch.float32,
+                        device=dev),
+        alpha=torch.zeros(F, dtype=torch.float32, device=dev),
+        exp_alpha=torch.zeros(F, dtype=torch.float32, device=dev),
+        round_acks=zi(F), round_marks=zi(F), round_nacks=zi(F),
+        round_size=torch.full((F,), max(int(spec.cwnd_init), 1), dtype=_I32,
+                              device=dev),
+        policy=REG.init_state(w, sp, dev),
+        fct=torch.full((F,), -1, dtype=_I32, device=dev), delivered=zi(F),
+        trims=zi(F), timeouts=zi(F), ooo=zi(F), retx=zi(F),
+    )
+
+
+def carry_from_state(spec: SimSpec, state: dict, device="cpu") -> Carry:
+    """A carry from the nested-NumPy state form (``carry_state`` here,
+    ``_carry_state`` in the reference engine), restricted to the policy
+    families this package has.  Shapes must match ``spec``."""
+    tmpl = init_carry(spec, 0, device)
+
+    def leaf(arr, ref):
+        a = np.array(arr)                     # an owned, writable copy
+        if a.shape != tuple(ref.shape):
+            raise ValueError(f"state leaf shape {a.shape} != spec's "
+                             f"{tuple(ref.shape)}")
+        if ref.dtype == torch.int64:          # the rng's uint32 words
+            a = a.astype(np.int64)
+        return torch.as_tensor(a, device=ref.device).to(ref.dtype)
+
+    vals = {}
+    for k in Carry._fields:
+        ref = getattr(tmpl, k)
+        if k == "policy":
+            vals[k] = {fam: type(sub)(**{f: leaf(state["policy"][fam][f],
+                                                 getattr(sub, f))
+                                         for f in sub._fields})
+                       for fam, sub in ref.items()}
+        else:
+            vals[k] = leaf(state[k], ref)
+    return Carry(**vals)
+
+
+def carry_state(carry: Carry) -> dict:
+    """The carry as nested NumPy dicts in the reference's dtypes (the rng
+    as uint32 words); ``"spritz"`` aliases the Spritz substate as in the
+    reference."""
+    def arr(x):
+        a = x.detach().cpu().numpy()
+        return a.astype(np.uint32) if x.dtype == torch.int64 else a
+
+    state: dict = {}
+    for k, v in carry._asdict().items():
+        if k == "policy":
+            state["policy"] = {fam: {f: arr(x) for f, x in
+                                     sub._asdict().items()}
+                               for fam, sub in v.items()}
+        else:
+            state[k] = arr(v)
+    state["spritz"] = state["policy"]["spritz"]
+    return state
+
+
+def _result(carry: Carry, t: int, steps: int) -> SimResult:
+    fct = carry.fct.cpu().numpy()
+    return SimResult(
+        fct_ticks=fct,
+        delivered=carry.delivered.cpu().numpy(),
+        trims=carry.trims.cpu().numpy(),
+        timeouts=carry.timeouts.cpu().numpy(),
+        ooo=carry.ooo.cpu().numpy(),
+        retx=carry.retx.cpu().numpy(),
+        done=fct >= 0,
+        ticks_simulated=int(t),
+        steps_executed=int(steps),
+        down_violations=int(carry.viol),
+        rate_violations=int(carry.rviol),
+    )
+
+
+def drive(spec: SimSpec, carry: Carry, watch: torch.Tensor, *,
+          dense: bool = False):
+    """Advance a fresh ``carry`` until ``spec.n_ticks`` or until every
+    watched flow completed.  ``dense`` steps every tick (the exact oracle
+    for the event-horizon jump).  Returns (carry, t, steps)."""
+    dev = carry.fct.device
+    tick = build_tick(spec, dev)
+    hor = None if dense else build_horizon(spec, dev)
+    n_ticks = spec.n_ticks
+    t, steps = -1, 0
+    while t < n_ticks:
+        done = torch.where(watch, carry.fct >= 0, True).all()
+        if dense:
+            if bool(done):
+                break
+            h = t + 1
+        else:
+            # one host sync per step: the next event tick and the stop flag
+            h, stop = torch.stack([hor(carry, t), done.to(_I32)]).tolist()
+            if stop:
+                break
+        if h < n_ticks:
+            carry = tick(carry, h)
+            t, steps = h, steps + 1
+        else:
+            t = n_ticks
+    return carry, t, steps
+
+
+def run(spec: SimSpec, seed: int = 0, *, device=None,
+        stop_flows: np.ndarray | None = None, reference: bool = False,
+        return_carry: bool = False):
+    """Run the simulation for up to ``spec.n_ticks`` virtual ticks on
+    ``device`` (default ``"cuda"``; raises if there is no CUDA device).
+
+    The run stops as soon as every flow — or every flow in
+    ``stop_flows`` — completed.  ``reference=True`` selects the dense
+    tick-by-tick stepper.  ``return_carry=True`` also returns the final
+    carry as nested NumPy dicts (:func:`carry_state`).
+    """
+    dev = _device(device)
+    watch = np.ones(spec.n_flows, bool)
+    if stop_flows is not None:
+        watch = np.zeros(spec.n_flows, bool)
+        watch[np.asarray(stop_flows)] = True
+    carry = init_carry(spec, seed, dev)
+    carry, t, steps = drive(spec, carry, torch.as_tensor(watch, device=dev),
+                            dense=reference)
+    res = _result(carry, t, steps)
+    if return_carry:
+        return res, carry_state(carry)
+    return res

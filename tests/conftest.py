@@ -32,3 +32,9 @@ def hyp_stubs():
             reason="hypothesis not installed")(f)
 
     return given, _Stub(), _Stub()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (an H100 for the sm_90a "
+        "kernels); skips without one")

@@ -1,0 +1,117 @@
+"""The port on the card equals the port on the CPU, bit for bit.
+
+The CPU port is held against the JAX reference by the other
+``test_torch_*`` files; these tests carry that to the card without JAX:
+each CUDA kernel against its plain version at small and ragged shapes,
+and the whole engine on DF(4,2,2) on ``cuda`` against the same run on
+``cpu``, for the kernels and for the engine's torch forms.  They need a
+card and skip without one.  On a machine with an H100:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.net.sim import build as B  # noqa: E402
+from repro_torch.net.sim import engine as E  # noqa: E402
+from repro_torch.net.topology.dragonfly import make_dragonfly  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+FLOWS = [(e, 40 + (e % 3), 40 + 8 * (e % 2), 16 * e) for e in range(6)]
+RNG = np.random.default_rng(3)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    return torch.device("cuda")
+
+
+def _pair(a, dtype, dev):
+    t = torch.as_tensor(np.ascontiguousarray(a)).to(dtype)
+    return t, t.to(dev)
+
+
+def _equal(got, want):
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w.cpu())
+
+
+@pytest.mark.parametrize("K,N,F", [(6, 513, 16), (2, 7000, 1056), (1, 1, 1)])
+def test_flow_agg_kernel(cuda, K, N, F):
+    rows = RNG.integers(0, 50, (K, N)) * (RNG.random((K, N)) < 0.2)
+    rows_c, rows_g = _pair(rows, torch.int32, cuda)
+    pf_c, pf_g = _pair(RNG.integers(-1, F + 2, N), torch.int32, cuda)
+    _equal(ops.flow_agg(rows_g, pf_g, n_flows=F),
+           ref.flow_agg_reference(rows_c, pf_c, n_flows=F))
+
+
+@pytest.mark.parametrize("M,P", [(1, 1), (257, 8), (5024, 3960)])
+def test_tick_rank_kernel(cuda, M, P):
+    pc, pg = _pair(RNG.integers(-1, P + 2, M), torch.int32, cuda)
+    _equal(ops.tick_rank(pg, n_ports=P), ref.tick_rank_reference(pc,
+                                                                  n_ports=P))
+
+
+@pytest.mark.parametrize("M,P,t", [(17, 4, 0), (5024, 3960, 70000)])
+def test_red_ecn_kernel(cuda, M, P, t):
+    kw = dict(qsize=88, kmin=17.6, kmax=70.4, n_ports=P)
+    ins = [_pair(RNG.integers(0, P + 1, M), torch.int32, cuda),
+           _pair(RNG.integers(0, 90, M), torch.int32, cuda),
+           _pair(RNG.random(M) < 0.7, torch.bool, cuda),
+           _pair(RNG.random(M), torch.float32, cuda),
+           _pair(t + RNG.integers(-50, 100, P), torch.int32, cuda)]
+    _equal(ops.red_ecn(*[g for _, g in ins], t, **kw),
+           ref.red_ecn_reference(*[c for c, _ in ins], t, **kw))
+
+
+@pytest.mark.parametrize("F,P", [(1, 1), (100, 37), (1056, 64), (9, 256)])
+def test_spritz_select_kernel(cuda, F, P):
+    w = np.exp(RNG.normal(0, 5, (F, P))) * (RNG.random((F, P)) < 0.8)
+    ins = [_pair(w, torch.float32, cuda),
+           _pair(RNG.random(F), torch.float32, cuda),
+           _pair(RNG.integers(-1, P, F), torch.int32, cuda),
+           _pair(RNG.integers(0, 60, F), torch.int32, cuda)]
+    _equal(ops.spritz_select(*[g for _, g in ins], explore_threshold=44),
+           ref.spritz_select_reference(*[c for c, _ in ins],
+                                       explore_threshold=44))
+
+
+@pytest.mark.parametrize("use_kernels", [None, False],
+                         ids=["kernels", "torch_forms"])
+@pytest.mark.parametrize("dense", [False, True], ids=["compressed", "dense"])
+@pytest.mark.parametrize("scheme", ["minimal", "ecmp", "valiant",
+                                    "spritz_scout", "spritz_spray_u",
+                                    "spritz_spray_w"])
+def test_engine_on_card_equals_cpu(cuda, scheme, dense, use_kernels):
+    topo = make_dragonfly(4, 2, 2)
+    flows = [B.Flow(s, d, n, start_tick=t) for s, d, n, t in FLOWS]
+    spec = B.build_spec(topo, flows, scheme, n_ticks=1 << 12,
+                        use_kernels=use_kernels)
+    ops.reset_launches()
+    got, gst = E.run(spec, device=cuda, reference=dense, return_carry=True)
+    launched = dict(ops.LAUNCHES)
+    want, wst = E.run(spec, device="cpu", reference=dense,
+                      return_carry=True)
+    for f in ("fct_ticks", "delivered", "trims", "timeouts", "ooo", "retx",
+              "done"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+    assert (got.ticks_simulated, got.steps_executed) == \
+        (want.ticks_simulated, want.steps_executed)
+    for k, v in wst.items():
+        if k not in ("policy", "spritz"):
+            np.testing.assert_array_equal(gst[k], v, err_msg=k)
+    for k, v in wst["policy"]["spritz"].items():
+        np.testing.assert_array_equal(gst["policy"]["spritz"][k], v)
+    if use_kernels is None:
+        assert launched["flow_agg"] > 0 and launched["tick_rank"] > 0
+    else:
+        assert sum(launched.values()) == 0

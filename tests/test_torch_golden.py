@@ -1,0 +1,55 @@
+"""The JAX reference reproduces the port's committed DF-1056 golden record.
+
+``src/repro_torch/data/df1056_permutation_golden.json`` is what
+``chip_smoke.py`` holds the port's run on the card against.  This test
+reruns the reference (one ``run_batch`` over the three schemes on the
+jnp path, JAX on the CPU) and requires every field to match, so the
+record cannot drift from the reference.  Regenerate it with
+
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_golden.py --write
+"""
+import json
+import sys
+
+import pytest
+
+pytest.importorskip("torch")
+
+from repro.net.sim import build as B  # noqa: E402
+from repro.net.sim import engine as E  # noqa: E402
+from repro.net.topology.dragonfly import make_dragonfly  # noqa: E402
+from repro.net.workloads.synthetic import permutation  # noqa: E402
+from repro_torch import data as GOLD  # noqa: E402
+
+
+def reference_record() -> dict:
+    cfg = GOLD.CONFIG
+    topo = make_dragonfly(8, 4, 4)
+    flows = permutation(topo, size_pkts=32, seed=1)
+    base = B.build_spec(topo, flows, cfg["base_scheme"],
+                        n_ticks=cfg["n_ticks"])
+    results = E.run_batch(base, schemes=list(GOLD.SCHEMES),
+                          seeds=[cfg["seed"]])
+    return {"config": cfg,
+            "source": "repro.net.sim.engine.run_batch, jnp path, JAX on CPU",
+            "schemes": {s: GOLD.summarize(r)
+                        for s, r in zip(GOLD.SCHEMES, results)}}
+
+
+def test_reference_reproduces_golden_record():
+    want = GOLD.load()
+    got = reference_record()
+    assert got["config"] == want["config"]
+    for s in GOLD.SCHEMES:
+        assert got["schemes"][s] == want["schemes"][s], s
+        assert want["schemes"][s]["down_violations"] == 0
+    # every flow finished in every scheme
+    for s in GOLD.SCHEMES:
+        assert want["schemes"][s]["ticks_simulated"] < GOLD.CONFIG["n_ticks"]
+
+
+if __name__ == "__main__":
+    if "--write" not in sys.argv[1:]:
+        sys.exit("usage: test_torch_golden.py --write")
+    GOLD.GOLDEN.write_text(json.dumps(reference_record(), indent=1) + "\n")
+    print(f"wrote {GOLD.GOLDEN}")
