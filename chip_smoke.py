@@ -6,23 +6,42 @@
 Phases (any failure exits non-zero before the final line):
 
 1. card: name and power limit from nvidia-smi;
-2. build: compile the four CUDA tick kernels from ``src/repro_torch``
-   with nvcc for sm_90a;
-3. kernel checks: each kernel against its plain torch version on the
-   card, at the packet engine's DF-1056 shapes plus ragged sizes and
-   out-of-range entries, required ``torch.equal``; CUDA-event times of
-   kernel, plain version and (flow_agg) ``index_add_``;
-4. main path: the 1,056-endpoint Dragonfly permutation run for ecmp,
+2. build: compile the six CUDA kernels from ``src/repro_torch`` with
+   nvcc for sm_90a, one process per source;
+3. tick kernel checks: each tick kernel against its plain torch version
+   on the card, at the packet engine's DF-1056 shapes plus ragged sizes
+   and out-of-range entries, required ``torch.equal``; CUDA-event times
+   of kernel, plain version and (flow_agg) ``index_add_``;
+4. engine path: the 1,056-endpoint Dragonfly permutation run for ecmp,
    spritz_scout and spritz_spray_w through ``engine.run`` on the card,
    kernels on, held against the committed golden record of the JAX
-   reference; every kernel must have launched;
-5. a JSON line of kernel numbers, then the final JSON line.
+   reference; every tick kernel must have launched;
+5. model kernel checks: flash attention and chunked RWKV-6 against their
+   plain versions at the serving path's shapes (prefill and decode, bf16
+   and f32) and at ragged, sliding-window and strong-decay cases, within
+   the tolerances of ``tests/test_kernels.py``; CUDA-event times of
+   kernel, plain version and (attention) ``scaled_dot_product_attention``;
+6. card against CPU: the reduced Phi-3 and RWKV-6 configs in f32 on
+   ``cuda`` (kernels) and on ``cpu`` (plain versions) from the same
+   weights, prefill and 16 decode steps, logits within 1e-4;
+7. prefill against decode at full width, 2 layers, f32: the prefill
+   logits equal the step-by-step decode logits at every position;
+8. serving path: Phi-3-medium-14B (40 layers) and RWKV-6-7B (32 layers)
+   at their published sizes in bf16, random weights from a seeded
+   generator on the card: ``make_prefill_step`` on 4 x 1,024 tokens, then
+   a 4-slot ``Server`` answering 8 requests of 64 generated tokens; every
+   request must complete and the model kernel of each path must launch;
+9. a JSON line of kernel numbers, then the final JSON line.
 
-``--profile`` adds a ``torch.profiler`` breakdown of one warm run.
+``--profile`` adds ``torch.profiler`` breakdowns of one warm engine
+run and, per served model, of one prefill and 8 decode steps.
 Imports torch and the port only, never jax nor the reference package.
 """
 from __future__ import annotations
 
+import copy
+import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -33,6 +52,8 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (data sheet)
+PEAK_FLOPS = {"bf16": 989e12,  # dense tensor-core rate (data sheet)
+              "f32": 67e12}    # f32 outside the tensor cores
 KERNELS = {  # name -> (source, TPU kernel it replaces)
     "flow_agg": ("src/repro_torch/kernels/csrc/flow_agg.cu",
                  "src/repro/kernels/flow_agg.py:69"),
@@ -42,7 +63,14 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
                 "src/repro/kernels/red_ecn.py:90"),
     "spritz_select": ("src/repro_torch/kernels/csrc/spritz_select.cu",
                       "src/repro/kernels/spritz_select.py:72"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:78"),
+    "rwkv6_chunked": ("src/repro_torch/kernels/csrc/rwkv6_chunked.cu",
+                      "src/repro/kernels/rwkv6_chunked.py:90"),
 }
+TICK_KERNELS = ("flow_agg", "tick_rank", "red_ecn", "spritz_select")
+SERVE_ARCHS = {"phi3_medium_14b": "flash_attention",
+               "rwkv6_7b": "rwkv6_chunked"}
 
 
 def fail(msg: str) -> None:
@@ -235,6 +263,321 @@ def check_kernels(ops, ref, torch, np, shapes, dev="cuda") -> dict:
     return out
 
 
+def attention_work(q, k, *, causal, window, q_offset):
+    """(FLOPs, bytes) that one attention call needs: 4 D flops per
+    unmasked (query, key) pair (scores and weighted sum), q and o once,
+    and the keys and values that some query may see."""
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    pairs, k_lo, k_hi = 0, Sk, -1
+    for i in range(Sq):
+        pos = q_offset + i
+        hi = min(Sk - 1, pos) if causal else Sk - 1
+        lo = max(0, pos - window + 1) if window else 0
+        if hi >= lo:
+            pairs += hi - lo + 1
+            k_lo, k_hi = min(k_lo, lo), max(k_hi, hi)
+    keys = max(k_hi - k_lo + 1, 0)
+    elem = q.element_size()
+    flops = 4 * B * Hq * D * pairs
+    nbytes_ = elem * (2 * B * Sq * Hq * D + 2 * B * keys * Hkv * D)
+    return flops, nbytes_
+
+
+def rwkv_flops(B, S, H, C):
+    """FLOPs of the chunked RWKV-6 time mix (head size 64): per chunk the
+    inter-chunk product, the strictly-lower scores and their weighted
+    sum, the bonus and the state update; each exp counted as one."""
+    hd, n = 64, B * H * (S // C)
+    low = C * (C - 1) // 2
+    per_chunk = (2 * C * hd * hd            # (r * A) @ S
+                 + 4 * low * hd             # scores: r*k*exp(.) and sum
+                 + 2 * low * hd             # scores @ v
+                 + 5 * C * hd               # bonus
+                 + 3 * C * hd + 2 * C * hd  # logw, rdec, kdec
+                 + 2 * C * hd * hd + 2 * hd * hd)   # state update
+    return n * per_chunk
+
+
+def bound_ms(flops, nbytes_, kind):
+    t_ops = flops / PEAK_FLOPS[kind] * 1e3
+    t_bytes = nbytes_ / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops > t_bytes
+                                 else "bytes")
+
+
+def check_model_kernels(ops, ref, torch, np, dev="cuda") -> dict:
+    """Phase 5: flash attention and chunked RWKV-6 against their plain
+    versions on the card, with the tolerances of tests/test_kernels.py
+    (2e-5 f32 and 5e-2 bf16 attention, 1e-4 RWKV-6)."""
+    rng = np.random.default_rng(1)
+    F = torch.nn.functional
+
+    def rand(shape, dtype=torch.float32, scale=1.0):
+        return torch.as_tensor(rng.normal(0, scale, shape), dtype=dtype,
+                               device=dev)
+
+    def err(got, want):
+        return float((got.float() - want.float()).abs().max())
+
+    def sdpa(q, k, v, kw):
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        Sq, Sk = q.shape[1], k.shape[1]
+        if kw["q_offset"] == 0 and Sq == Sk and not kw["sliding_window"]:
+            return lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True).transpose(1, 2)
+        qpos = kw["q_offset"] + torch.arange(Sq, device=dev)[:, None]
+        kpos = torch.arange(Sk, device=dev)[None, :]
+        mask = kpos <= qpos
+        if kw["sliding_window"]:
+            mask &= kpos > qpos - kw["sliding_window"]
+        return lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True).transpose(1, 2)
+
+    out = {}
+    # ---- flash attention: the serving path's shapes, then ragged ones
+    B, S, Hq, Hkv, D = 4, 1024, 40, 10, 128
+    cases = [  # (label, Sq, Sk, B, Hq, Hkv, D, dtype, window, q_offset)
+        ("prefill bf16", S, S, B, Hq, Hkv, D, torch.bfloat16, 0, 0),
+        ("prefill f32", S, S, B, Hq, Hkv, D, torch.float32, 0, 0),
+        ("decode bf16", 1, S, B, Hq, Hkv, D, torch.bfloat16, 0, 700),
+        ("decode f32", 1, S, B, Hq, Hkv, D, torch.float32, 0, 700),
+        ("ragged Sk f32", 77, 333, 2, 8, 2, 64, torch.float32, 0, 256),
+        ("Sq=1 Sk=1 f32", 1, 1, 3, 4, 4, 32, torch.float32, 0, 0),
+        ("window 4096 f32", 8192, 8192, 1, 8, 2, 128, torch.float32, 4096,
+         0),
+    ]
+    worst = 0.0
+    for label, sq, sk, b, hq, hkv, d, dt, win, off in cases:
+        q, k, v = rand((b, sq, hq, d), dt), rand((b, sk, hkv, d), dt), \
+            rand((b, sk, hkv, d), dt)
+        kw = dict(causal=True, sliding_window=win, q_offset=off)
+        got = ops.flash_attention(q, k, v, **kw)
+        want = ref.mha_reference(q, k, v, **kw)
+        torch.cuda.synchronize()
+        tol = 5e-2 if dt == torch.bfloat16 else 2e-5
+        e = err(got, want)
+        lib = sdpa(q, k, v, kw)
+        e_lib = err(lib(), want)
+        if not (e <= tol and e_lib <= tol):
+            fail(f"flash_attention {label}: max error {e:.3g} (SDPA "
+                 f"{e_lib:.3g}) above {tol}")
+        worst = max(worst, e)
+        flops, nb = attention_work(q, k, causal=True, window=win,
+                                   q_offset=off)
+        kind = "bf16" if dt == torch.bfloat16 else "f32"
+        bms, by = bound_ms(flops, nb, kind)
+        reps = 5 if sq >= 1024 else 50
+        row = dict(ms=time_ms(lambda: ops.flash_attention(q, k, v, **kw),
+                              reps=reps, warmup=2),
+                   plain_ms=time_ms(lambda: ref.mha_reference(q, k, v, **kw),
+                                    reps=reps, warmup=2),
+                   library_ms=time_ms(lib, reps=reps, warmup=2),
+                   flops=flops, bytes=nb, bound_ms=bms, bound_by=by,
+                   max_abs_err=e)
+        print(f"kernel flash_attention {label} {tuple(q.shape)} x "
+              f"{tuple(k.shape)}: max err {e:.3g} (tol {tol}), SDPA err "
+              f"{e_lib:.3g}; kernel {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, SDPA {row['library_ms']:.4f} ms; "
+              f"{flops} FLOP, {nb} B, bound {bms:.4f} ms ({by})",
+              flush=True)
+        out[f"flash {label}"] = row
+        del q, k, v, got, want
+    out["flash_attention"] = dict(out["flash prefill bf16"],
+                                  max_abs_err=worst)
+
+    # ---- chunked RWKV-6: the prefill shape (chunk 16 and 64), strong decay
+    def rwkv_inputs(b, s, h, lo, hi):
+        r, k, v = (rand((b, s, h, 64), scale=0.5) for _ in range(3))
+        w = torch.as_tensor(rng.uniform(lo, hi, (b, s, h, 64)),
+                            dtype=torch.float32, device=dev)
+        return r, k, v, w, rand((h, 64), scale=0.1), \
+            rand((b, h, 64, 64), scale=0.1)
+
+    worst = 0.0
+    for label, (b, s, h, c, lo, hi) in (
+            ("prefill chunk 16", (4, 1024, 64, 16, 0.7, 0.999)),
+            ("prefill chunk 64", (4, 1024, 64, 64, 0.7, 0.999)),
+            ("strong decay chunk 32", (1, 128, 1, 32, 0.3, 0.6))):
+        ins = rwkv_inputs(b, s, h, lo, hi)
+        y, sf = ops.rwkv6_chunked(*ins, chunk=c)
+        y2, sf2 = ref.rwkv6_chunked_reference(*ins, chunk=c)
+        torch.cuda.synchronize()
+        e = max(err(y, y2), err(sf, sf2))
+        if not (e <= 1e-4 and bool(torch.isfinite(y).all())):
+            fail(f"rwkv6_chunked {label}: max error {e:.3g} above 1e-4")
+        worst = max(worst, e)
+        flops, nb = rwkv_flops(b, s, h, c), nbytes(*ins, y, sf)
+        bms, by = bound_ms(flops, nb, "f32")
+        row = dict(ms=time_ms(lambda: ops.rwkv6_chunked(*ins, chunk=c),
+                              reps=20, warmup=2),
+                   plain_ms=time_ms(lambda: ref.rwkv6_chunked_reference(
+                       *ins, chunk=c), reps=5, warmup=1),
+                   library_ms=None, flops=flops, bytes=nb, bound_ms=bms,
+                   bound_by=by, max_abs_err=e)
+        print(f"kernel rwkv6_chunked {label} r {tuple(ins[0].shape)}: max "
+              f"err {e:.3g} (tol 1e-4); kernel {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms; {flops} FLOP, {nb} B, bound "
+              f"{bms:.4f} ms ({by})", flush=True)
+        out[f"rwkv {label}"] = row
+    out["rwkv6_chunked"] = dict(out["rwkv prefill chunk 16"],
+                                max_abs_err=worst)
+    return out
+
+
+def card_vs_cpu(C, LM, step, torch, np) -> None:
+    """Phase 6: the reduced configs in f32 on the card (kernels) and on
+    the CPU (plain versions), same weights; prefill and 16 decode steps.
+    Tolerance 1e-4: only summation orders differ (TF32 is off)."""
+    for arch in SERVE_ARCHS:
+        cfg = dataclasses.replace(C.get_reduced(arch), dtype=torch.float32)
+        cpu = LM(cfg, device="cpu",
+                 generator=torch.Generator().manual_seed(0))
+        gpu = copy.deepcopy(cpu).to("cuda")
+        toks = torch.as_tensor(np.random.default_rng(2).integers(
+            0, cfg.vocab, (2, 80)))
+        prompt, gen = toks[:, :64], toks[:, 64:]
+        errs = [float((step.make_prefill_step(gpu, 80)(
+            {"tokens": prompt.cuda()}).cpu()
+            - step.make_prefill_step(cpu, 80)({"tokens": prompt})
+        ).abs().max())]
+        errs.append(float((gpu(prompt.cuda()).cpu() - cpu(prompt))
+                          .abs().max()))
+        cg, cc = gpu.init_cache(2, 80), cpu.init_cache(2, 80)
+        sg, sc = step.make_serve_step(gpu), step.make_serve_step(cpu)
+        for i in range(16):
+            lg, cg = sg(cg, {"tokens": gen[:, i:i + 1].cuda()})
+            lc, cc = sc(cc, {"tokens": gen[:, i:i + 1]})
+            errs.append(float((lg.cpu() - lc).abs().max()))
+        e = max(errs)
+        if not e <= 1e-4:
+            fail(f"{arch} reduced: card and CPU differ by {e:.3g} > 1e-4")
+        print(f"card vs cpu {arch} reduced f32: prefill [2, 64] + 16 decode "
+              f"steps, max logit error {e:.3g} (tol 1e-4)", flush=True)
+        del cpu, gpu, cg, cc
+
+
+# Prefill (flash at Sq = S, the chunked RWKV-6 kernel) against step-by-step
+# decode (flash at Sq = 1 against the cache, the per-token recurrence):
+# the same f32 arithmetic in another order (GEMMs of [B*S, d] against
+# [B, d] rows, chunked against sequential RWKV sums), so the logits (up
+# to ~8 at these widths) agree within a few 1e-5; a bf16 or TF32 product
+# anywhere would move them by 1e-3 or more.
+FULL_WIDTH_TOL = 2e-4
+
+
+def prefill_vs_decode(C, LM, torch, np) -> None:
+    """Phase 7: full published widths, depth cut to 2 layers, f32."""
+    for arch in SERVE_ARCHS:
+        cfg = dataclasses.replace(C.get_config(arch), n_layers=2,
+                                  dtype=torch.float32)
+        model = LM(cfg, device="cuda",
+                   generator=torch.Generator(device="cuda").manual_seed(0))
+        B, S = 2, 64
+        toks = torch.as_tensor(np.random.default_rng(3).integers(
+            0, cfg.vocab, (B, S)), device="cuda")
+        full = model(toks)
+        cache = model.init_cache(B, S)
+        e = 0.0
+        for i in range(S):
+            lg, cache = model.decode_step(toks[:, i:i + 1], cache)
+            e = max(e, float((lg[:, 0] - full[:, i]).abs().max()))
+        scale = float(full.abs().max())
+        if not e <= FULL_WIDTH_TOL:
+            fail(f"{arch} full width: prefill and decode differ by {e:.3g}")
+        print(f"prefill vs decode {arch} full width 2 layers f32: [{B}, {S}],"
+              f" max logit error {e:.3g} (tol {FULL_WIDTH_TOL}; max |logit| "
+              f"{scale:.3g})", flush=True)
+        del model, full, cache
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def serve_path(arch, C, Server, step, ops, torch, np, card,
+               profile=False) -> dict:
+    """Phase 8: one published config at full size in bf16 on the card:
+    prefill 4 x 1,024 tokens, then 8 requests through a 4-slot Server.
+    Launches are counted from just before the prefill to just after the
+    last request.  ``profile`` then traces one prefill and 8 decode
+    steps."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    srv = Server(arch, device="cuda", slots=4, max_len=1024, reduced=False,
+                 seed=0)
+    torch.cuda.synchronize()
+    cfg = srv.cfg
+    n_params = sum(p.numel() for p in srv.model.parameters())
+    print(f"serve {arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{n_params} parameters ({cfg.param_count():.4g} by "
+          f"ModelCfg.param_count), {cfg.dtype}, initialised on the card in "
+          f"{time.perf_counter() - t0:.1f} s; memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    rng = np.random.default_rng(0)
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab, (4, 1024)),
+                              device="cuda")
+    prefill = step.make_prefill_step(srv.model, 1024)
+    kernel = SERVE_ARCHS[arch]
+
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    walls = []
+    for _ in range(2):          # cold, then warm
+        t0 = time.perf_counter()
+        logits = prefill({"tokens": prompts})
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    if logits.shape != (4, 1, cfg.vocab_padded) or \
+            not bool(torch.isfinite(logits).all()):
+        fail(f"{arch}: prefill logits {tuple(logits.shape)} not finite")
+    inner = srv.step
+
+    def checked_step(cache, batch):
+        lg, cache = inner(cache, batch)
+        if not bool(torch.isfinite(lg).all()):
+            fail(f"{arch}: decode logits not finite")
+        return lg, cache
+    srv.step = checked_step
+    gen = 64
+    want = {}
+    for rid in range(8):
+        prompt = rng.integers(0, cfg.vocab, size=rng.integers(4, 12))
+        srv.submit(rid, prompt, gen)
+        want[rid] = gen + len(prompt)
+    stats = srv.run()
+    torch.cuda.synchronize()
+    counts = dict(ops.LAUNCHES)
+    done = {r: len(t) for r, t in srv.done.items()}
+    if stats["requests"] != 8 or done != want:
+        fail(f"{arch}: requests not all answered: {done} != {want}")
+    if counts[kernel] == 0:
+        fail(f"{arch}: {kernel} never launched on the serving path: "
+             f"{counts}")
+    tokens = sum(done.values())
+    peak = torch.cuda.max_memory_allocated()
+    print(f"serve {arch}: prefill 4 x 1024 tokens in {walls[0]:.3f} s cold, "
+          f"{walls[1]:.3f} s warm = {4096 / walls[1]:.1f} tokens/s; decode "
+          f"{stats['steps']} steps, {stats['ms_per_step']:.2f} ms/step, "
+          f"{tokens} tokens in {stats['wall_s']:.3f} s = "
+          f"{tokens / stats['wall_s']:.1f} tokens/s; peak memory "
+          f"{peak / 1e9:.2f} GB; launches {counts}; card {card}", flush=True)
+    if profile:
+        profile_block(f"{arch} prefill 4 x 1024", lambda: prefill(
+            {"tokens": prompts}), walls[1], torch)
+
+        def decode8():
+            for _ in range(8):
+                lg, srv.cache = srv.step(srv.cache, {"tokens": srv.tokens})
+                lg[:, -1, :cfg.vocab].argmax(-1).cpu()
+        profile_block(f"{arch} decode x 8", decode8,
+                      8 * stats["ms_per_step"] / 1e3, torch)
+    del srv, logits, prefill, inner
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> None:
     profile = "--profile" in sys.argv[1:]
     import numpy as np
@@ -243,7 +586,11 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a card")
     try:
+        from repro_torch import configs as C
         from repro_torch import data as GOLD
+        from repro_torch.launch.serve import Server
+        from repro_torch.models.lm import LM
+        from repro_torch.train import step as STEP
         from repro_torch.kernels import _build, ops
         from repro_torch.kernels import ref as KREF
         from repro_torch.net.sim import build as B
@@ -295,7 +642,7 @@ def main() -> None:
     print(f"spec: {base.name} built in {time.perf_counter() - t0:.1f} s; "
           f"shapes {shapes}", flush=True)
 
-    # 3. kernel checks
+    # 3. tick kernel checks
     nums = check_kernels(ops, KREF, torch, np, shapes)
     for name, v in nums.items():
         print(f"kernel {name}: equal to plain; kernel {v['ms'] * 1e3:.2f} us,"
@@ -306,7 +653,7 @@ def main() -> None:
     print(f"kernel flow_agg (K=2): {nums['flow_agg']['ms_k2'] * 1e3:.2f} us",
           flush=True)
 
-    # 4. main path
+    # 4. engine path
     golden = GOLD.load()["schemes"]
     launches = dict.fromkeys(KERNELS, 0)
     specs = {s: B.respec_scheme(base, s) for s in GOLD.SCHEMES}
@@ -348,8 +695,23 @@ def main() -> None:
               f"{res.ticks_simulated / wall:.1f} ticks/s", flush=True)
     if profile:
         run_profile(E, specs["spritz_spray_w"], cfg["seed"], torch, wall)
+    card = card_line()
 
-    # 5. result lines
+    # 5. model kernel checks
+    nums.update(check_model_kernels(ops, KREF, torch, np))
+    for name in TICK_KERNELS:
+        nums[name].update(bound_ms=nums[name]["bytes"] / HBM_BYTES_PER_S
+                          * 1e3, bound_by="bytes")
+    # 6. card against CPU, reduced configs
+    card_vs_cpu(C, LM, STEP, torch, np)
+    # 7. prefill against decode, full width
+    prefill_vs_decode(C, LM, torch, np)
+    # 8. serving path, full published configs
+    for arch, kernel in SERVE_ARCHS.items():
+        launches[kernel] = serve_path(arch, C, Server, STEP, ops, torch, np,
+                                      card, profile)[kernel]
+
+    # 9. result lines
     rows = []
     for name, (src, replaces) in KERNELS.items():
         v = nums[name]
@@ -357,39 +719,56 @@ def main() -> None:
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": v["max_abs_err"], "ms": v["ms"],
-            "plain_ms": v["plain_ms"],
-            "bound_ms": v["bytes"] / HBM_BYTES_PER_S * 1e3,
-            "bound_by": "bytes", "library_ms": v["library_ms"]})
+            "plain_ms": v["plain_ms"], "bound_ms": v["bound_ms"],
+            "bound_by": v["bound_by"], "library_ms": v["library_ms"]})
+    flash = next(r for r in rows if r["name"] == "flash_attention")
+    for label in ("decode bf16", "window 4096 f32"):
+        key = label.replace(" ", "_")
+        flash[f"{key}_ms"] = nums[f"flash {label}"]["ms"]
+        flash[f"{key}_bound_ms"] = nums[f"flash {label}"]["bound_ms"]
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
 
 
-def run_profile(E, spec, seed, torch, warm_wall: float) -> None:
-    """Where one warm main-path run spends the card's time
-    (torch.profiler): device time of CUDA kernels only, the busy share
-    against the unprofiled warm wall time, the kernels launched per step,
-    and the device time per call of the port's own kernels."""
+def profile_block(label, fn, warm_wall: float, torch, top: int = 8):
+    """Device time of the CUDA kernels that ``fn`` launches
+    (torch.profiler), against ``warm_wall``, the unprofiled wall time in
+    seconds of the same work; prints the kernels with the most device
+    time and returns (kernel events, launches, ``fn``'s result)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        res = E.run(spec, seed=seed, device="cuda")
+        out = fn()
         torch.cuda.synchronize()
     kern = [e for e in prof.key_averages()
             if getattr(e, "device_type", None) == DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kern)
     n_launch = sum(e.count for e in kern)
-    steps = res.steps_executed
-    print(f"profile {spec.name}: device kernel time {busy_us / 1e3:.1f} ms "
-          f"over {steps} steps = {busy_us / 1e4 / warm_wall:.1f} % of the "
-          f"unprofiled warm wall {warm_wall:.3f} s; {n_launch} kernel "
-          f"launches = {n_launch / steps:.0f} per step", flush=True)
-    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:12]:
-        print(f"profile: {e.key[:70]:70s} {e.self_device_time_total / 1e3:7.2f}"
-              f" ms {e.count:6d} calls", flush=True)
+    print(f"profile {label}: device kernel time {busy_us / 1e3:.3f} ms = "
+          f"{busy_us / 1e4 / warm_wall:.1f} % of the unprofiled wall "
+          f"{warm_wall * 1e3:.3f} ms; {n_launch} kernel launches",
+          flush=True)
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:top]:
+        print(f"profile {label}: {e.key[:60]:60s} "
+              f"{e.self_device_time_total / 1e3:8.3f} ms {e.count:6d} calls",
+              flush=True)
+    return kern, n_launch, out
+
+
+def run_profile(E, spec, seed, torch, warm_wall: float) -> None:
+    """Where one warm engine run spends the card's time: the busy share
+    against the unprofiled warm wall time, the kernels launched per step,
+    and the device time per call of the tick kernels."""
+    kern, n_launch, res = profile_block(
+        spec.name, lambda: E.run(spec, seed=seed, device="cuda"), warm_wall,
+        torch, top=12)
+    print(f"profile {spec.name}: {res.steps_executed} steps, "
+          f"{n_launch / res.steps_executed:.0f} launches per step",
+          flush=True)
     for e in kern:
         if e.key.split("(")[0] in ("flow_agg_kernel", "tick_rank_kernel",
                                    "red_ecn_kernel", "spritz_select_kernel"):

@@ -1,4 +1,4 @@
-"""Build and load the CUDA tick kernels.
+"""Build and load the CUDA kernels.
 
 Each ``csrc/*.cu`` file is compiled by its own ``nvcc`` process for
 ``sm_90a`` into a shared library with a plain C interface; the processes
@@ -23,18 +23,28 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
-              "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# The tick kernels reproduce XLA's f32 rounding bit for bit, so nvcc may
+# not contract a multiply and an add into an fma.  The model kernels are
+# held to a tolerance and keep nvcc's default contraction.
+EXACT = ("-fmad=false",)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C entry point and argument types of each kernel's library
+# C entry point, argument types and extra nvcc flags of each kernel's
+# library (every entry point takes the stream last)
 SIGNATURES = {
-    "flow_agg": ("flow_agg_launch", (_P, _P, _P, _I, _I, _I, _P)),
-    "tick_rank": ("tick_rank_launch", (_P, _P, _I, _I, _P)),
+    "flow_agg": ("flow_agg_launch", (_P, _P, _P, _I, _I, _I, _P), EXACT),
+    "tick_rank": ("tick_rank_launch", (_P, _P, _I, _I, _P), EXACT),
     "red_ecn": ("red_ecn_launch", (_P, _P, _P, _P, _P, _I, _I, _F, _F, _I,
-                                   _I, _P, _P, _P, _P, _P)),
+                                   _I, _P, _P, _P, _P, _P), EXACT),
     "spritz_select": ("spritz_select_launch", (_P, _P, _P, _P, _I, _I, _I,
-                                               _P, _P, _P, _P)),
+                                               _P, _P, _P, _P), EXACT),
+    "flash_attention": ("flash_attention_launch",
+                        (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                         _I, _F, _P), ()),
+    "rwkv6_chunked": ("rwkv6_chunked_launch",
+                      (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                       _P), ()),
 }
 
 _FUNCS: dict = {}
@@ -46,7 +56,7 @@ def nvcc() -> str:
     if path is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
         path = "/usr/local/cuda/bin/nvcc"
     if path is None:
-        raise RuntimeError("nvcc not found: the CUDA tick kernels need the "
+        raise RuntimeError("nvcc not found: the CUDA kernels need the "
                            "CUDA toolkit (add its bin/ to PATH)")
     return path
 
@@ -55,6 +65,7 @@ def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in sorted(SIGNATURES):
         h.update(name.encode())
+        h.update(" ".join(SIGNATURES[name][2]).encode())
         h.update((CSRC / f"{name}.cu").read_bytes())
     return h.hexdigest()[:16]
 
@@ -75,7 +86,8 @@ def build() -> dict[str, Path]:
     procs = {}
     for name in todo:
         tmp = out / f".lib{name}.{os.getpid()}.so"
-        cmd = [exe, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [exe, *NVCC_FLAGS, *SIGNATURES[name][2], "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
         procs[name] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True))
@@ -99,7 +111,7 @@ def library(name: str):
     fn = _FUNCS.get(name)
     if fn is None:
         libs = build()
-        for kname, (sym, argtypes) in SIGNATURES.items():
+        for kname, (sym, argtypes, _) in SIGNATURES.items():
             f = getattr(ctypes.CDLL(str(libs[kname])), sym)
             f.argtypes = list(argtypes)
             f.restype = ctypes.c_int

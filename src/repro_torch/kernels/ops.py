@@ -1,4 +1,5 @@
-"""Wrappers of the four CUDA tick kernels.
+"""Wrappers of the six CUDA kernels (four tick kernels, attention and
+the chunked RWKV-6 time mix).
 
 Each wrapper checks its inputs, then either launches its kernel on the
 current CUDA stream (tensors on the card) or calls the kernel's plain
@@ -9,6 +10,8 @@ per wrapper, so a run can show that it went through the kernels.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch._parity import f32, red_recip
@@ -16,7 +19,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ref as R
 
 LAUNCHES = dict.fromkeys(("flow_agg", "tick_rank", "red_ecn",
-                          "spritz_select"), 0)
+                          "spritz_select", "flash_attention",
+                          "rwkv6_chunked"), 0)
+_FLOAT_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def reset_launches() -> None:
@@ -153,3 +158,80 @@ def spritz_select(w, u, buf_front, packet_count, *, explore_threshold: int):
             int(explore_threshold), ev.data_ptr(), newcnt.data_ptr(),
             used.data_ptr())
     return ev, newcnt, used
+
+
+def _float_code(name: str, *ts: torch.Tensor) -> int:
+    """0 for f32, 1 for bf16; every tensor must have the same type and
+    start on a 16-byte boundary (the kernels load vectors)."""
+    dt = ts[0].dtype
+    if dt not in _FLOAT_CODES or any(t.dtype != dt for t in ts):
+        raise ValueError(f"{name}: inputs must all be float32 or all "
+                         f"bfloat16, got {[str(t.dtype) for t in ts]}")
+    if any(t.data_ptr() % 16 for t in ts):
+        raise ValueError(f"{name}: inputs must be 16-byte aligned")
+    return _FLOAT_CODES[dt]
+
+
+def flash_attention(q, k, v, *, causal: bool = True, sliding_window: int = 0,
+                    q_offset: int = 0):
+    """GQA attention.  q: [B, Sq, Hq, D]; k, v: [B, Sk, Hkv, D], Hq a
+    multiple of Hkv (query head h reads kv head h // (Hq // Hkv)); f32 or
+    bf16.  Query row i sits at position ``q_offset + i`` (decode: the
+    cache length).  Returns [B, Sq, Hq, D] in q's dtype.  On the card D
+    must be 32, 64 or 128."""
+    if not (q.ndim == k.ndim == v.ndim == 4):
+        raise ValueError("q, k and v must be 4-D [B, S, H, D]")
+    B, Sq, Hq, D = q.shape
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    Sk, Hkv = k.shape[1], k.shape[2]
+    if Sk < 1 or Hkv < 1 or Hq % Hkv:
+        raise ValueError(f"need Sk >= 1 and Hq ({Hq}) a multiple of Hkv "
+                         f"({Hkv})")
+    if q_offset < 0 or sliding_window < 0:
+        raise ValueError("q_offset and sliding_window must be >= 0")
+    kw = dict(causal=causal, sliding_window=sliding_window,
+              q_offset=int(q_offset))
+    if _on_cpu(q, k, v):
+        return R.mha_reference(q, k, v, **kw)
+    code = _float_code("flash_attention", q, k, v)
+    if D not in (32, 64, 128):
+        raise ValueError(f"flash_attention kernel: D must be 32, 64 or 128, "
+                         f"got {D}")
+    o = torch.empty_like(q)
+    _launch("flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            o.data_ptr(), B, Sq, Sk, Hq, Hkv, D, code, int(bool(causal)),
+            int(sliding_window), int(q_offset), 1.0 / math.sqrt(D))
+    return o
+
+
+def rwkv6_chunked(r, k, v, w, u, wkv0, *, chunk: int = 64):
+    """Chunked RWKV-6 time mix.  r, k, v, w: [B, S, H, 64] and u: [H, 64],
+    all f32 or all bf16; wkv0: [B, H, 64, 64] f32.  ``min(chunk, S)``
+    must divide S (and be at most 64 on the card).  Returns (y
+    [B, S, H, 64] f32, final state [B, H, 64, 64] f32)."""
+    if not (r.ndim == 4 and r.shape == k.shape == v.shape == w.shape):
+        raise ValueError(f"r/k/v/w must share a 4-D shape, got "
+                         f"{[tuple(t.shape) for t in (r, k, v, w)]}")
+    B, S, H, hd = r.shape
+    if hd != 64 or tuple(u.shape) != (H, hd) or \
+            tuple(wkv0.shape) != (B, H, hd, hd):
+        raise ValueError(f"need hd = 64, u [H, 64], wkv0 [B, H, 64, 64]; got "
+                         f"r {tuple(r.shape)}, u {tuple(u.shape)}, wkv0 "
+                         f"{tuple(wkv0.shape)}")
+    C = min(chunk, S)
+    if C < 1 or S % C:
+        raise ValueError(f"chunk {C} does not divide S = {S}")
+    if _on_cpu(r, k, v, w, u, wkv0):
+        return R.rwkv6_chunked_reference(r, k, v, w, u, wkv0, chunk=C)
+    code = _float_code("rwkv6_chunked", r, k, v, w, u)
+    _dtype(wkv0, torch.float32, "wkv0")
+    if C > 64:
+        raise ValueError(f"rwkv6_chunked kernel: chunk must be <= 64, got {C}")
+    y = torch.empty((B, S, H, hd), dtype=torch.float32, device=r.device)
+    sout = torch.empty_like(wkv0)
+    _launch("rwkv6_chunked", r.data_ptr(), k.data_ptr(), v.data_ptr(),
+            w.data_ptr(), u.data_ptr(), wkv0.data_ptr(), y.data_ptr(),
+            sout.data_ptr(), B, S, H, C, code)
+    return y, sout

@@ -1,11 +1,15 @@
-"""Plain torch versions of the four tick kernels.
+"""Plain torch versions of the six kernels.
 
-Each mirrors its oracle in ``repro.kernels.ref`` operation for operation,
-so it is bit-identical to the reference on any device.  ``ops`` calls
+Each tick kernel's version mirrors its oracle in ``repro.kernels.ref``
+operation for operation, so it is bit-identical to the reference on any
+device.  The model kernels' versions (attention, RWKV-6) are f32 and
+held to the tolerances of ``tests/test_kernels.py``.  ``ops`` calls
 these for tensors on the CPU; ``chip_smoke.py`` holds each CUDA kernel
 against them on the card.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -59,3 +63,84 @@ def flow_agg_reference(rows, pflow, *, n_flows: int):
     oh = (pflow[:, None] == torch.arange(n_flows, dtype=torch.int32,
                                          device=pflow.device)[None, :])
     return (rows.float() @ oh.float()).to(torch.int32)
+
+
+def mha_reference(q, k, v, *, causal: bool = True, sliding_window: int = 0,
+                  q_offset: int = 0):
+    """q: [B, Sq, Hq, D]; k, v: [B, Sk, Hkv, D] (GQA: query head h reads
+    kv head h // G) -> [B, Sq, Hq, D] in q's dtype.  f32 softmax; masked
+    scores are -1e30, as in the reference."""
+    B, Sq, Hq, D = q.shape
+    _, Sk, Hkv, _ = k.shape
+    G = Hq // Hkv
+    qg = q.reshape(B, Sq, Hkv, G, D).float()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) / math.sqrt(D)
+    qpos = q_offset + torch.arange(Sq, device=q.device)
+    kpos = torch.arange(Sk, device=q.device)
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos[None, :] <= qpos[:, None]
+    if sliding_window:
+        mask &= kpos[None, :] > qpos[:, None] - sliding_window
+    s = s.masked_fill(~mask, -1e30)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    return o.reshape(B, Sq, Hq, D).to(q.dtype)
+
+
+def rwkv6_chunked_reference(r, k, v, w, u, wkv0, *, chunk: int = 16):
+    """Chunked RWKV-6 recurrence in f32 (mirror of the reference's
+    ``models.ssm.rwkv6_chunked_jnp``): per chunk the inter-chunk term
+    ``(r * A_{t-1}) @ S``, the intra-chunk term with stable pairwise
+    decays ``exp(L_{t-1} - L_s) <= 1`` (strictly lower), the ``u`` bonus
+    diagonal and ``S' = diag(A_C) S + (k * exp(L_C - L))^T V``.
+
+    r, k, v, w: [B, S, H, hd]; u: [H, hd]; wkv0: [B, H, hd, hd].  Returns
+    (y [B, S, H, hd] f32, wkv_final f32)."""
+    B, S, H, hd = r.shape
+    C = min(chunk, S)
+    if S % C:
+        raise ValueError(f"chunk {C} does not divide S = {S}")
+    n = S // C
+    r, k, v, w, u = (a.float() for a in (r, k, v, w, u))
+    logw = torch.log(w.clamp_min(1e-30))
+
+    def resh(a):
+        return a.reshape(B, n, C, H, hd).transpose(0, 1)
+    rc, kc, vc, lw = resh(r), resh(k), resh(v), resh(logw)
+    idx = torch.arange(C, device=r.device)
+    tril = (idx[None, :] < idx[:, None])[None, :, :, None, None]
+    S0 = wkv0.float()
+    ys = []
+    for i in range(n):
+        rr, kk, vv, lwc = rc[i], kc[i], vc[i], lw[i]          # [B,C,H,hd]
+        L = torch.cumsum(lwc, 1)
+        Lprev = L - lwc
+        y = torch.einsum("bthk,bhkv->bthv", rr * torch.exp(Lprev), S0)
+        P = torch.exp(Lprev[:, :, None] - L[:, None, :])    # [B,C,C,H,hd]
+        scores = torch.einsum("bthc,bshc,btshc->btsh", rr, kk,
+                              torch.where(tril, P, 0.0))
+        y = y + torch.einsum("btsh,bshv->bthv", scores, vv)
+        y = y + (rr * u[None, None] * kk).sum(-1, keepdim=True) * vv
+        A_C = torch.exp(L[:, -1])                             # [B,H,hd]
+        kdec = kk * torch.exp(L[:, -1:] - L)
+        S0 = A_C[..., None] * S0 + torch.einsum("bshk,bshv->bhkv", kdec, vv)
+        ys.append(y)
+    return torch.stack(ys, 1).reshape(B, S, H, hd), S0
+
+
+def rwkv6_reference(r, k, v, w, u, wkv0):
+    """Sequential RWKV-6 recurrence in f32, one token per step:
+    ``y_t = r_t (S + u * k_t v_t^T)``, ``S = diag(w_t) S + k_t v_t^T``.
+
+    r, k, v, w: [B, S, H, hd]; u: [H, hd]; wkv0: [B, H, hd, hd].  Returns
+    (y [B, S, H, hd], wkv_final).  The model's decode step runs this."""
+    r, k, v, w, u = (a.float() for a in (r, k, v, w, u))
+    wkv = wkv0.float()
+    ys = []
+    for t in range(r.shape[1]):
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]
+        ys.append(torch.einsum("bhk,bhkv->bhv", r[:, t],
+                               wkv + u[None, :, :, None] * kv))
+        wkv = w[:, t, :, :, None] * wkv + kv
+    return torch.stack(ys, 1), wkv

@@ -1,0 +1,182 @@
+"""Language model for the dense and RWKV families: the port of
+``repro.models.lm``'s ``init_params`` / ``forward`` / ``init_cache`` /
+``decode_step``.
+
+Layers are a ``ModuleList`` (no stacked scan).  The MoE, hybrid, VLM
+and enc-dec families raise ``NotImplementedError`` (ROADMAP.md queue 1,
+item 10).
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.models import ssm
+from repro_torch.models.common import (MLP, UNPORTED, Attention, ModelCfg,
+                                       init_rope, param, rms_norm)
+
+MAX_ROPE = 1 << 16
+FAMILIES = ("dense", "rwkv")
+
+
+def block_kinds(cfg: ModelCfg) -> list[str]:
+    """Block kind for each layer position within one scan unit."""
+    if cfg.family == "rwkv":
+        return ["rwkv"]
+    if cfg.family == "encdec":
+        return ["dec"]
+    if cfg.family == "hybrid":
+        kinds = []
+        for i in range(cfg.attn_every):
+            base = "attn" if i == 0 else "mamba"
+            moe = cfg.moe is not None and i % cfg.moe.every == 1
+            kinds.append(base + ("_moe" if moe else ""))
+        return kinds
+    if cfg.moe is not None:
+        return ["attn_moe"]
+    return ["attn"]
+
+
+def scan_unit(cfg: ModelCfg) -> tuple[int, int]:
+    """(number of units, layers per unit) of the reference's stacked
+    parameter layout."""
+    kinds = block_kinds(cfg)
+    u = len(kinds)
+    if cfg.n_layers % u:
+        raise ValueError(f"n_layers {cfg.n_layers} is not a multiple of "
+                         f"the unit {u}")
+    return cfg.n_layers // u, u
+
+
+def resolve_device(device) -> torch.device:
+    """The card unless the caller names another device; raises without
+    one."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run the "
+                           "kernels' plain versions on the CPU")
+    return dev
+
+
+class Block(nn.Module):
+    """Pre-norm residual block: attention + MLP, or RWKV time mix +
+    channel mix."""
+
+    def __init__(self, cfg: ModelCfg, kind: str, *, device, generator=None):
+        super().__init__()
+        self.cfg, self.kind = cfg, kind
+        kw = dict(device=device, generator=generator)
+        self.ln1 = param((cfg.d_model,), torch.float32, device, None, fill=1.0)
+        self.ln2 = param((cfg.d_model,), torch.float32, device, None, fill=1.0)
+        if kind == "attn":
+            self.attn = Attention(cfg, **kw)
+            self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.dtype, **kw)
+        elif kind == "rwkv":
+            self.tmix = ssm.RWKV6TimeMix(cfg, **kw)
+            self.cmix = ssm.RWKVChannelMix(cfg, **kw)
+        else:
+            raise NotImplementedError(f"block kind {kind!r}: {UNPORTED}")
+
+    def forward(self, x, rope=None, positions=None, cache=None,
+                cache_len: int = 0):
+        """``cache`` (decode) is this layer's dict, updated in place."""
+        eps = self.cfg.norm_eps
+        if self.kind == "rwkv":
+            h, shift, wkv = self.tmix(rms_norm(x, self.ln1, eps), cache)
+            x = x + h
+            h, cshift = self.cmix(rms_norm(x, self.ln2, eps),
+                                  None if cache is None else cache["cshift"])
+            if cache is not None:
+                cache["shift"].copy_(shift)
+                cache["wkv"].copy_(wkv)
+                cache["cshift"].copy_(cshift)
+            return x + h
+        x = x + self.attn(rms_norm(x, self.ln1, eps), rope, positions,
+                          kv_cache=cache, cache_len=cache_len)
+        return x + self.mlp(rms_norm(x, self.ln2, eps))
+
+
+class LM(nn.Module):
+    """Embedding, ``n_layers`` blocks, final norm and output head, with
+    the reference's parameter names and layouts.  Parameters are drawn
+    from ``generator`` on ``device`` (the card unless named)."""
+
+    def __init__(self, cfg: ModelCfg, *, device=None, generator=None):
+        super().__init__()
+        if cfg.family not in FAMILIES:
+            raise NotImplementedError(f"family {cfg.family!r}: {UNPORTED}")
+        dev = resolve_device(device)
+        self.cfg = cfg
+        d = cfg.d_model
+        kw = dict(device=dev, generator=generator)
+        self.embed = param((cfg.vocab_padded, d), cfg.dtype, scale=0.02, **kw)
+        self.out = param((d, cfg.vocab_padded), cfg.dtype, scale=0.02, **kw)
+        self.ln_f = param((d,), torch.float32, dev, None, fill=1.0)
+        kinds = block_kinds(cfg)
+        self.blocks = nn.ModuleList(
+            Block(cfg, kinds[i % len(kinds)], **kw)
+            for i in range(cfg.n_layers))
+        cos = sin = None
+        if "attn" in kinds:   # built once per model, shared by every step
+            cos, sin = init_rope(cfg.d_head, MAX_ROPE, cfg.rope_theta,
+                                 device=dev)
+        self.register_buffer("rope_cos", cos, persistent=False)
+        self.register_buffer("rope_sin", sin, persistent=False)
+
+    @property
+    def rope(self):
+        return (self.rope_cos, self.rope_sin)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    def _head(self, x):
+        return rms_norm(x, self.ln_f, self.cfg.norm_eps) @ self.out
+
+    @torch.no_grad()
+    def forward(self, tokens):
+        """Training / prefill forward.  tokens: [B, S] int.  Returns logits
+        [B, S, vocab_padded]."""
+        x = self.embed[tokens.long()]
+        B, S, _ = x.shape
+        positions = torch.arange(S, device=x.device).expand(B, S)
+        for blk in self.blocks:
+            x = blk(x, self.rope, positions)
+        return self._head(x)
+
+    def init_cache(self, batch: int, max_len: int) -> dict:
+        """Decode cache: ``{"layers": [one dict per layer], "len": int}``;
+        an attention layer holds ``k``/``v`` [batch, max_len, n_kv,
+        d_head], an RWKV layer ``shift``/``cshift`` [batch, d] and ``wkv``
+        [batch, H, 64, 64] f32."""
+        cfg, dev = self.cfg, self.device
+        layers = []
+        for blk in self.blocks:
+            if blk.kind == "attn":
+                shape = (batch, max_len, cfg.n_kv, cfg.d_head)
+                layers.append({n: torch.zeros(shape, dtype=cfg.dtype,
+                                              device=dev) for n in "kv"})
+            else:
+                H = cfg.d_model // ssm.HD
+                layers.append({
+                    "shift": torch.zeros((batch, cfg.d_model),
+                                         dtype=cfg.dtype, device=dev),
+                    "wkv": torch.zeros((batch, H, ssm.HD, ssm.HD),
+                                       dtype=torch.float32, device=dev),
+                    "cshift": torch.zeros((batch, cfg.d_model),
+                                          dtype=cfg.dtype, device=dev)})
+        return {"layers": layers, "len": 0}
+
+    @torch.no_grad()
+    def decode_step(self, tokens, cache):
+        """One decode step.  tokens: [B, 1].  Updates ``cache`` in place
+        (the reference donates it) and returns (logits [B, 1, V], cache)."""
+        n = cache["len"]
+        x = self.embed[tokens.long()]
+        B = x.shape[0]
+        pos = torch.full((B, 1), n, dtype=torch.long, device=x.device)
+        for blk, lc in zip(self.blocks, cache["layers"]):
+            x = blk(x, self.rope, pos, cache=lc, cache_len=n)
+        cache["len"] = n + 1
+        return self._head(x), cache

@@ -1,23 +1,31 @@
-"""The port on the card equals the port on the CPU, bit for bit.
+"""The port on the card equals the port on the CPU.
 
 The CPU port is held against the JAX reference by the other
 ``test_torch_*`` files; these tests carry that to the card without JAX:
-each CUDA kernel against its plain version at small and ragged shapes,
-and the whole engine on DF(4,2,2) on ``cuda`` against the same run on
-``cpu``, for the kernels and for the engine's torch forms.  They need a
-card and skip without one.  On a machine with an H100:
+each CUDA kernel against its plain version at small and ragged shapes
+(the tick kernels bit for bit, attention and RWKV-6 within the
+tolerances of ``tests/test_kernels.py``), the whole engine on DF(4,2,2)
+on ``cuda`` against the same run on ``cpu``, for the kernels and for the
+engine's torch forms, and the reduced dense and RWKV models on ``cuda``
+against ``cpu`` within 1e-4.  They need a card and skip without one.  On
+a machine with an H100:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import copy
+import dataclasses
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch import configs as C  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.net.sim import build as B  # noqa: E402
 from repro_torch.net.sim import engine as E  # noqa: E402
+from repro_torch.models.lm import LM  # noqa: E402
 from repro_torch.net.topology.dragonfly import make_dragonfly  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -30,6 +38,7 @@ RNG = np.random.default_rng(3)
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -115,3 +124,60 @@ def test_engine_on_card_equals_cpu(cuda, scheme, dense, use_kernels):
         assert launched["flow_agg"] > 0 and launched["tick_rank"] > 0
     else:
         assert sum(launched.values()) == 0
+
+
+def _close(got, want, tol):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert float((got.cpu().float() - want.float()).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,window,q_offset", [
+    (1, 128, 128, 4, 4, 64, 0, 0), (2, 100, 100, 8, 2, 128, 0, 0),
+    (2, 1, 300, 8, 2, 128, 0, 250), (3, 77, 333, 4, 1, 32, 0, 256),
+    (1, 256, 256, 4, 2, 64, 64, 0), (2, 1, 1, 4, 4, 32, 0, 0)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_kernel(cuda, B, Sq, Sk, Hq, Hkv, D, window,
+                                q_offset, dtype):
+    dt = getattr(torch, dtype)
+    q = _pair(RNG.normal(0, 1, (B, Sq, Hq, D)), dt, cuda)
+    k = _pair(RNG.normal(0, 1, (B, Sk, Hkv, D)), dt, cuda)
+    v = _pair(RNG.normal(0, 1, (B, Sk, Hkv, D)), dt, cuda)
+    kw = dict(causal=True, sliding_window=window, q_offset=q_offset)
+    _close(ops.flash_attention(q[1], k[1], v[1], **kw),
+           ref.mha_reference(q[0], k[0], v[0], **kw),
+           2e-5 if dtype == "float32" else 5e-2)
+
+
+@pytest.mark.parametrize("B,S,H,chunk,lo", [
+    (1, 64, 1, 16, 0.7), (2, 128, 2, 32, 0.7), (1, 256, 4, 64, 0.7),
+    (2, 48, 3, 16, 0.7), (1, 128, 1, 32, 0.3)])
+def test_rwkv6_chunked_kernel(cuda, B, S, H, chunk, lo):
+    ins = [_pair(RNG.normal(0, 0.5, (B, S, H, 64)), torch.float32, cuda)
+           for _ in range(3)]
+    ins.append(_pair(RNG.uniform(lo, 0.999 if lo > 0.5 else 0.6,
+                                 (B, S, H, 64)), torch.float32, cuda))
+    ins.append(_pair(RNG.normal(0, 0.1, (H, 64)), torch.float32, cuda))
+    ins.append(_pair(RNG.normal(0, 0.1, (B, H, 64, 64)), torch.float32,
+                     cuda))
+    y, sf = ops.rwkv6_chunked(*[g for _, g in ins], chunk=chunk)
+    y2, sf2 = ref.rwkv6_chunked_reference(*[c for c, _ in ins], chunk=chunk)
+    _close(y, y2, 1e-4)
+    _close(sf, sf2, 1e-4)
+
+
+@pytest.mark.parametrize("arch", ["phi3_medium_14b", "qwen2_5_32b",
+                                  "granite_34b", "rwkv6_7b"])
+def test_reduced_model_on_card_equals_cpu(cuda, arch):
+    cfg = dataclasses.replace(C.get_reduced(arch), dtype=torch.float32)
+    cpu = LM(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    gpu = copy.deepcopy(cpu).to(cuda)
+    toks = torch.as_tensor(RNG.integers(0, cfg.vocab, (2, 40)))
+    ops.reset_launches()
+    _close(gpu(toks[:, :32].to(cuda)), cpu(toks[:, :32]), 1e-4)
+    cg, cc = gpu.init_cache(2, 16), cpu.init_cache(2, 16)
+    for i in range(8):
+        tok = toks[:, 32 + i:33 + i]
+        _close(gpu.decode_step(tok.to(cuda), cg)[0],
+               cpu.decode_step(tok, cc)[0], 1e-4)
+    kernel = "rwkv6_chunked" if cfg.family == "rwkv" else "flash_attention"
+    assert ops.LAUNCHES[kernel] > 0

@@ -3,7 +3,8 @@
 On the CPU each ``repro_torch.kernels.ops`` wrapper runs its kernel's
 plain version (``repro_torch.kernels.ref``); both are held here against
 ``repro.kernels.ref`` and against the Pallas kernel itself in interpret
-mode, bit for bit.  The reference oracles run under ``jax.jit``, as the
+mode: the tick kernels bit for bit, attention and RWKV-6 within the
+tolerances of ``tests/test_kernels.py``.  The reference oracles run under ``jax.jit``, as the
 engine runs them: eagerly XLA divides by ``kmax - kmin``, jitted it
 multiplies by the f32 reciprocal, and the port follows the engine.  The
 CUDA kernels are held against the same plain
@@ -19,7 +20,9 @@ torch.set_num_threads(1)
 
 from repro.kernels import ops as JOPS  # noqa: E402
 from repro.kernels import ref as JREF  # noqa: E402
+from repro.models import ssm as JSSM  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ref as TREF  # noqa: E402
 
 RNG = np.random.default_rng(11)
 RED_REF = jax.jit(JREF.red_ecn_reference,
@@ -173,4 +176,137 @@ def test_cpu_tensors_never_launch():
     rows = torch.ones((2, 16), dtype=torch.int32)
     ops.flow_agg(rows, torch.zeros(16, dtype=torch.int32), n_flows=3)
     ops.tick_rank(torch.zeros(16, dtype=torch.int32), n_ports=3)
+    assert ops.LAUNCHES == dict.fromkeys(ops.LAUNCHES, 0)
+
+
+# ------------------------------------------------------ flash_attention --
+def _rand(shape, scale=1.0):
+    return RNG.normal(0, scale, shape).astype(np.float32)
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D", [
+    (1, 128, 128, 4, 4, 64),      # MHA
+    (2, 256, 256, 8, 2, 64),      # GQA 4:1
+    (1, 128, 128, 4, 1, 128),     # MQA, d_head 128
+    (2, 128, 384, 4, 2, 64),      # cross-length (decode-ish block)
+])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_shapes(B, Sq, Sk, Hq, Hkv, D, causal):
+    q, k, v = _rand((B, Sq, Hq, D)), _rand((B, Sk, Hkv, D)), \
+        _rand((B, Sk, Hkv, D))
+    got = ops.flash_attention(_t(q), _t(k), _t(v), causal=causal)
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    _close(got, JREF.mha_reference(jq, jk, jv, causal=causal), 2e-5)
+    _close(got, JOPS.flash_attention(jq, jk, jv, causal=causal, block_q=64,
+                                     block_k=64, interpret=True), 2e-5)
+
+
+def test_flash_attention_bf16():
+    q, k, v = _rand((1, 128, 4, 64)), _rand((1, 128, 2, 64)), \
+        _rand((1, 128, 2, 64))
+    bf = [jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)]
+    tq, tk, tv = (torch.from_numpy(np.array(a, np.float32))
+                  .to(torch.bfloat16) for a in bf)
+    got = ops.flash_attention(tq, tk, tv, causal=True)
+    assert got.dtype == torch.bfloat16
+    _close(got, JOPS.flash_attention(*bf, causal=True, interpret=True), 5e-2)
+    _close(got, JREF.mha_reference(*(a.astype(jnp.float32) for a in bf),
+                                   causal=True), 5e-2)
+
+
+@pytest.mark.parametrize("window,Sq,Sk,q_offset", [
+    (64, 256, 256, 0),            # sliding window, prefill
+    (0, 128, 384, 256),           # decode block at an offset
+    (0, 1, 100, 57),              # one query, ragged Sk (decode step)
+    (16, 1, 100, 57),             # decode step under a window
+])
+def test_flash_attention_masks(window, Sq, Sk, q_offset):
+    q, k, v = _rand((2, Sq, 4, 64)), _rand((2, Sk, 2, 64)), \
+        _rand((2, Sk, 2, 64))
+    kw = dict(causal=True, sliding_window=window, q_offset=q_offset)
+    got = ops.flash_attention(_t(q), _t(k), _t(v), **kw)
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    _close(got, JREF.mha_reference(jq, jk, jv, **kw), 2e-5)
+    _close(got, JOPS.flash_attention(jq, jk, jv, block_q=min(64, Sq),
+                                     block_k=Sk, interpret=True, **kw), 2e-5)
+
+
+# --------------------------------------------------------- rwkv6_chunked --
+def _rwkv_inputs(B, S, H, lo=0.7, s0_scale=0.1):
+    r, k, v = (_rand((B, S, H, 64), 0.5) for _ in range(3))
+    w = RNG.uniform(lo, 0.999 if lo > 0.5 else 0.6,
+                    (B, S, H, 64)).astype(np.float32)
+    u = _rand((H, 64), 0.1)
+    s0 = _rand((B, H, 64, 64), s0_scale)
+    return r, k, v, w, u, s0
+
+
+@pytest.mark.parametrize("B,S,H,chunk", [(1, 64, 1, 16), (2, 128, 2, 32),
+                                         (1, 256, 4, 64), (2, 48, 1, 16)])
+def test_rwkv6_chunked_shapes(B, S, H, chunk):
+    ins = _rwkv_inputs(B, S, H)
+    y, sf = ops.rwkv6_chunked(*map(_t, ins), chunk=chunk)
+    y_seq, sf_seq = TREF.rwkv6_reference(*map(_t, ins))
+    jins = list(map(jnp.asarray, ins))
+    for want_y, want_s in (
+            JOPS.rwkv6_chunked(*jins, chunk=chunk, interpret=True),
+            JREF.rwkv6_reference(*jins),
+            JSSM.rwkv6_chunked_jnp(*jins, chunk=chunk)):
+        _close(y, want_y, 1e-4)
+        _close(sf, want_s, 1e-4)
+        _close(y_seq, want_y, 1e-4)
+        _close(sf_seq, want_s, 1e-4)
+
+
+def test_rwkv6_chunked_strong_decay_stability():
+    ins = _rwkv_inputs(1, 128, 1, lo=0.3, s0_scale=0.0)
+    y, _ = ops.rwkv6_chunked(*map(_t, ins), chunk=32)
+    want, _ = JREF.rwkv6_reference(*map(jnp.asarray, ins))
+    _close(y, want, 1e-4)
+    assert torch.isfinite(y).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rwkv6_chunked_dtypes(dtype):
+    r, k, v, w, u, _ = _rwkv_inputs(1, 64, 2)
+    s0 = np.zeros((1, 2, 64, 64), np.float32)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    j = [jnp.asarray(a, jdt) for a in (r, k, v, w, u)]
+    tt = [torch.from_numpy(np.array(a, np.float32)).to(getattr(torch, dtype))
+          for a in j]
+    y, _ = ops.rwkv6_chunked(*tt, _t(s0), chunk=16)
+    assert y.dtype == torch.float32
+    f32 = [a.astype(jnp.float32) for a in j]
+    want, _ = JREF.rwkv6_reference(*f32, jnp.asarray(s0))
+    _close(y, want, 1e-4 if dtype == "float32" else 5e-2)
+    got_pallas, _ = JOPS.rwkv6_chunked(*j, jnp.asarray(s0), chunk=16,
+                                       interpret=True)
+    _close(y, got_pallas, 1e-4)
+
+
+def test_model_kernel_wrappers_reject_bad_inputs():
+    q = torch.zeros((1, 4, 4, 32))
+    with pytest.raises(ValueError, match="mismatch"):
+        ops.flash_attention(q, torch.zeros((1, 4, 2, 16)),
+                            torch.zeros((1, 4, 2, 16)))
+    with pytest.raises(ValueError, match="multiple"):
+        ops.flash_attention(q, torch.zeros((1, 4, 3, 32)),
+                            torch.zeros((1, 4, 3, 32)))
+    with pytest.raises(ValueError, match="4-D"):
+        ops.flash_attention(q[0], q[0], q[0])
+    x = torch.zeros((1, 48, 1, 64))
+    u, s0 = torch.zeros((1, 64)), torch.zeros((1, 1, 64, 64))
+    with pytest.raises(ValueError, match="does not divide"):
+        ops.rwkv6_chunked(x, x, x, x, u, s0, chunk=32)
+    with pytest.raises(ValueError, match="hd = 64"):
+        ops.rwkv6_chunked(x, x, x, x, torch.zeros((1, 32)), s0)
+    ops.reset_launches()
+    ops.flash_attention(q, q, q)
+    ops.rwkv6_chunked(x, x, x, x, u, s0, chunk=16)
     assert ops.LAUNCHES == dict.fromkeys(ops.LAUNCHES, 0)

@@ -1,0 +1,228 @@
+"""The port's model zoo (dense and RWKV families) vs the JAX reference.
+
+Reduced configs, weights drawn by ``repro.models.lm.init_params`` and
+carried into the port by ``convert.from_jax_params``; tokens from numpy.
+On the CPU attention runs ``ops.flash_attention``'s plain version and
+RWKV prefill ``ops.rwkv6_chunked``'s.  Tolerances: 1e-4 in f32 (sums in
+another order), 5e-2 in bf16 (the frameworks round bf16 products at other
+places).
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+from repro import configs as JC  # noqa: E402
+from repro.models import common as JCOM  # noqa: E402
+from repro.models import lm as JLM  # noqa: E402
+from repro.train import step as JSTEP  # noqa: E402
+from repro_torch import configs as TC  # noqa: E402
+from repro_torch.models import common as TCOM  # noqa: E402
+from repro_torch.models import convert  # noqa: E402
+from repro_torch.models import lm as TLM  # noqa: E402
+from repro_torch.train import step as TSTEP  # noqa: E402
+
+ARCHS = ["phi3_medium_14b", "qwen2_5_32b", "granite_34b", "rwkv6_7b"]
+UNPORTED = ["mixtral_8x7b", "deepseek_moe_16b", "jamba_1_5_large",
+            "llava_next_34b", "whisper_small"]
+TOL = 1e-4
+
+
+def _np(a):
+    return np.asarray(a, np.float32)
+
+
+def _tok(cfg, B, S, seed):
+    return np.random.default_rng(seed).integers(0, cfg.vocab, (B, S)) \
+        .astype(np.int32)
+
+
+class Pair:
+    """One reduced architecture on both sides with the same weights."""
+
+    def __init__(self, arch, bf16=False):
+        jdt, tdt = ((jnp.bfloat16, torch.bfloat16) if bf16
+                    else (jnp.float32, torch.float32))
+        self.jcfg = dataclasses.replace(JC.get_reduced(arch), dtype=jdt)
+        self.tcfg = dataclasses.replace(TC.get_reduced(arch), dtype=tdt)
+        self.params = JLM.init_params(jax.random.PRNGKey(0), self.jcfg)
+        self.model = convert.from_jax_params(
+            self.tcfg, jax.tree.map(np.asarray, self.params), device="cpu")
+        self.jfwd = jax.jit(lambda p, t: JLM.forward(p, self.jcfg, t,
+                                                     remat=False)[0])
+        self.jdec = jax.jit(lambda p, t, c: JLM.decode_step(p, self.jcfg, t,
+                                                            c))
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def pair(request):
+    return Pair(request.param)
+
+
+@pytest.mark.parametrize("S", [16, 24])   # rwkv: chunked / per-token path
+def test_forward_matches_reference(pair, S):
+    toks = _tok(pair.jcfg, 2, S, seed=S)
+    want = pair.jfwd(pair.params, jnp.asarray(toks))
+    got = pair.model(torch.from_numpy(toks))
+    assert got.shape == (2, S, pair.tcfg.vocab_padded)
+    np.testing.assert_allclose(got.numpy(), _np(want), rtol=TOL, atol=TOL)
+
+
+def test_decode_from_carried_cache_matches_reference(pair):
+    """5 reference decode steps, then the cache crosses to the port and
+    both sides take 8 more steps."""
+    toks = _tok(pair.jcfg, 2, 13, seed=3)
+    jcache = JLM.init_cache(pair.jcfg, 2, 32)
+    for i in range(5):
+        _, jcache = pair.jdec(pair.params, jnp.asarray(toks[:, i:i + 1]),
+                              jcache)
+    cache = convert.cache_from_jax(pair.tcfg, jax.tree.map(np.asarray, jcache),
+                                   device="cpu")
+    assert cache["len"] == 5
+    for i in range(5, 13):
+        want, jcache = pair.jdec(pair.params, jnp.asarray(toks[:, i:i + 1]),
+                                 jcache)
+        got, cache = pair.model.decode_step(torch.from_numpy(toks[:, i:i + 1]),
+                                            cache)
+        np.testing.assert_allclose(got.numpy(), _np(want), rtol=TOL, atol=TOL)
+    assert cache["len"] == int(jcache["len"]) == 13
+    carried = convert.cache_from_jax(pair.tcfg,
+                                     jax.tree.map(np.asarray, jcache),
+                                     device="cpu")
+    for mine, theirs in zip(cache["layers"], carried["layers"]):
+        assert mine.keys() == theirs.keys()
+        for k in mine:
+            np.testing.assert_allclose(mine[k].numpy(), theirs[k].numpy(),
+                                       rtol=TOL, atol=TOL, err_msg=k)
+
+
+def test_prefill_step_matches_reference(pair):
+    toks = _tok(pair.jcfg, 2, 32, seed=7)
+    want = JSTEP.make_prefill_step(pair.jcfg, 64)(
+        pair.params, {"tokens": jnp.asarray(toks)})
+    got = TSTEP.make_prefill_step(pair.model, 64)(
+        {"tokens": torch.from_numpy(toks)})
+    assert got.shape == (2, 1, pair.tcfg.vocab_padded)
+    np.testing.assert_allclose(got.numpy(), _np(want), rtol=TOL, atol=TOL)
+
+
+def test_serve_step_matches_reference(pair):
+    toks = _tok(pair.jcfg, 3, 4, seed=9)
+    jstep = jax.jit(JSTEP.make_serve_step(pair.jcfg))
+    tstep = TSTEP.make_serve_step(pair.model)
+    jcache = JLM.init_cache(pair.jcfg, 3, 8)
+    cache = pair.model.init_cache(3, 8)
+    for i in range(4):
+        want, jcache = jstep(pair.params, jcache,
+                             {"tokens": jnp.asarray(toks[:, i:i + 1])})
+        got, cache = tstep(cache, {"tokens": torch.from_numpy(toks[:, i:i + 1])})
+        np.testing.assert_allclose(got.numpy(), _np(want), rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("arch", ["phi3_medium_14b", "rwkv6_7b"])
+def test_bf16_forward_and_decode(arch):
+    p = Pair(arch, bf16=True)
+    toks = _tok(p.jcfg, 2, 16, seed=1)
+    want = p.jfwd(p.params, jnp.asarray(toks))
+    got = p.model(torch.from_numpy(toks))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), _np(want), rtol=5e-2,
+                               atol=5e-2)
+    jcache = JLM.init_cache(p.jcfg, 2, 8)
+    cache = p.model.init_cache(2, 8)
+    for i in range(4):
+        want, jcache = p.jdec(p.params, jnp.asarray(toks[:, i:i + 1]), jcache)
+        got, cache = p.model.decode_step(torch.from_numpy(toks[:, i:i + 1]),
+                                         cache)
+        np.testing.assert_allclose(got.float().numpy(), _np(want), rtol=5e-2,
+                                   atol=5e-2)
+
+
+@pytest.mark.parametrize("arch", UNPORTED)
+def test_unported_families_raise(arch):
+    cfg = dataclasses.replace(TC.get_reduced(arch), dtype=torch.float32)
+    with pytest.raises(NotImplementedError, match="queue 1, item 10"):
+        TLM.LM(cfg, device="cpu")
+
+
+def test_tp_align_head_maps_raise():
+    cfg = dataclasses.replace(TC.get_reduced("phi3_medium_14b"),
+                              head_maps=((0,), (0,), 4, 2))
+    with pytest.raises(NotImplementedError, match="queue 1, item 10"):
+        TLM.LM(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("arch", JC.ARCHS)
+def test_config_registry_matches_reference(arch):
+    assert TC.ARCHS == JC.ARCHS and TC.SHAPES == JC.SHAPES
+    assert TC.arch_shapes(arch) == JC.arch_shapes(arch)
+    for get in ("get_config", "get_reduced"):
+        j, t = getattr(JC, get)(arch), getattr(TC, get)(arch)
+        fj, ft = dataclasses.asdict(j), dataclasses.asdict(t)
+        assert fj.pop("dtype") == jnp.bfloat16
+        assert ft.pop("dtype") == torch.bfloat16
+        assert fj == ft
+        assert (j.param_count(), j.active_param_count(), j.vocab_padded) == \
+            (t.param_count(), t.active_param_count(), t.vocab_padded)
+        assert JLM.block_kinds(j) == TLM.block_kinds(t)
+
+
+@pytest.mark.parametrize("d_head,theta", [(32, 1e4), (128, 1e4), (64, 5e5)])
+def test_rope_tables_equal(d_head, theta):
+    jc, js = JCOM.init_rope(d_head, 4096, theta)
+    tc, ts = TCOM.init_rope(d_head, 4096, theta, device="cpu")
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+
+
+def test_rms_norm_and_rope_apply_match():
+    rng = np.random.default_rng(5)
+    x = rng.normal(0, 2, (2, 7, 4, 32)).astype(np.float32)
+    scale = rng.normal(1, 0.1, 32).astype(np.float32)
+    np.testing.assert_allclose(
+        TCOM.rms_norm(torch.from_numpy(x), torch.from_numpy(scale)).numpy(),
+        np.asarray(JCOM.rms_norm(jnp.asarray(x), jnp.asarray(scale))),
+        rtol=1e-6, atol=1e-6)
+    pos = np.tile(np.arange(3, 10), (2, 1))
+    jc, js = JCOM.init_rope(32, 64)
+    tc, ts = TCOM.init_rope(32, 64, device="cpu")
+    np.testing.assert_allclose(
+        TCOM.apply_rope(torch.from_numpy(x), tc, ts,
+                        torch.from_numpy(pos)).numpy(),
+        np.asarray(JCOM.apply_rope(jnp.asarray(x), jc, js, jnp.asarray(pos))),
+        rtol=1e-6, atol=1e-6)
+
+
+def test_bf16_arrays_cross_by_their_bits():
+    a = np.asarray(jnp.asarray([1.5, -2.25, 3e-3, 65504.0], jnp.bfloat16))
+    assert a.dtype.name == "bfloat16"
+    t = convert.to_tensor(a, device="cpu")
+    assert t.dtype == torch.bfloat16
+    np.testing.assert_array_equal(t.float().numpy(), a.astype(np.float32))
+
+
+def test_lm_defaults_to_the_card():
+    cfg = TC.get_reduced("rwkv6_7b")
+    if torch.cuda.is_available():
+        assert TLM.LM(cfg).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            TLM.LM(cfg)
+
+
+def test_kv_cache_overflow_raises():
+    cfg = dataclasses.replace(TC.get_reduced("phi3_medium_14b"),
+                              dtype=torch.float32)
+    model = TLM.LM(cfg, device="cpu", generator=torch.Generator()
+                   .manual_seed(0))
+    cache = model.init_cache(1, 2)
+    tok = torch.zeros((1, 1), dtype=torch.long)
+    for _ in range(2):
+        model.decode_step(tok, cache)
+    with pytest.raises(ValueError, match="KV cache full"):
+        model.decode_step(tok, cache)
