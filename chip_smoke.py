@@ -11,7 +11,8 @@ Phases (any failure exits non-zero before the final line):
 3. tick kernel checks: each tick kernel against its plain torch version
    on the card, at the packet engine's DF-1056 shapes plus ragged sizes
    and out-of-range entries, required ``torch.equal``; CUDA-event times
-   of kernel, plain version and (flow_agg) ``index_add_``;
+   of kernel, plain version and (flow_agg) ``index_add_``, and the
+   device times of flow_agg and ``index_add_`` from torch.profiler;
 4. engine path: the 1,056-endpoint Dragonfly permutation run for ecmp,
    spritz_scout and spritz_spray_w through ``engine.run`` on the card,
    kernels on, held against the committed golden record of the JAX
@@ -19,8 +20,13 @@ Phases (any failure exits non-zero before the final line):
 5. model kernel checks: flash attention and chunked RWKV-6 against their
    plain versions at the serving path's shapes (prefill and decode, bf16
    and f32) and at ragged, sliding-window and strong-decay cases, within
-   the tolerances of ``tests/test_kernels.py``; CUDA-event times of
-   kernel, plain version and (attention) ``scaled_dot_product_attention``;
+   the tolerances of ``tests/test_kernels.py``, each bf16 attention case
+   also within 2x of SDPA's max and mean error against the f32 reference,
+   each attention case printing the path it took (wgmma, split or simt);
+   CUDA-event times of kernel, plain version and (attention)
+   ``scaled_dot_product_attention``, and the device times of attention
+   and SDPA (at decode also SDPA over the visible keys alone) from
+   torch.profiler;
 6. card against CPU: the reduced Phi-3 and RWKV-6 configs in f32 on
    ``cuda`` (kernels) and on ``cpu`` (plain versions) from the same
    weights, prefill and 16 decode steps, logits within 1e-4;
@@ -30,7 +36,9 @@ Phases (any failure exits non-zero before the final line):
    at their published sizes in bf16, random weights from a seeded
    generator on the card: ``make_prefill_step`` on 4 x 1,024 tokens, then
    a 4-slot ``Server`` answering 8 requests of 64 generated tokens; every
-   request must complete and the model kernel of each path must launch;
+   request must complete, the model kernel of each path must launch, and
+   Phi-3's attention must take the wgmma path in the prefill and the
+   split path in the decode;
 9. a JSON line of kernel numbers, then the final JSON line.
 
 ``--profile`` adds ``torch.profiler`` breakdowns of one warm engine
@@ -103,6 +111,30 @@ def time_ms(fn, reps: int = 200, warmup: int = 10) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def device_us(fn, torch, n: int = 50) -> float:
+    """Device time per call, in us, of the CUDA kernels that ``fn``
+    launches (torch.profiler over ``n`` warm calls), so that a kernel and
+    a library call compare without their host cost.  The sum is divided
+    by the calls the trace holds, the fewest launches of any one kernel
+    (a call may launch a kernel more than once), not by ``n``: a trace
+    can drop a short run's first records."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if getattr(e, "device_type", None) == DeviceType.CUDA]
+    if not kern:
+        fail("torch.profiler recorded no CUDA kernel")
+    return sum(e.self_device_time_total for e in kern) / \
+        min(e.count for e in kern)
+
+
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
@@ -157,6 +189,9 @@ def check_kernels(ops, ref, torch, np, shapes, dev="cuda") -> dict:
         plain_ms=time_ms(lambda: ref.flow_agg_reference(rows, pflow,
                                                         n_flows=F)),
         library_ms=time_ms(lib_agg),
+        device_us=device_us(lambda: ops.flow_agg(rows, pflow, n_flows=F),
+                            torch),
+        library_device_us=device_us(lib_agg, torch),
         bytes=nbytes(rows, pflow) + 6 * F * 4)
     rows2, pflow2 = agg_inputs(2, N, 4000, False)
     out["flow_agg"]["ms_k2"] = time_ms(
@@ -334,13 +369,43 @@ def check_model_kernels(ops, ref, torch, np, dev="cuda") -> dict:
         return lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, enable_gqa=True).transpose(1, 2)
 
+    def sdpa_visible(q, k, v, kw):
+        """SDPA over only the keys a decode row sees, [0, q_offset + 1),
+        unmasked: the same work as the split path's."""
+        kend = min(k.shape[1], kw["q_offset"] + 1)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k[:, :kend],
+                                                  v[:, :kend]))
+        return lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, enable_gqa=True).transpose(1, 2)
+
+    def bf16_errors(label, got, lib_out, q, k, v, kw):
+        """Max and mean error of the kernel and of SDPA against the f32
+        reference on the same (bf16) inputs.  The 5e-2 gate is about the
+        size of a late row's output (std ~ sqrt(e / keys) ~ 0.07), so the
+        kernel must also be within 2x of SDPA's own error: a wrong
+        rescale or a dropped tile on the late rows fails here."""
+        want32 = ref.mha_reference(q.float(), k.float(), v.float(), **kw)
+        ek = (got.float() - want32).abs()
+        es = (lib_out.float() - want32).abs()
+        e = dict(max=float(ek.max()), mean=float(ek.mean()),
+                 sdpa_max=float(es.max()), sdpa_mean=float(es.mean()))
+        if not (e["max"] <= 2 * e["sdpa_max"]
+                and e["mean"] <= 2 * e["sdpa_mean"]):
+            fail(f"flash_attention {label}: error against the f32 reference "
+                 f"max {e['max']:.3g} mean {e['mean']:.3g} above 2x SDPA's "
+                 f"(max {e['sdpa_max']:.3g}, mean {e['sdpa_mean']:.3g})")
+        return e
+
     out = {}
     # ---- flash attention: the serving path's shapes, then ragged ones
     B, S, Hq, Hkv, D = 4, 1024, 40, 10, 128
     cases = [  # (label, Sq, Sk, B, Hq, Hkv, D, dtype, window, q_offset)
         ("prefill bf16", S, S, B, Hq, Hkv, D, torch.bfloat16, 0, 0),
+        ("prefill bf16 D=64", S, S, B, Hq, Hkv, 64, torch.bfloat16, 0, 0),
         ("prefill f32", S, S, B, Hq, Hkv, D, torch.float32, 0, 0),
         ("decode bf16", 1, S, B, Hq, Hkv, D, torch.bfloat16, 0, 700),
+        ("decode bf16 q_offset 63", 1, S, B, Hq, Hkv, D, torch.bfloat16, 0,
+         63),
         ("decode f32", 1, S, B, Hq, Hkv, D, torch.float32, 0, 700),
         ("ragged Sk f32", 77, 333, 2, 8, 2, 64, torch.float32, 0, 256),
         ("Sq=1 Sk=1 f32", 1, 1, 3, 4, 4, 32, torch.float32, 0, 0),
@@ -352,16 +417,23 @@ def check_model_kernels(ops, ref, torch, np, dev="cuda") -> dict:
         q, k, v = rand((b, sq, hq, d), dt), rand((b, sk, hkv, d), dt), \
             rand((b, sk, hkv, d), dt)
         kw = dict(causal=True, sliding_window=win, q_offset=off)
+        ops.reset_launches()
         got = ops.flash_attention(q, k, v, **kw)
+        path = next(p for p, n in ops.FLASH_PATHS.items() if n)
         want = ref.mha_reference(q, k, v, **kw)
         torch.cuda.synchronize()
         tol = 5e-2 if dt == torch.bfloat16 else 2e-5
         e = err(got, want)
         lib = sdpa(q, k, v, kw)
-        e_lib = err(lib(), want)
+        lib_out = lib()
+        e_lib = err(lib_out, want)
         if not (e <= tol and e_lib <= tol):
             fail(f"flash_attention {label}: max error {e:.3g} (SDPA "
                  f"{e_lib:.3g}) above {tol}")
+        e32 = None
+        if dt == torch.bfloat16:
+            e32 = bf16_errors(label, got, lib_out, q, k, v, kw)
+        del lib_out
         worst = max(worst, e)
         flops, nb = attention_work(q, k, causal=True, window=win,
                                    q_offset=off)
@@ -374,12 +446,32 @@ def check_model_kernels(ops, ref, torch, np, dev="cuda") -> dict:
                                     reps=reps, warmup=2),
                    library_ms=time_ms(lib, reps=reps, warmup=2),
                    flops=flops, bytes=nb, bound_ms=bms, bound_by=by,
-                   max_abs_err=e)
+                   max_abs_err=e, path=path)
+        # device time alone: the wrapper times above are host-paced at
+        # the decode shapes
+        row["device_ms"] = device_us(
+            lambda: ops.flash_attention(q, k, v, **kw), torch,
+            max(reps, 20)) / 1e3
+        row["library_device_ms"] = device_us(lib, torch, max(reps, 20)) / 1e3
+        extra = ""
+        if e32 is not None:
+            row["f32_ref_err"] = e32
+            extra += (f"; vs f32 reference: max {e32['max']:.3g} mean "
+                      f"{e32['mean']:.3g}, SDPA max {e32['sdpa_max']:.3g} "
+                      f"mean {e32['sdpa_mean']:.3g} (limit 2x SDPA)")
+        if sq == 1 and not win:
+            row["library_visible_device_ms"] = device_us(
+                sdpa_visible(q, k, v, kw), torch, max(reps, 20)) / 1e3
+            extra += (f"; SDPA on the visible keys alone, device "
+                      f"{row['library_visible_device_ms']:.4f} ms")
         print(f"kernel flash_attention {label} {tuple(q.shape)} x "
-              f"{tuple(k.shape)}: max err {e:.3g} (tol {tol}), SDPA err "
+              f"{tuple(k.shape)}: path {path}; max err {e:.3g} (tol "
+              f"{tol}), SDPA err "
               f"{e_lib:.3g}; kernel {row['ms']:.4f} ms, plain "
               f"{row['plain_ms']:.4f} ms, SDPA {row['library_ms']:.4f} ms; "
-              f"{flops} FLOP, {nb} B, bound {bms:.4f} ms ({by})",
+              f"device: kernel {row['device_ms']:.4f} ms, SDPA "
+              f"{row['library_device_ms']:.4f} ms; "
+              f"{flops} FLOP, {nb} B, bound {bms:.4f} ms ({by}){extra}",
               flush=True)
         out[f"flash {label}"] = row
         del q, k, v, got, want
@@ -531,6 +623,7 @@ def serve_path(arch, C, Server, step, ops, torch, np, card,
     if logits.shape != (4, 1, cfg.vocab_padded) or \
             not bool(torch.isfinite(logits).all()):
         fail(f"{arch}: prefill logits {tuple(logits.shape)} not finite")
+    prefill_paths = dict(ops.FLASH_PATHS)
     inner = srv.step
 
     def checked_step(cache, batch):
@@ -554,6 +647,15 @@ def serve_path(arch, C, Server, step, ops, torch, np, card,
     if counts[kernel] == 0:
         fail(f"{arch}: {kernel} never launched on the serving path: "
              f"{counts}")
+    decode_paths = {p: n - prefill_paths[p]
+                    for p, n in ops.FLASH_PATHS.items()}
+    if kernel == "flash_attention" and not (
+            prefill_paths["wgmma"] > 0 and decode_paths["split"] > 0 and
+            sum(prefill_paths.values()) == prefill_paths["wgmma"] and
+            sum(decode_paths.values()) == decode_paths["split"]):
+        fail(f"{arch}: attention paths prefill {prefill_paths}, decode "
+             f"{decode_paths}; want wgmma for the prefill and split for "
+             f"the decode")
     tokens = sum(done.values())
     peak = torch.cuda.max_memory_allocated()
     print(f"serve {arch}: prefill 4 x 1024 tokens in {walls[0]:.3f} s cold, "
@@ -561,7 +663,9 @@ def serve_path(arch, C, Server, step, ops, torch, np, card,
           f"{stats['steps']} steps, {stats['ms_per_step']:.2f} ms/step, "
           f"{tokens} tokens in {stats['wall_s']:.3f} s = "
           f"{tokens / stats['wall_s']:.1f} tokens/s; peak memory "
-          f"{peak / 1e9:.2f} GB; launches {counts}; card {card}", flush=True)
+          f"{peak / 1e9:.2f} GB; launches {counts}; attention paths "
+          f"prefill {prefill_paths} decode {decode_paths}; card {card}",
+          flush=True)
     if profile:
         profile_block(f"{arch} prefill 4 x 1024", lambda: prefill(
             {"tokens": prompts}), walls[1], torch)
@@ -622,8 +726,9 @@ def main() -> None:
           f"{_build.BUILD_INFO['seconds']:.1f} s, "
           f"{_build.BUILD_INFO['dir']}", flush=True)
     for name, log in sorted(_build.BUILD_INFO.get("ptxas", {}).items()):
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+        for line in log.splitlines():      # entry function, then its use
+            if any(w in line for w in ("entry function", "registers",
+                                       "spill")):
                 print(f"ptxas {name}: {line.strip()}", flush=True)
 
     # host-side spec of the main path (numpy, the port's own build_spec)
@@ -652,6 +757,10 @@ def main() -> None:
               + f", {v['bytes']} B", flush=True)
     print(f"kernel flow_agg (K=2): {nums['flow_agg']['ms_k2'] * 1e3:.2f} us",
           flush=True)
+    print(f"kernel flow_agg device time (torch.profiler, zero fill "
+          f"included): {nums['flow_agg']['device_us']:.2f} us a call; "
+          f"index_add_ {nums['flow_agg']['library_device_us']:.2f} us a "
+          f"call", flush=True)
 
     # 4. engine path
     golden = GOLD.load()["schemes"]
@@ -722,10 +831,21 @@ def main() -> None:
             "plain_ms": v["plain_ms"], "bound_ms": v["bound_ms"],
             "bound_by": v["bound_by"], "library_ms": v["library_ms"]})
     flash = next(r for r in rows if r["name"] == "flash_attention")
+    flash["path"] = nums["flash prefill bf16"]["path"]
+    for key in ("device_ms", "library_device_ms"):
+        flash[key] = nums["flash prefill bf16"][key]
     for label in ("decode bf16", "window 4096 f32"):
         key = label.replace(" ", "_")
         flash[f"{key}_ms"] = nums[f"flash {label}"]["ms"]
+        flash[f"{key}_library_ms"] = nums[f"flash {label}"]["library_ms"]
+        flash[f"{key}_device_ms"] = nums[f"flash {label}"]["device_ms"]
+        flash[f"{key}_library_device_ms"] = \
+            nums[f"flash {label}"]["library_device_ms"]
         flash[f"{key}_bound_ms"] = nums[f"flash {label}"]["bound_ms"]
+        flash[f"{key}_path"] = nums[f"flash {label}"]["path"]
+    agg = next(r for r in rows if r["name"] == "flow_agg")
+    for key in ("device_us", "library_device_us"):
+        agg[key] = nums["flow_agg"][key]
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

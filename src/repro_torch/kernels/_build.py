@@ -41,7 +41,7 @@ SIGNATURES = {
                                                _P, _P, _P, _P), EXACT),
     "flash_attention": ("flash_attention_launch",
                         (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                         _I, _F, _P), ()),
+                         _I, _F, _I, _I, _I, _P, _P), ()),
     "rwkv6_chunked": ("rwkv6_chunked_launch",
                       (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                        _P), ()),

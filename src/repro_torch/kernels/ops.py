@@ -21,12 +21,19 @@ from repro_torch.kernels import ref as R
 LAUNCHES = dict.fromkeys(("flow_agg", "tick_rank", "red_ecn",
                           "spritz_select", "flash_attention",
                           "rwkv6_chunked"), 0)
+# flash_attention launches by the path the kernel took (see flash_plan)
+FLASH_PATHS = dict.fromkeys(("wgmma", "split", "simt"), 0)
+_FLASH_CODES = {"simt": 0, "wgmma": 1, "split": 2}
 _FLOAT_CODES = {torch.float32: 0, torch.bfloat16: 1}
+WGMMA_ROWS = 64          # rows of the wgmma path's Q tile
+SPLIT_ROWS = 16          # most rows (Sq * G) the split path takes
+SPLIT_KEYS = 64          # a split holds a multiple of this many keys
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, FLASH_PATHS):
+        for k in counts:
+            counts[k] = 0
 
 
 def _on_cpu(*ts: torch.Tensor) -> bool:
@@ -172,13 +179,42 @@ def _float_code(name: str, *ts: torch.Tensor) -> int:
     return _FLOAT_CODES[dt]
 
 
+def flash_plan(B: int, Sq: int, Sk: int, Hq: int, Hkv: int, D: int,
+               dtype: torch.dtype, *, num_sms: int, causal: bool = True,
+               q_offset: int = 0) -> tuple[str, int, int]:
+    """The attention kernel's path for these shapes, as ``(path,
+    split_len, n_split)``.
+
+    A row is one (query position, query head) pair, ``Sq * G`` of them
+    per (batch, kv head).  ``"split"``: at most ``SPLIT_ROWS`` rows and a
+    ``(Hkv, B)`` grid under two blocks per SM; the keys ``[0, kend)`` any
+    row may see are cut into ``n_split`` splits of ``split_len`` keys (a
+    multiple of ``SPLIT_KEYS``; the last one ragged, none empty), enough
+    for about two blocks on each of the card's ``num_sms`` SMs.
+    ``"wgmma"``: bf16, at least one 64-row tile and D of 64 or 128.
+    ``"simt"``: everything else.  Shapes without rows or keys have no
+    plan (the wrapper launches nothing for them)."""
+    if min(B, Sq, Sk, Hq, Hkv) < 1 or num_sms < 1:
+        raise ValueError(f"flash_plan: no work to plan for B={B}, Sq={Sq}, "
+                         f"Sk={Sk}, Hq={Hq}, Hkv={Hkv} on {num_sms} SMs")
+    rows = Sq * (Hq // Hkv)
+    if rows <= SPLIT_ROWS and B * Hkv < 2 * num_sms:
+        kend = min(Sk, q_offset + Sq) if causal else Sk
+        want = -(-2 * num_sms // (B * Hkv))
+        split_len = -(-max(-(-kend // want), 1) // SPLIT_KEYS) * SPLIT_KEYS
+        return "split", split_len, -(-kend // split_len)
+    if dtype == torch.bfloat16 and rows >= WGMMA_ROWS and D in (64, 128):
+        return "wgmma", 0, 0
+    return "simt", 0, 0
+
+
 def flash_attention(q, k, v, *, causal: bool = True, sliding_window: int = 0,
                     q_offset: int = 0):
     """GQA attention.  q: [B, Sq, Hq, D]; k, v: [B, Sk, Hkv, D], Hq a
     multiple of Hkv (query head h reads kv head h // (Hq // Hkv)); f32 or
     bf16.  Query row i sits at position ``q_offset + i`` (decode: the
     cache length).  Returns [B, Sq, Hq, D] in q's dtype.  On the card D
-    must be 32, 64 or 128."""
+    must be 32, 64 or 128; the kernel's path is :func:`flash_plan`'s."""
     if not (q.ndim == k.ndim == v.ndim == 4):
         raise ValueError("q, k and v must be 4-D [B, S, H, D]")
     B, Sq, Hq, D = q.shape
@@ -193,16 +229,30 @@ def flash_attention(q, k, v, *, causal: bool = True, sliding_window: int = 0,
         raise ValueError("q_offset and sliding_window must be >= 0")
     kw = dict(causal=causal, sliding_window=sliding_window,
               q_offset=int(q_offset))
-    if _on_cpu(q, k, v):
+    on_cpu = _on_cpu(q, k, v)
+    if q.numel() == 0:                       # no rows: nothing to launch
+        return torch.empty_like(q)
+    if on_cpu:
         return R.mha_reference(q, k, v, **kw)
     code = _float_code("flash_attention", q, k, v)
     if D not in (32, 64, 128):
         raise ValueError(f"flash_attention kernel: D must be 32, 64 or 128, "
                          f"got {D}")
+    path, split_len, n_split = flash_plan(
+        B, Sq, Sk, Hq, Hkv, D, q.dtype, causal=causal, q_offset=q_offset,
+        num_sms=torch.cuda.get_device_properties(q.device)
+        .multi_processor_count)
     o = torch.empty_like(q)
+    scratch = None
+    if path == "split":
+        scratch = torch.empty(B * Hkv * n_split * Sq * (Hq // Hkv) * (D + 2),
+                              dtype=torch.float32, device=q.device)
     _launch("flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
             o.data_ptr(), B, Sq, Sk, Hq, Hkv, D, code, int(bool(causal)),
-            int(sliding_window), int(q_offset), 1.0 / math.sqrt(D))
+            int(sliding_window), int(q_offset), 1.0 / math.sqrt(D),
+            _FLASH_CODES[path], split_len, n_split,
+            None if scratch is None else scratch.data_ptr())
+    FLASH_PATHS[path] += 1
     return o
 
 

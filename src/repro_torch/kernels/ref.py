@@ -3,9 +3,10 @@
 Each tick kernel's version mirrors its oracle in ``repro.kernels.ref``
 operation for operation, so it is bit-identical to the reference on any
 device.  The model kernels' versions (attention, RWKV-6) are f32 and
-held to the tolerances of ``tests/test_kernels.py``.  ``ops`` calls
-these for tensors on the CPU; ``chip_smoke.py`` holds each CUDA kernel
-against them on the card.
+held to the tolerances of ``tests/test_kernels.py``; ``mha_partials``
+and ``combine_partials`` spell out the attention kernel's split path.
+``ops`` calls these for tensors on the CPU; ``chip_smoke.py`` holds each
+CUDA kernel against them on the card.
 """
 from __future__ import annotations
 
@@ -65,15 +66,13 @@ def flow_agg_reference(rows, pflow, *, n_flows: int):
     return (rows.float() @ oh.float()).to(torch.int32)
 
 
-def mha_reference(q, k, v, *, causal: bool = True, sliding_window: int = 0,
-                  q_offset: int = 0):
-    """q: [B, Sq, Hq, D]; k, v: [B, Sk, Hkv, D] (GQA: query head h reads
-    kv head h // G) -> [B, Sq, Hq, D] in q's dtype.  f32 softmax; masked
-    scores are -1e30, as in the reference."""
+def _masked_scores(q, k, *, causal: bool, sliding_window: int,
+                   q_offset: int):
+    """f32 scores [B, Hkv, G, Sq, Sk] = q . k / sqrt(D), the masked ones
+    at -1e30 as in the reference."""
     B, Sq, Hq, D = q.shape
     _, Sk, Hkv, _ = k.shape
-    G = Hq // Hkv
-    qg = q.reshape(B, Sq, Hkv, G, D).float()
+    qg = q.reshape(B, Sq, Hkv, Hq // Hkv, D).float()
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) / math.sqrt(D)
     qpos = q_offset + torch.arange(Sq, device=q.device)
     kpos = torch.arange(Sk, device=q.device)
@@ -82,10 +81,56 @@ def mha_reference(q, k, v, *, causal: bool = True, sliding_window: int = 0,
         mask &= kpos[None, :] <= qpos[:, None]
     if sliding_window:
         mask &= kpos[None, :] > qpos[:, None] - sliding_window
-    s = s.masked_fill(~mask, -1e30)
-    p = torch.softmax(s, dim=-1)
+    return s.masked_fill(~mask, -1e30)
+
+
+def mha_reference(q, k, v, *, causal: bool = True, sliding_window: int = 0,
+                  q_offset: int = 0):
+    """q: [B, Sq, Hq, D]; k, v: [B, Sk, Hkv, D] (GQA: query head h reads
+    kv head h // G) -> [B, Sq, Hq, D] in q's dtype.  f32 softmax; masked
+    scores are -1e30, as in the reference."""
+    B, Sq, Hq, D = q.shape
+    p = torch.softmax(_masked_scores(q, k, causal=causal,
+                                     sliding_window=sliding_window,
+                                     q_offset=q_offset), dim=-1)
     o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
     return o.reshape(B, Sq, Hq, D).to(q.dtype)
+
+
+def mha_partials(q, k, v, bounds, *, causal: bool = True,
+                 sliding_window: int = 0, q_offset: int = 0):
+    """The split path's first pass: for each key range ``[lo, hi)`` of
+    ``bounds``, the f32 partials of every row over the keys of that range
+    alone (keys outside it, and past Sk, weigh nothing).  Returns (m, l,
+    acc): m, l [n_split, B, Sq, Hq] and acc [n_split, B, Sq, Hq, D], where
+    m is the running max from -1e30 of the masked scores, ``l = sum
+    exp(s - m)`` and ``acc = sum exp(s - m) v``."""
+    B, Sq, Hq, D = q.shape
+    s = _masked_scores(q, k, causal=causal, sliding_window=sliding_window,
+                       q_offset=q_offset)
+    kpos = torch.arange(k.shape[1], device=q.device)
+
+    def rows(x):                             # [B, Hkv, G, Sq] -> [B, Sq, Hq]
+        return x.permute(0, 3, 1, 2).reshape(B, Sq, Hq)
+    ms, ls, accs = [], [], []
+    for lo, hi in bounds:
+        si = s.masked_fill(~((kpos >= lo) & (kpos < hi)), -math.inf)
+        m = si.amax(-1).clamp_min(-1e30)
+        p = torch.exp(si - m[..., None])
+        ms.append(rows(m))
+        ls.append(rows(p.sum(-1)))
+        accs.append(torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+                    .reshape(B, Sq, Hq, D))
+    return torch.stack(ms), torch.stack(ls), torch.stack(accs)
+
+
+def combine_partials(m, l, acc):
+    """The split path's second pass: ``O = sum_s e^(m_s - m*) acc_s /
+    max(sum_s e^(m_s - m*) l_s, 1e-30)`` with ``m* = max_s m_s``; f32
+    [B, Sq, Hq, D] from :func:`mha_partials`' output."""
+    w = torch.exp(m - m.amax(0))
+    den = (w * l).sum(0).clamp_min(1e-30)
+    return (w[..., None] * acc).sum(0) / den[..., None]
 
 
 def rwkv6_chunked_reference(r, k, v, w, u, wkv0, *, chunk: int = 16):

@@ -139,11 +139,12 @@ def _scatter_add(size: int, idx: torch.Tensor, src: torch.Tensor):
     return out.scatter_add_(0, idx, src)
 
 
-def build_tick(spec: SimSpec, device="cpu"):
+def build_tick(spec: SimSpec, device=None):
     """Returns the transition ``tick(carry, t) -> carry`` for ``spec``
-    (its scheme fixed) on ``device``; ``t`` is a Python int."""
+    (its scheme fixed) on ``device`` (default ``"cuda"``); ``t`` is a
+    Python int."""
     _check_spec(spec)
-    dev = torch.device(device)
+    dev = _device(device)
     F = spec.n_flows
     N = spec.n_pkt
     NP_ = spec.n_ports
@@ -527,14 +528,14 @@ def build_tick(spec: SimSpec, device="cpu"):
     return tick
 
 
-def build_horizon(spec: SimSpec, device="cpu"):
+def build_horizon(spec: SimSpec, device=None):
     """Returns ``horizon(carry, t) -> next event tick > t`` as a 0-d i32
     tensor (DESIGN.md §4): the min over scheduled packet events, RTO
     deadlines, injection eligibility (gated on a free table slot) and
     deferred CC round closure.  Every tick strictly inside the jump is a
-    no-op of the transition."""
+    no-op of the transition.  ``device`` defaults to ``"cuda"``."""
     _check_spec(spec)
-    dev = torch.device(device)
+    dev = _device(device)
     size_pkts = torch.as_tensor(spec.size_pkts, dtype=_I32, device=dev)
     start_tick = torch.as_tensor(spec.start_tick, dtype=_I32, device=dev)
     dep = torch.as_tensor(spec.dep, dtype=torch.int64, device=dev)
@@ -572,11 +573,12 @@ def build_horizon(spec: SimSpec, device="cpu"):
     return horizon
 
 
-def init_carry(spec: SimSpec, seed: int = 0, device="cpu",
+def init_carry(spec: SimSpec, seed: int = 0, device=None,
                weights: np.ndarray | None = None,
                static_path: np.ndarray | None = None) -> Carry:
+    """The initial carry of ``spec`` on ``device`` (default ``"cuda"``)."""
     _check_spec(spec)
-    dev = torch.device(device)
+    dev = _device(device)
     F, N, NP_ = spec.n_flows, spec.n_pkt, spec.n_ports
     w = spec.weights if weights is None else weights
     sp = spec.static_path if static_path is None else static_path
@@ -615,10 +617,11 @@ def init_carry(spec: SimSpec, seed: int = 0, device="cpu",
     )
 
 
-def carry_from_state(spec: SimSpec, state: dict, device="cpu") -> Carry:
-    """A carry from the nested-NumPy state form (``carry_state`` here,
-    ``_carry_state`` in the reference engine), restricted to the policy
-    families this package has.  Shapes must match ``spec``."""
+def carry_from_state(spec: SimSpec, state: dict, device=None) -> Carry:
+    """A carry on ``device`` (default ``"cuda"``) from the nested-NumPy
+    state form (``carry_state`` here, ``_carry_state`` in the reference
+    engine), restricted to the policy families this package has.  Shapes
+    must match ``spec``."""
     tmpl = init_carry(spec, 0, device)
 
     def leaf(arr, ref):

@@ -131,6 +131,29 @@ def _close(got, want, tol):
     assert float((got.cpu().float() - want.float()).abs().max()) <= tol
 
 
+def _within_2x_sdpa(got, q, k, v, kw):
+    """bf16: the kernel's max and mean error against the f32 reference on
+    the same inputs are within 2x of SDPA's.  The 5e-2 gate alone is
+    about the size of a late row's output, so it would pass a kernel
+    that is ~10 % off there.  SDPA gets the reference's masking as an
+    additive -1e30 bias, so a row with no unmasked key averages V."""
+    want = ref.mha_reference(q[0].float(), k[0].float(), v[0].float(), **kw)
+    Sq, Sk = q[0].shape[1], k[0].shape[1]
+    qpos = kw["q_offset"] + torch.arange(Sq)[:, None]
+    kpos = torch.arange(Sk)[None, :]
+    keep = kpos <= qpos
+    if kw["sliding_window"]:
+        keep &= kpos > qpos - kw["sliding_window"]
+    bias = torch.zeros((Sq, Sk)).masked_fill(~keep, -1e30)
+    qt, kt, vt = (t[1].transpose(1, 2) for t in (q, k, v))
+    lib = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=bias.to(qt), enable_gqa=True).transpose(1, 2)
+    ek = (got.cpu().float() - want).abs()
+    es = (lib.cpu().float() - want).abs()
+    assert float(ek.max()) <= 2 * float(es.max())
+    assert float(ek.mean()) <= 2 * float(es.mean())
+
+
 @pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,window,q_offset", [
     (1, 128, 128, 4, 4, 64, 0, 0), (2, 100, 100, 8, 2, 128, 0, 0),
     (2, 1, 300, 8, 2, 128, 0, 250), (3, 77, 333, 4, 1, 32, 0, 256),
@@ -143,9 +166,46 @@ def test_flash_attention_kernel(cuda, B, Sq, Sk, Hq, Hkv, D, window,
     k = _pair(RNG.normal(0, 1, (B, Sk, Hkv, D)), dt, cuda)
     v = _pair(RNG.normal(0, 1, (B, Sk, Hkv, D)), dt, cuda)
     kw = dict(causal=True, sliding_window=window, q_offset=q_offset)
-    _close(ops.flash_attention(q[1], k[1], v[1], **kw),
-           ref.mha_reference(q[0], k[0], v[0], **kw),
+    got = ops.flash_attention(q[1], k[1], v[1], **kw)
+    _close(got, ref.mha_reference(q[0], k[0], v[0], **kw),
            2e-5 if dtype == "float32" else 5e-2)
+    if dtype == "bfloat16":
+        _within_2x_sdpa(got, q, k, v, kw)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,window,q_offset,paths", [
+    (2, 200, 200, 8, 2, 128, 0, 0, ("wgmma", "simt")),     # 800 rows: ragged
+    (2, 100, 300, 8, 2, 64, 0, 200, ("wgmma", "simt")),    # Sk % 64, offset
+    (2, 128, 128, 8, 2, 64, 0, 0, ("wgmma", "simt")),      # D = 64
+    (1, 256, 256, 8, 2, 128, 64, 0, ("wgmma", "simt")),    # window
+    (1, 64, 1000, 8, 2, 128, 0, 900, ("wgmma", "simt")),   # chunk past a cache
+    (2, 1, 1024, 8, 2, 128, 0, 0, ("split", "split")),     # decode, G = 4
+    (2, 1, 1024, 8, 2, 128, 0, 63, ("split", "split")),
+    (2, 1, 1024, 8, 2, 128, 0, 64, ("split", "split")),
+    (2, 1, 1024, 8, 2, 128, 0, 1000, ("split", "split")),
+    (2, 1, 100, 8, 2, 64, 16, 300, ("split", "split")),    # no unmasked key
+], ids=["rows_ragged", "sk_ragged", "d64", "window", "offset", "decode_0",
+        "decode_63", "decode_64", "decode_1000", "decode_all_masked"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_flash_attention_paths(cuda, B, Sq, Sk, Hq, Hkv, D, window, q_offset,
+                               paths, dtype):
+    """Each case reaches the path it is meant for (``ops.FLASH_PATHS``)
+    and agrees with the plain version."""
+    dt = getattr(torch, dtype)
+    q = _pair(RNG.normal(0, 1, (B, Sq, Hq, D)), dt, cuda)
+    k = _pair(RNG.normal(0, 1, (B, Sk, Hkv, D)), dt, cuda)
+    v = _pair(RNG.normal(0, 1, (B, Sk, Hkv, D)), dt, cuda)
+    kw = dict(causal=True, sliding_window=window, q_offset=q_offset)
+    want_path = paths[0] if dtype == "bfloat16" else paths[1]
+    ops.reset_launches()
+    got = ops.flash_attention(q[1], k[1], v[1], **kw)
+    assert ops.FLASH_PATHS == {p: int(p == want_path)
+                               for p in ops.FLASH_PATHS}
+    assert bool(torch.isfinite(got).all())
+    _close(got, ref.mha_reference(q[0], k[0], v[0], **kw),
+           2e-5 if dtype == "float32" else 5e-2)
+    if dtype == "bfloat16":
+        _within_2x_sdpa(got, q, k, v, kw)
 
 
 @pytest.mark.parametrize("B,S,H,chunk,lo", [

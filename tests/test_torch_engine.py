@@ -126,10 +126,10 @@ def test_one_tick_from_reference_state(scheme):
     for use_kernels in (False, True):
         tspec = _port(spec, use_kernels)
         tcarry = TE.carry_from_state(tspec, state, "cpu")
-        assert int(TE.build_horizon(tspec)(tcarry, t_b)) == h
+        assert int(TE.build_horizon(tspec, "cpu")(tcarry, t_b)) == h
         for t in (h, 70000):
             want = E._carry_state(ref_tick(jcarry, jnp.int32(t)))
-            got = TE.carry_state(TE.build_tick(tspec)(tcarry, t))
+            got = TE.carry_state(TE.build_tick(tspec, "cpu")(tcarry, t))
             _same_state(got, want, (scheme, use_kernels, t))
 
 

@@ -237,6 +237,116 @@ def test_flash_attention_masks(window, Sq, Sk, q_offset):
                                      block_k=Sk, interpret=True, **kw), 2e-5)
 
 
+H100_SMS = 132            # streaming multiprocessors of an H100 SXM
+
+
+def _split_bounds(split_len, n_split, kend):
+    return [(i * split_len, min(kend, (i + 1) * split_len))
+            for i in range(n_split)]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,window,q_offset,bounds", [
+    (2, 1, 100, 8, 2, 64, 0, 57, [(0, 100)]),                  # one split
+    (2, 1, 256, 8, 2, 64, 0, 200,
+     [(0, 64), (64, 128), (128, 192), (192, 256)]),            # many splits
+    (2, 3, 200, 8, 2, 32, 0, 150, [(0, 64), (64, 128), (128, 153)]),  # ragged
+    (1, 1, 100, 4, 1, 64, 0, 99, [(0, 64), (64, 100), (100, 164)]),   # padding
+    (2, 1, 128, 8, 2, 64, 0, 40, [(0, 64), (64, 128)]),        # causal-masked
+    (2, 1, 128, 8, 2, 64, 16, 120, [(0, 64), (64, 128)]),      # window-masked
+    (2, 2, 100, 8, 2, 64, 16, 300, [(0, 64), (64, 100)]),      # no unmasked key
+    (2, 1, 701, 8, 2, 32, 0, 700, "plan"),                     # Sq = 1, G = 4
+], ids=["one", "many", "ragged", "padding", "causal_masked",
+        "window_masked", "all_masked", "decode_plan"])
+def test_flash_split_partials(B, Sq, Sk, Hq, Hkv, D, window, q_offset,
+                              bounds):
+    """The split path's two passes, combined, equal the reference and the
+    Pallas kernel (f32, 2e-5) whatever the splits hold."""
+    q, k, v = _rand((B, Sq, Hq, D)), _rand((B, Sk, Hkv, D)), \
+        _rand((B, Sk, Hkv, D))
+    kw = dict(causal=True, sliding_window=window, q_offset=q_offset)
+    if bounds == "plan":
+        path, split_len, n_split = ops.flash_plan(
+            B, Sq, Sk, Hq, Hkv, D, torch.float32, q_offset=q_offset,
+            num_sms=H100_SMS)
+        assert path == "split" and n_split > 1
+        bounds = _split_bounds(split_len, n_split, min(Sk, q_offset + Sq))
+    m, l, acc = TREF.mha_partials(_t(q), _t(k), _t(v), bounds, **kw)
+    assert m.shape == l.shape == (len(bounds), B, Sq, Hq)
+    assert bool(torch.isfinite(acc).all()) and bool((m >= -1e30).all())
+    got = TREF.combine_partials(m, l, acc)
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    _close(got, JREF.mha_reference(jq, jk, jv, **kw), 2e-5)
+    _close(got, JOPS.flash_attention(jq, jk, jv, block_q=Sq, block_k=Sk,
+                                     interpret=True, **kw), 2e-5)
+    for i, (lo, hi) in enumerate(bounds):
+        if lo >= Sk:                         # padding alone: l = 0
+            assert float(l[i].abs().max()) == 0.0
+            assert float(m[i].max()) == float(np.float32(-1e30))
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,dtype,q_offset,want", [
+    (4, 1024, 1024, 40, 10, 128, "bfloat16", 0, "wgmma"),   # Phi-3 prefill
+    (4, 1024, 1024, 40, 10, 64, "bfloat16", 0, "wgmma"),
+    (2, 200, 200, 8, 2, 128, "bfloat16", 0, "wgmma"),       # 800 rows
+    (4, 1, 1024, 40, 10, 128, "bfloat16", 700, "split"),    # Phi-3 decode
+    (4, 1, 1024, 40, 10, 128, "float32", 700, "split"),
+    (2, 1, 1024, 8, 2, 32, "bfloat16", 0, "split"),
+    (4, 1024, 1024, 40, 10, 128, "float32", 0, "simt"),     # f32 prefill
+    (1, 8, 64, 8, 2, 32, "bfloat16", 0, "simt"),            # D = 32
+    (2, 10, 64, 8, 2, 64, "bfloat16", 0, "simt"),           # 40 rows
+    (64, 1, 1024, 40, 10, 128, "bfloat16", 700, "simt"),    # 640 blocks
+])
+def test_flash_plan_paths(B, Sq, Sk, Hq, Hkv, D, dtype, q_offset, want):
+    path, _, _ = ops.flash_plan(B, Sq, Sk, Hq, Hkv, D, getattr(torch, dtype),
+                                q_offset=q_offset, num_sms=H100_SMS)
+    assert path == want
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv", [
+    (0, 1, 1024, 40, 10), (4, 0, 1024, 40, 10), (4, 16, 0, 40, 10),
+    (0, 1024, 1024, 40, 10)])
+def test_flash_plan_rejects_empty_shapes(B, Sq, Sk, Hq, Hkv):
+    """Nothing to plan without rows or keys (the division by B * Hkv
+    would fail); the wrapper returns an empty output before planning."""
+    with pytest.raises(ValueError, match="no work"):
+        ops.flash_plan(B, Sq, Sk, Hq, Hkv, 128, torch.bfloat16,
+                       num_sms=H100_SMS)
+
+
+@pytest.mark.parametrize("B,Sq", [(0, 1), (0, 1024), (2, 0)])
+def test_flash_attention_empty_rows(B, Sq):
+    """No rows: an empty output of q's shape and dtype, no launch."""
+    ops.reset_launches()
+    q = torch.zeros((B, Sq, 8, 64), dtype=torch.bfloat16)
+    k = torch.zeros((B, 5, 2, 64), dtype=torch.bfloat16)
+    got = ops.flash_attention(q, k, k, q_offset=4)
+    assert got.shape == q.shape and got.dtype == q.dtype
+    assert sum(ops.LAUNCHES.values()) == sum(ops.FLASH_PATHS.values()) == 0
+
+
+@pytest.mark.parametrize("B,Hkv,Sq,Sk,q_offset,causal", [
+    (4, 10, 1, 1024, 700, True), (4, 10, 1, 1024, 0, True),
+    (2, 2, 1, 1024, 63, True), (2, 2, 1, 1024, 64, True),
+    (2, 2, 1, 1024, 1000, True), (1, 1, 4, 5000, 4000, True),
+    (3, 5, 2, 333, 0, False), (8, 16, 1, 100, 300, True)])
+@pytest.mark.parametrize("num_sms", [H100_SMS, 114])   # SXM and PCIe
+def test_flash_plan_splits_cover_keys(B, Hkv, Sq, Sk, q_offset, causal,
+                                      num_sms):
+    path, split_len, n_split = ops.flash_plan(
+        B, Sq, Sk, 4 * Hkv, Hkv, 128, torch.bfloat16, causal=causal,
+        q_offset=q_offset, num_sms=num_sms)
+    assert path == "split"
+    kend = min(Sk, q_offset + Sq) if causal else Sk
+    bounds = _split_bounds(split_len, n_split, kend)
+    assert split_len % ops.SPLIT_KEYS == 0
+    assert all(hi > lo for lo, hi in bounds)
+    assert [j for lo, hi in bounds for j in range(lo, hi)] == \
+        list(range(kend))
+    # about two blocks per SM, never more splits than the keys need
+    assert B * Hkv * (n_split - 1) < 2 * num_sms
+    assert n_split <= -(-kend // ops.SPLIT_KEYS)
+
+
 # --------------------------------------------------------- rwkv6_chunked --
 def _rwkv_inputs(B, S, H, lo=0.7, s0_scale=0.1):
     r, k, v = (_rand((B, S, H, 64), 0.5) for _ in range(3))
@@ -310,3 +420,4 @@ def test_model_kernel_wrappers_reject_bad_inputs():
     ops.flash_attention(q, q, q)
     ops.rwkv6_chunked(x, x, x, x, u, s0, chunk=16)
     assert ops.LAUNCHES == dict.fromkeys(ops.LAUNCHES, 0)
+    assert ops.FLASH_PATHS == dict.fromkeys(ops.FLASH_PATHS, 0)
