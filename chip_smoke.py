@@ -24,9 +24,10 @@ Phases (any failure exits non-zero before the final line):
    also within 2x of SDPA's max and mean error against the f32 reference,
    each attention case printing the path it took (wgmma, split or simt);
    CUDA-event times of kernel, plain version and (attention)
-   ``scaled_dot_product_attention``, and the device times of attention
-   and SDPA (at decode also SDPA over the visible keys alone) from
-   torch.profiler;
+   ``scaled_dot_product_attention``, and the device times of attention,
+   SDPA (at decode also SDPA over the visible keys alone) and RWKV-6 from
+   torch.profiler; each RWKV-6 case prints its dynamic shared memory and
+   the kernel's ptxas registers and spills;
 6. card against CPU: the reduced Phi-3 and RWKV-6 configs in f32 on
    ``cuda`` (kernels) and on ``cpu`` (plain versions) from the same
    weights, prefill and 16 decode steps, logits within 1e-4;
@@ -48,9 +49,11 @@ Imports torch and the port only, never jax nor the reference package.
 from __future__ import annotations
 
 import copy
+import ctypes
 import dataclasses
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -133,6 +136,27 @@ def device_us(fn, torch, n: int = 50) -> float:
         fail("torch.profiler recorded no CUDA kernel")
     return sum(e.self_device_time_total for e in kern) / \
         min(e.count for e in kern)
+
+
+def rwkv_ptxas(log: str) -> dict:
+    """(registers, spill store bytes) of each ``rwkv6_chunked_kernel``
+    instantiation in nvcc's ``-Xptxas -v`` report, keyed "f32 CP16" (input
+    type, chunk padded to a multiple of 16)."""
+    out, key, spill = {}, None, 0
+    for line in log.splitlines():
+        m = re.search(r"rwkv6_chunked_kernelI(f|13__nv_bfloat16)Li(\d+)E",
+                      line)
+        if "Compiling entry function" in line:
+            key = (f"{'f32' if m.group(1) == 'f' else 'bf16'} "
+                   f"CP{m.group(2)}") if m else None
+        elif key and "spill stores" in line:
+            spill = int(re.search(r"(\d+) bytes spill stores", line)
+                        .group(1))
+        elif key and "Used" in line and "registers" in line:
+            out[key] = (int(re.search(r"Used (\d+) registers", line)
+                            .group(1)), spill)
+            key = None
+    return out
 
 
 def nbytes(*ts) -> int:
@@ -341,10 +365,12 @@ def bound_ms(flops, nbytes_, kind):
                                  else "bytes")
 
 
-def check_model_kernels(ops, ref, torch, np, dev="cuda") -> dict:
+def check_model_kernels(ops, ref, torch, np, rwkv_smem,
+                        dev="cuda") -> dict:
     """Phase 5: flash attention and chunked RWKV-6 against their plain
     versions on the card, with the tolerances of tests/test_kernels.py
-    (2e-5 f32 and 5e-2 bf16 attention, 1e-4 RWKV-6)."""
+    (2e-5 f32 and 5e-2 bf16 attention, 1e-4 RWKV-6).  ``rwkv_smem(C)`` is
+    the RWKV-6 kernel's dynamic shared memory at chunk C."""
     rng = np.random.default_rng(1)
     F = torch.nn.functional
 
@@ -506,11 +532,14 @@ def check_model_kernels(ops, ref, torch, np, dev="cuda") -> dict:
                    plain_ms=time_ms(lambda: ref.rwkv6_chunked_reference(
                        *ins, chunk=c), reps=5, warmup=1),
                    library_ms=None, flops=flops, bytes=nb, bound_ms=bms,
-                   bound_by=by, max_abs_err=e)
+                   bound_by=by, max_abs_err=e, smem_bytes=rwkv_smem(c))
+        row["device_ms"] = device_us(
+            lambda: ops.rwkv6_chunked(*ins, chunk=c), torch, 20) / 1e3
         print(f"kernel rwkv6_chunked {label} r {tuple(ins[0].shape)}: max "
-              f"err {e:.3g} (tol 1e-4); kernel {row['ms']:.4f} ms, plain "
-              f"{row['plain_ms']:.4f} ms; {flops} FLOP, {nb} B, bound "
-              f"{bms:.4f} ms ({by})", flush=True)
+              f"err {e:.3g} (tol 1e-4); kernel {row['ms']:.4f} ms, device "
+              f"{row['device_ms']:.4f} ms, plain {row['plain_ms']:.4f} ms; "
+              f"{flops} FLOP, {nb} B, bound {bms:.4f} ms ({by}); dynamic "
+              f"shared memory {row['smem_bytes']} B a block", flush=True)
         out[f"rwkv {label}"] = row
     out["rwkv6_chunked"] = dict(out["rwkv prefill chunk 16"],
                                 max_abs_err=worst)
@@ -807,7 +836,14 @@ def main() -> None:
     card = card_line()
 
     # 5. model kernel checks
-    nums.update(check_model_kernels(ops, KREF, torch, np))
+    rwkv_lib = ctypes.CDLL(str(_build.build()["rwkv6_chunked"]))
+    nums.update(check_model_kernels(ops, KREF, torch, np,
+                                    rwkv_lib.rwkv6_chunked_smem_bytes))
+    ptx = rwkv_ptxas(_build.BUILD_INFO.get("ptxas", {})
+                     .get("rwkv6_chunked", ""))
+    print("kernel rwkv6_chunked ptxas (registers, spill bytes): "
+          + ", ".join(f"{k} {r} / {sp}" for k, (r, sp) in sorted(ptx.items())),
+          flush=True)
     for name in TICK_KERNELS:
         nums[name].update(bound_ms=nums[name]["bytes"] / HBM_BYTES_PER_S
                           * 1e3, bound_by="bytes")
@@ -843,6 +879,14 @@ def main() -> None:
             nums[f"flash {label}"]["library_device_ms"]
         flash[f"{key}_bound_ms"] = nums[f"flash {label}"]["bound_ms"]
         flash[f"{key}_path"] = nums[f"flash {label}"]["path"]
+    rwkv = next(r for r in rows if r["name"] == "rwkv6_chunked")
+    for key in ("device_ms", "smem_bytes"):
+        rwkv[key] = nums["rwkv prefill chunk 16"][key]
+    rwkv["registers"] = ptx.get("f32 CP16", (None, None))[0]
+    for label in ("prefill chunk 64", "strong decay chunk 32"):
+        key = label.replace(" ", "_")
+        for k2 in ("ms", "device_ms", "bound_ms"):
+            rwkv[f"{key}_{k2}"] = nums[f"rwkv {label}"][k2]
     agg = next(r for r in rows if r["name"] == "flow_agg")
     for key in ("device_us", "library_device_us"):
         agg[key] = nums["flow_agg"][key]

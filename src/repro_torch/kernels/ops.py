@@ -259,7 +259,8 @@ def flash_attention(q, k, v, *, causal: bool = True, sliding_window: int = 0,
 def rwkv6_chunked(r, k, v, w, u, wkv0, *, chunk: int = 64):
     """Chunked RWKV-6 time mix.  r, k, v, w: [B, S, H, 64] and u: [H, 64],
     all f32 or all bf16; wkv0: [B, H, 64, 64] f32.  ``min(chunk, S)``
-    must divide S (and be at most 64 on the card).  Returns (y
+    must divide S (and be at most 64 on the card, where the tensors must
+    also start on a 16-byte boundary).  Returns (y
     [B, S, H, 64] f32, final state [B, H, 64, 64] f32)."""
     if not (r.ndim == 4 and r.shape == k.shape == v.shape == w.shape):
         raise ValueError(f"r/k/v/w must share a 4-D shape, got "
@@ -279,6 +280,9 @@ def rwkv6_chunked(r, k, v, w, u, wkv0, *, chunk: int = 64):
     _dtype(wkv0, torch.float32, "wkv0")
     if C > 64:
         raise ValueError(f"rwkv6_chunked kernel: chunk must be <= 64, got {C}")
+    if any(t.data_ptr() % 16 for t in (r, k, v, w, wkv0)):
+        raise ValueError("rwkv6_chunked kernel: r, k, v, w and wkv0 must "
+                         "start on a 16-byte boundary")
     y = torch.empty((B, S, H, hd), dtype=torch.float32, device=r.device)
     sout = torch.empty_like(wkv0)
     _launch("rwkv6_chunked", r.data_ptr(), k.data_ptr(), v.data_ptr(),

@@ -134,11 +134,13 @@ def combine_partials(m, l, acc):
 
 
 def rwkv6_chunked_reference(r, k, v, w, u, wkv0, *, chunk: int = 16):
-    """Chunked RWKV-6 recurrence in f32 (mirror of the reference's
-    ``models.ssm.rwkv6_chunked_jnp``): per chunk the inter-chunk term
-    ``(r * A_{t-1}) @ S``, the intra-chunk term with stable pairwise
-    decays ``exp(L_{t-1} - L_s) <= 1`` (strictly lower), the ``u`` bonus
-    diagonal and ``S' = diag(A_C) S + (k * exp(L_C - L))^T V``.
+    """Chunked RWKV-6 recurrence in f32, in the CUDA kernel's arithmetic
+    (the reference's ``models.ssm.rwkv6_chunked_jnp`` in the log2
+    domain): per chunk, with ``L`` the prefix sum of ``log2(w)`` and
+    ``Lprev`` the same sum one token earlier, the scores ``P[t, s] =
+    sum_c r_t k_s 2^(Lprev_t - L_s)`` for s < t (stable: <= 1), the ``u``
+    bonus ``r_t . (u * k_t)`` as their diagonal, ``y = (r * 2^Lprev) @ S
+    + P @ V`` and ``S' = diag(2^L_C) S + (k * 2^(L_C - L))^T V``.
 
     r, k, v, w: [B, S, H, hd]; u: [H, hd]; wkv0: [B, H, hd, hd].  Returns
     (y [B, S, H, hd] f32, wkv_final f32)."""
@@ -148,27 +150,27 @@ def rwkv6_chunked_reference(r, k, v, w, u, wkv0, *, chunk: int = 16):
         raise ValueError(f"chunk {C} does not divide S = {S}")
     n = S // C
     r, k, v, w, u = (a.float() for a in (r, k, v, w, u))
-    logw = torch.log(w.clamp_min(1e-30))
+    log2w = torch.log2(w.clamp_min(1e-30))
 
     def resh(a):
         return a.reshape(B, n, C, H, hd).transpose(0, 1)
-    rc, kc, vc, lw = resh(r), resh(k), resh(v), resh(logw)
+    rc, kc, vc, lw = resh(r), resh(k), resh(v), resh(log2w)
     idx = torch.arange(C, device=r.device)
-    tril = (idx[None, :] < idx[:, None])[None, :, :, None, None]
+    below = (idx[None, :] < idx[:, None])[None, :, :, None, None]
+    diag = (idx[None, :] == idx[:, None])[None, :, :, None, None]
     S0 = wkv0.float()
     ys = []
     for i in range(n):
         rr, kk, vv, lwc = rc[i], kc[i], vc[i], lw[i]          # [B,C,H,hd]
         L = torch.cumsum(lwc, 1)
-        Lprev = L - lwc
-        y = torch.einsum("bthk,bhkv->bthv", rr * torch.exp(Lprev), S0)
-        P = torch.exp(Lprev[:, :, None] - L[:, None, :])    # [B,C,C,H,hd]
-        scores = torch.einsum("bthc,bshc,btshc->btsh", rr, kk,
-                              torch.where(tril, P, 0.0))
-        y = y + torch.einsum("btsh,bshv->bthv", scores, vv)
-        y = y + (rr * u[None, None] * kk).sum(-1, keepdim=True) * vv
-        A_C = torch.exp(L[:, -1])                             # [B,H,hd]
-        kdec = kk * torch.exp(L[:, -1:] - L)
+        Lprev = torch.cat([torch.zeros_like(L[:, :1]), L[:, :-1]], 1)
+        y = torch.einsum("bthk,bhkv->bthv", rr * torch.exp2(Lprev), S0)
+        D = torch.exp2(Lprev[:, :, None] - L[:, None, :])    # [B,C,C,H,hd]
+        D = torch.where(below, D, torch.where(diag, u[None, None, None], 0.0))
+        P = torch.einsum("bthc,bshc,btshc->btsh", rr, kk, D)
+        y = y + torch.einsum("btsh,bshv->bthv", P, vv)
+        A_C = torch.exp2(L[:, -1])                            # [B,H,hd]
+        kdec = kk * torch.exp2(L[:, -1:] - L)
         S0 = A_C[..., None] * S0 + torch.einsum("bshk,bshv->bhkv", kdec, vv)
         ys.append(y)
     return torch.stack(ys, 1).reshape(B, S, H, hd), S0

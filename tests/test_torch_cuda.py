@@ -208,18 +208,27 @@ def test_flash_attention_paths(cuda, B, Sq, Sk, Hq, Hkv, D, window, q_offset,
         _within_2x_sdpa(got, q, k, v, kw)
 
 
-@pytest.mark.parametrize("B,S,H,chunk,lo", [
-    (1, 64, 1, 16, 0.7), (2, 128, 2, 32, 0.7), (1, 256, 4, 64, 0.7),
-    (2, 48, 3, 16, 0.7), (1, 128, 1, 32, 0.3)])
-def test_rwkv6_chunked_kernel(cuda, B, S, H, chunk, lo):
-    ins = [_pair(RNG.normal(0, 0.5, (B, S, H, 64)), torch.float32, cuda)
-           for _ in range(3)]
-    ins.append(_pair(RNG.uniform(lo, 0.999 if lo > 0.5 else 0.6,
-                                 (B, S, H, 64)), torch.float32, cuda))
-    ins.append(_pair(RNG.normal(0, 0.1, (H, 64)), torch.float32, cuda))
+@pytest.mark.parametrize("B,S,H,chunk,lo,dtype", [
+    (1, 64, 1, 16, 0.7, "float32"), (2, 128, 2, 32, 0.7, "float32"),
+    (1, 256, 4, 64, 0.7, "float32"), (2, 48, 3, 16, 0.7, "float32"),
+    (1, 128, 1, 32, 0.3, "float32"), (1, 48, 1, 24, 0.7, "float32"),
+    (2, 64, 2, 8, 0.7, "float32"), (1, 48, 1, 48, 0.7, "float32"),
+    (1, 128, 3, 64, 0.7, "float32"), (2, 128, 2, 16, 0.7, "bfloat16")])
+def test_rwkv6_chunked_kernel(cuda, B, S, H, chunk, lo, dtype):
+    """The kernel against its plain version on the same inputs, at 1e-4:
+    both compute in f32, from bf16 inputs too (their widening is exact),
+    so the bf16 case is held as tightly as f32."""
+    dt = getattr(torch, dtype)
+    raw = [RNG.normal(0, 0.5, (B, S, H, 64)) for _ in range(3)]
+    raw.append(RNG.uniform(lo, 0.999 if lo > 0.5 else 0.6, (B, S, H, 64)))
+    raw.append(RNG.normal(0, 0.1, (H, 64)))
+    ins = [_pair(a, dt, cuda) for a in raw]
     ins.append(_pair(RNG.normal(0, 0.1, (B, H, 64, 64)), torch.float32,
                      cuda))
+    ops.reset_launches()
     y, sf = ops.rwkv6_chunked(*[g for _, g in ins], chunk=chunk)
+    assert ops.LAUNCHES["rwkv6_chunked"] == 1
+    assert bool(torch.isfinite(y).all())
     y2, sf2 = ref.rwkv6_chunked_reference(*[c for c, _ in ins], chunk=chunk)
     _close(y, y2, 1e-4)
     _close(sf, sf2, 1e-4)

@@ -358,7 +358,9 @@ def _rwkv_inputs(B, S, H, lo=0.7, s0_scale=0.1):
 
 
 @pytest.mark.parametrize("B,S,H,chunk", [(1, 64, 1, 16), (2, 128, 2, 32),
-                                         (1, 256, 4, 64), (2, 48, 1, 16)])
+                                         (1, 256, 4, 64), (2, 48, 1, 16),
+                                         (1, 48, 1, 24), (2, 64, 2, 8),
+                                         (1, 48, 1, 48)])
 def test_rwkv6_chunked_shapes(B, S, H, chunk):
     ins = _rwkv_inputs(B, S, H)
     y, sf = ops.rwkv6_chunked(*map(_t, ins), chunk=chunk)
@@ -380,6 +382,19 @@ def test_rwkv6_chunked_strong_decay_stability():
     want, _ = JREF.rwkv6_reference(*map(jnp.asarray, ins))
     _close(y, want, 1e-4)
     assert torch.isfinite(y).all()
+
+
+@pytest.mark.parametrize("chunk", [32, 8])
+def test_rwkv6_chunked_reference_log2_form(chunk):
+    """The plain version in the CUDA kernel's arithmetic (log2 decays, the
+    bonus as the scores' diagonal) against the sequential JAX recurrence at
+    strong decay, y and the final state."""
+    ins = _rwkv_inputs(1, 128, 1, lo=0.3)
+    y, sf = TREF.rwkv6_chunked_reference(*map(_t, ins), chunk=chunk)
+    want_y, want_s = JREF.rwkv6_reference(*map(jnp.asarray, ins))
+    _close(y, want_y, 1e-4)
+    _close(sf, want_s, 1e-4)
+    assert torch.isfinite(y).all() and torch.isfinite(sf).all()
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
