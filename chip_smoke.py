@@ -10,13 +10,19 @@ Phases (any failure exits non-zero before the final line):
    nvcc for sm_90a, one process per source;
 3. tick kernel checks: each tick kernel against its plain torch version
    on the card, at the packet engine's DF-1056 shapes plus ragged sizes
-   and out-of-range entries, required ``torch.equal``; CUDA-event times
-   of kernel, plain version and (flow_agg) ``index_add_``, and the
-   device times of flow_agg and ``index_add_`` from torch.profiler;
+   and out-of-range entries, required ``torch.equal``; tick_rank also on
+   one port, all distinct ports, all sentinels, M = 1, 65,536 entries
+   over 64 ports and n_ports = 70,000 (its pairwise path), against a
+   stable numpy sort where the one-hot plain version is too large, each
+   case on the path ``ops.tick_rank_plan`` gives; CUDA-event times of
+   kernel, plain version and (flow_agg) ``index_add_``, and the device
+   times of flow_agg, ``index_add_``, tick_rank and the engine's torch
+   form of the rank (argsort + cummax + scatter) from torch.profiler;
 4. engine path: the 1,056-endpoint Dragonfly permutation run for ecmp,
    spritz_scout and spritz_spray_w through ``engine.run`` on the card,
    kernels on, held against the committed golden record of the JAX
-   reference; every tick kernel must have launched;
+   reference; every tick kernel must have launched, tick_rank on its
+   shared-memory path only;
 5. model kernel checks: flash attention and chunked RWKV-6 against their
    plain versions at the serving path's shapes (prefill and decode, bf16
    and f32) and at ragged, sliding-window and strong-decay cases, within
@@ -114,28 +120,46 @@ def time_ms(fn, reps: int = 200, warmup: int = 10) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def device_us(fn, torch, n: int = 50) -> float:
+# measurements that torch.profiler could not make, by label: those
+# were timed with CUDA events instead (see ``device_us``)
+EVENT_TIMED: list[str] = []
+
+
+def timed_by(what: str) -> str:
+    return "CUDA events" if what in EVENT_TIMED else "torch.profiler"
+
+
+def device_us(fn, torch, n: int = 50, what: str = "") -> float:
     """Device time per call, in us, of the CUDA kernels that ``fn``
     launches (torch.profiler over ``n`` warm calls), so that a kernel and
     a library call compare without their host cost.  The sum is divided
     by the calls the trace holds, the fewest launches of any one kernel
     (a call may launch a kernel more than once), not by ``n``: a trace
-    can drop a short run's first records."""
+    can drop a short run's first records.  A trace can also come back
+    with no CUDA kernel at all; after three such traces the time is
+    taken with CUDA events over ``n`` back-to-back calls (host gaps
+    included where the calls are host-paced) and ``what`` is noted in
+    ``EVENT_TIMED``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
+    for attempt in range(3):
+        fn()
         torch.cuda.synchronize()
-    kern = [e for e in prof.key_averages()
-            if getattr(e, "device_type", None) == DeviceType.CUDA]
-    if not kern:
-        fail("torch.profiler recorded no CUDA kernel")
-    return sum(e.self_device_time_total for e in kern) / \
-        min(e.count for e in kern)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        kern = [e for e in prof.key_averages()
+                if getattr(e, "device_type", None) == DeviceType.CUDA]
+        if kern:
+            return sum(e.self_device_time_total for e in kern) / \
+                min(e.count for e in kern)
+        print(f"chip_smoke: torch.profiler recorded no CUDA kernel for "
+              f"{what} (trace {attempt + 1} of 3)", file=sys.stderr,
+              flush=True)
+    EVENT_TIMED.append(what)
+    return time_ms(fn, reps=n, warmup=2) * 1e3
 
 
 def rwkv_ptxas(log: str) -> dict:
@@ -163,9 +187,11 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def check_kernels(ops, ref, torch, np, shapes, dev="cuda") -> dict:
+def check_kernels(ops, ref, sorted_rank, torch, np, shapes,
+                  dev="cuda") -> dict:
     """Phase 3: kernel vs plain version on the card; returns per-kernel
-    numbers at the main path's shapes."""
+    numbers at the main path's shapes.  ``sorted_rank`` is the engine's
+    torch form of the rank, timed as tick_rank's yardstick."""
     N, F, M, NP_, P = (shapes[k] for k in ("N", "F", "M", "n_ports", "P"))
     rng = np.random.default_rng(0)
 
@@ -214,8 +240,9 @@ def check_kernels(ops, ref, torch, np, shapes, dev="cuda") -> dict:
                                                         n_flows=F)),
         library_ms=time_ms(lib_agg),
         device_us=device_us(lambda: ops.flow_agg(rows, pflow, n_flows=F),
-                            torch),
-        library_device_us=device_us(lib_agg, torch),
+                            torch, what="flow_agg"),
+        library_device_us=device_us(lib_agg, torch,
+                                    what="flow_agg index_add_"),
         bytes=nbytes(rows, pflow) + 6 * F * 4)
     rows2, pflow2 = agg_inputs(2, N, 4000, False)
     out["flow_agg"]["ms_k2"] = time_ms(
@@ -229,17 +256,59 @@ def check_kernels(ops, ref, torch, np, shapes, dev="cuda") -> dict:
         port[rng.integers(0, m, 8)] = -1
         return cu(port, i32)
 
+    def stable_rank(port, n_ports):
+        """The rank by a stable numpy sort, for shapes whose one-hot plain
+        version is too large: position in the sorted run of its bucket."""
+        p = port.cpu().numpy()
+        b = np.where((p < 0) | (p >= n_ports), n_ports, p)
+        order = np.argsort(b, kind="stable")
+        srt = b[order]
+        rank = np.empty(len(b), np.int32)
+        rank[order] = np.arange(len(b)) - np.searchsorted(srt, srt, "left")
+        return torch.from_numpy(rank).to(dev)
+
     err = 0.0
-    for m, nv in ((M, 4200), (M, M), (1000, 600), (37, 37)):
-        port = rank_inputs(m, nv)
-        err = max(err, same("tick_rank", ops.tick_rank(port, n_ports=NP_),
-                            ref.tick_rank_reference(port, n_ports=NP_)))
+    cases = [(rank_inputs(m, nv), NP_)
+             for m, nv in ((M, 4200), (M, M), (1000, 600), (37, 37))]
+    cases += [(cu(np.full(M, 5), i32), NP_),                 # one port
+              (cu(rng.permutation(NP_), i32), NP_),          # all distinct
+              (cu(np.full(M, NP_), i32), NP_),               # all sentinel
+              (cu(np.array([3]), i32), NP_),                 # M = 1
+              (rank_inputs(M - 1, M - 1), NP_),              # M % 32 != 0
+              (cu(rng.integers(-1, 66, 65536), i32), 64),    # 65,536 / 64
+              (cu(rng.integers(-1, 70002, 2000), i32), 70000)]  # pairwise
+    small = cases[2][0]
+    if not torch.equal(stable_rank(small, NP_),
+                       ref.tick_rank_reference(small, n_ports=NP_)):
+        fail("tick_rank: the stable-sort rank disagrees with the plain "
+             "version")
+    for port, n in cases:
+        path = ops.tick_rank_plan(port.shape[0], n)[0]
+        before = dict(ops.TICK_RANK_PATHS)
+        got = ops.tick_rank(port, n_ports=n)
+        if ops.TICK_RANK_PATHS[path] != before[path] + 1:
+            fail(f"tick_rank: M {port.shape[0]}, n_ports {n} did not "
+                 f"take its planned path {path}")
+        want = (stable_rank(port, n) if port.shape[0] * (n + 1) > 1 << 26
+                else ref.tick_rank_reference(port, n_ports=n))
+        err = max(err, same(f"tick_rank M {port.shape[0]} n_ports {n} "
+                            f"({path})", got, want))
+    if ops.tick_rank(cu(np.zeros(0), i32), n_ports=NP_).numel() != 0:
+        fail("tick_rank: M = 0 gave a result")
     port = rank_inputs(M, 4200)
+    ar_m = torch.arange(M, dtype=i32, device=dev)
+    plan = ops.tick_rank_plan(M, NP_)
     out["tick_rank"] = dict(
         max_abs_err=err,
         ms=time_ms(lambda: ops.tick_rank(port, n_ports=NP_)),
         plain_ms=time_ms(lambda: ref.tick_rank_reference(port, n_ports=NP_)),
-        library_ms=None, bytes=2 * nbytes(port))
+        library_ms=None, bytes=2 * nbytes(port),
+        device_us=device_us(lambda: ops.tick_rank(port, n_ports=NP_), torch,
+                            what="tick_rank"),
+        path=plan[0], segs=plan[1], smem_bytes=plan[2],
+        torch_form_ms=time_ms(lambda: sorted_rank(port, ar_m)),
+        torch_form_device_us=device_us(lambda: sorted_rank(port, ar_m),
+                                       torch, what="tick_rank torch form"))
 
     # ---- red_ecn: random candidates, then every occupancy 0..qsize+M
     qsize, kmin, kmax = shapes["qsize"], shapes["kmin"], shapes["kmax"]
@@ -477,8 +546,10 @@ def check_model_kernels(ops, ref, torch, np, rwkv_smem,
         # the decode shapes
         row["device_ms"] = device_us(
             lambda: ops.flash_attention(q, k, v, **kw), torch,
-            max(reps, 20)) / 1e3
-        row["library_device_ms"] = device_us(lib, torch, max(reps, 20)) / 1e3
+            max(reps, 20), what=f"flash_attention {label}") / 1e3
+        row["library_device_ms"] = device_us(
+            lib, torch, max(reps, 20),
+            what=f"flash_attention {label} SDPA") / 1e3
         extra = ""
         if e32 is not None:
             row["f32_ref_err"] = e32
@@ -487,7 +558,8 @@ def check_model_kernels(ops, ref, torch, np, rwkv_smem,
                       f"mean {e32['sdpa_mean']:.3g} (limit 2x SDPA)")
         if sq == 1 and not win:
             row["library_visible_device_ms"] = device_us(
-                sdpa_visible(q, k, v, kw), torch, max(reps, 20)) / 1e3
+                sdpa_visible(q, k, v, kw), torch, max(reps, 20),
+                what=f"flash_attention {label} SDPA visible") / 1e3
             extra += (f"; SDPA on the visible keys alone, device "
                       f"{row['library_visible_device_ms']:.4f} ms")
         print(f"kernel flash_attention {label} {tuple(q.shape)} x "
@@ -534,7 +606,8 @@ def check_model_kernels(ops, ref, torch, np, rwkv_smem,
                    library_ms=None, flops=flops, bytes=nb, bound_ms=bms,
                    bound_by=by, max_abs_err=e, smem_bytes=rwkv_smem(c))
         row["device_ms"] = device_us(
-            lambda: ops.rwkv6_chunked(*ins, chunk=c), torch, 20) / 1e3
+            lambda: ops.rwkv6_chunked(*ins, chunk=c), torch, 20,
+            what=f"rwkv6_chunked {label}") / 1e3
         print(f"kernel rwkv6_chunked {label} r {tuple(ins[0].shape)}: max "
               f"err {e:.3g} (tol 1e-4); kernel {row['ms']:.4f} ms, device "
               f"{row['device_ms']:.4f} ms, plain {row['plain_ms']:.4f} ms; "
@@ -777,7 +850,7 @@ def main() -> None:
           f"shapes {shapes}", flush=True)
 
     # 3. tick kernel checks
-    nums = check_kernels(ops, KREF, torch, np, shapes)
+    nums = check_kernels(ops, KREF, E.sorted_rank, torch, np, shapes)
     for name, v in nums.items():
         print(f"kernel {name}: equal to plain; kernel {v['ms'] * 1e3:.2f} us,"
               f" plain {v['plain_ms'] * 1e3:.2f} us"
@@ -786,10 +859,18 @@ def main() -> None:
               + f", {v['bytes']} B", flush=True)
     print(f"kernel flow_agg (K=2): {nums['flow_agg']['ms_k2'] * 1e3:.2f} us",
           flush=True)
-    print(f"kernel flow_agg device time (torch.profiler, zero fill "
+    print(f"kernel flow_agg device time ({timed_by('flow_agg')}, zero fill "
           f"included): {nums['flow_agg']['device_us']:.2f} us a call; "
           f"index_add_ {nums['flow_agg']['library_device_us']:.2f} us a "
           f"call", flush=True)
+    tr = nums["tick_rank"]
+    print(f"kernel tick_rank at M {shapes['M']}, n_ports {shapes['n_ports']}"
+          f": path {tr['path']}, {tr['segs']} segments, {tr['smem_bytes']} B"
+          f" of shared memory; device time ({timed_by('tick_rank')}) "
+          f"{tr['device_us']:.2f} us a call; the engine's torch form "
+          f"(argsort + cummax + scatter) {tr['torch_form_device_us']:.2f} us"
+          f" a call on the device, {tr['torch_form_ms'] * 1e3:.2f} us "
+          f"wrapper", flush=True)
 
     # 4. engine path
     golden = GOLD.load()["schemes"]
@@ -803,6 +884,7 @@ def main() -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = dict(ops.LAUNCHES)
+        rank_paths = dict(ops.TICK_RANK_PATHS)
         for k in launches:
             launches[k] += counts[k]
         got = GOLD.summarize(res)
@@ -817,10 +899,15 @@ def main() -> None:
             need.append("spritz_select")
         if any(counts[k] == 0 for k in need):
             fail(f"{s}: a kernel of the path never launched: {counts}")
+        if rank_paths["pairwise"] or \
+                rank_paths["smem"] != counts["tick_rank"]:
+            fail(f"{s}: tick_rank left its shared-memory path: "
+                 f"{rank_paths}")
         print(f"main {s}: equal to golden; ticks {res.ticks_simulated} "
               f"steps {res.steps_executed}; wall {wall:.3f} s "
               f"({res.steps_executed / wall:.1f} steps/s, first run); "
-              f"launches {counts}", flush=True)
+              f"launches {counts}; tick_rank paths {rank_paths}",
+              flush=True)
     # warm repeat, timed only (launches not counted)
     for s, spec in specs.items():
         torch.cuda.synchronize()
@@ -890,6 +977,20 @@ def main() -> None:
     agg = next(r for r in rows if r["name"] == "flow_agg")
     for key in ("device_us", "library_device_us"):
         agg[key] = nums["flow_agg"][key]
+    rank_row = next(r for r in rows if r["name"] == "tick_rank")
+    for key in ("device_us", "path", "segs", "smem_bytes",
+                "torch_form_device_us", "torch_form_ms"):
+        rank_row[key] = nums["tick_rank"][key]
+    for row in rows:
+        if any("device" in key for key in row):
+            late = [w for w in EVENT_TIMED if w.split()[0] == row["name"]]
+            row["device_time_by"] = ("CUDA events for " + "; ".join(late)
+                                     if late else "torch.profiler")
+    if EVENT_TIMED:
+        print("device times by CUDA events, torch.profiler having recorded "
+              f"no CUDA kernel: {'; '.join(EVENT_TIMED)}", flush=True)
+    else:
+        print("device times: all from torch.profiler", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -910,6 +1011,10 @@ def profile_block(label, fn, warm_wall: float, torch, top: int = 8):
         torch.cuda.synchronize()
     kern = [e for e in prof.key_averages()
             if getattr(e, "device_type", None) == DeviceType.CUDA]
+    if not kern:
+        print(f"chip_smoke: torch.profiler recorded no CUDA kernel for "
+              f"profile {label}; its breakdown is empty", file=sys.stderr,
+              flush=True)
     busy_us = sum(e.self_device_time_total for e in kern)
     n_launch = sum(e.count for e in kern)
     print(f"profile {label}: device kernel time {busy_us / 1e3:.3f} ms = "
@@ -934,7 +1039,8 @@ def run_profile(E, spec, seed, torch, warm_wall: float) -> None:
           f"{n_launch / res.steps_executed:.0f} launches per step",
           flush=True)
     for e in kern:
-        if e.key.split("(")[0] in ("flow_agg_kernel", "tick_rank_kernel",
+        if e.key.split("(")[0] in ("flow_agg_kernel", "tick_rank_smem_kernel",
+                                   "tick_rank_pairwise_kernel",
                                    "red_ecn_kernel", "spritz_select_kernel"):
             print(f"profile: {e.key.split('(')[0]} device "
                   f"{e.self_device_time_total / e.count:.2f} us per call, "

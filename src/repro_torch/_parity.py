@@ -13,7 +13,8 @@ the CPU and on the card alike (they only use elementwise torch ops):
 * ``xla_cumsum_f32``: XLA's f32 prefix sum, which scans sequentially
   inside blocks of 16 and then adds the running block totals.
 * ``fma_f32``: one fused multiply-add rounded once, the form XLA's CPU
-  backend contracts ``(1 - g) * a + g * f`` into.
+  backend contracts the ``exp_alpha`` EWMA ``(1 - g) * a + g * f`` into;
+  DCTCP's ``alpha`` rounds unfused inside the reference's loop.
 * ``red_recip``: the f32 reciprocal XLA multiplies by when it divides
   by the constant ``kmax - kmin``.
 

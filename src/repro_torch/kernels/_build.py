@@ -34,7 +34,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # library (every entry point takes the stream last)
 SIGNATURES = {
     "flow_agg": ("flow_agg_launch", (_P, _P, _P, _I, _I, _I, _P), EXACT),
-    "tick_rank": ("tick_rank_launch", (_P, _P, _I, _I, _P), EXACT),
+    "tick_rank": ("tick_rank_launch", (_P, _P, _I, _I, _I, _P), EXACT),
     "red_ecn": ("red_ecn_launch", (_P, _P, _P, _P, _P, _I, _I, _F, _F, _I,
                                    _I, _P, _P, _P, _P, _P), EXACT),
     "spritz_select": ("spritz_select_launch", (_P, _P, _P, _P, _I, _I, _I,

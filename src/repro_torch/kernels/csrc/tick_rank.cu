@@ -7,24 +7,135 @@
 // sequential grid carrying per-port counts in VMEM across blocks).
 //
 // Bound on the H100: M = 5,024 compacted enqueues at DF-1056, 40 KB in
-// and out, about 0.01 us at 3.35 TB/s; the launch dominates.  Design: a
-// block of threads cannot carry counts from earlier blocks (blocks run
-// in no order), so each thread counts the equal ports at lower indices
-// itself: the block stages 256 ports at a time in shared memory and every
-// thread compares against the staged tile, M^2 / 2 compares in all.  No
-// atomics, so index order is never lost.  A histogram plus scan with
-// __match_any_sync would do O(M) work; that is later work.
+// and out, about 0.01 us at 3.35 TB/s.  What is left is latency on one
+// SM: the launch, passes over shared memory at one SM's rate, and warp
+// votes, which one SM issues slowly.
+//
+// Two paths behind one entry point; ops.tick_rank_plan picks one.
+//
+// smem (segs >= 1): the Pallas sequential grid done by one block in
+// index order.  [0, M) is cut into `segs` contiguous segments of a
+// multiple of 32 entries (segs <= 16, one a warp), and the block keeps a
+// row of n_ports + 1 counts a segment in dynamic shared memory (opted in
+// above 48 KB; rows padded to 16 bytes).
+//   1. zero the rows with 16-byte stores;
+//   2. count: every thread adds its entries into its segment's row with
+//      shared-memory atomics that only sum (order does not matter here);
+//   3. scan: each bucket's counts become an exclusive prefix over the
+//      segments, one thread a bucket walking the rows;
+//   4. rank: each warp walks its segment in index order, 32 entries a
+//      step, 8 steps loaded at once.  The lanes of a step with the same
+//      bucket are found by one ballot a bit of the bucket (cheaper than
+//      __match_any_sync, whose cost grows with the distinct values in
+//      the warp); an entry's rank is its row's count so far plus the
+//      group's lanes below it, and the group's lowest lane then adds the
+//      group's size to the row.
+// One walk of M / (32 segs) steps against passes over segs rows of
+// counts: the plan sizes segs to balance them.  No rank is read from an
+// atomic, so index order is kept.
+//
+// pairwise (segs == 0), where even one row of counts does not fit in
+// shared memory: each thread counts the equal ports at lower indices
+// itself, the block staging 256 ports at a time in shared memory,
+// M^2 / 2 compares in all.
 #include <cuda_runtime.h>
 
-#define TR_THREADS 256
+#define TR_THREADS 256        // pairwise path
+#define TR_SMEM_THREADS 512   // smem path: 16 warps
+#define TR_MAX_SEGS (TR_SMEM_THREADS / 32)
+#define TR_UNROLL 8           // entries a lane loads before it walks them
 
 __device__ __forceinline__ int bucket(int p, int n_ports) {
   return (p < 0 || p >= n_ports) ? n_ports : p;
 }
 
-__global__ void tick_rank_kernel(const int* __restrict__ port,
-                                 int* __restrict__ rank, int M,
-                                 int n_ports) {
+// Loads the buckets of steps [base, base + 32 * TR_UNROLL) of one lane
+// (-1 past the segment's end), all in flight together.
+__device__ __forceinline__ void load_steps(const int* __restrict__ port,
+                                           int base, int hi, int lane,
+                                           int n_ports, int* b) {
+#pragma unroll
+  for (int u = 0; u < TR_UNROLL; ++u) {
+    const int i = base + u * 32 + lane;
+    b[u] = i < hi ? bucket(__ldg(port + i), n_ports) : -1;
+  }
+}
+
+// For each of the TR_UNROLL steps, the lanes whose bucket equals this
+// lane's (valid lanes only): one ballot a bit of the bucket, `bits` of
+// them (buckets < 2^bits), the steps' ballots interleaved.
+__device__ __forceinline__ void groups_of(const int* b, int bits,
+                                          unsigned* grp) {
+#pragma unroll
+  for (int u = 0; u < TR_UNROLL; ++u)
+    grp[u] = __ballot_sync(0xffffffffu, b[u] >= 0);
+  for (int k = 0; k < bits; ++k) {
+#pragma unroll
+    for (int u = 0; u < TR_UNROLL; ++u) {
+      const bool bit = (b[u] >> k) & 1;
+      const unsigned bal = __ballot_sync(0xffffffffu, bit);
+      grp[u] &= bit ? bal : ~bal;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(TR_SMEM_THREADS)
+tick_rank_smem_kernel(const int* __restrict__ port, int* __restrict__ rank,
+                      int M, int n_ports, int segs, int seg_len,
+                      int stride, int bits) {
+  extern __shared__ int4 cnt4[];
+  int* cnt = reinterpret_cast<int*>(cnt4);
+  const int total4 = segs * stride / 4;          // stride % 4 == 0
+  for (int i = threadIdx.x; i < total4; i += TR_SMEM_THREADS)
+    cnt4[i] = make_int4(0, 0, 0, 0);
+  __syncthreads();
+
+  // 2. count: every thread, integer atomics that only sum
+  for (int i = threadIdx.x; i < M; i += TR_SMEM_THREADS)
+    atomicAdd(&cnt[(i / seg_len) * stride + bucket(__ldg(port + i), n_ports)],
+              1);
+  __syncthreads();
+
+  // 3. exclusive prefix over the segments, bucket by bucket
+  for (int k = threadIdx.x; k <= n_ports; k += TR_SMEM_THREADS) {
+    int run = 0;
+#pragma unroll 4
+    for (int s = 0; s < segs; ++s) {
+      const int v = cnt[s * stride + k];
+      cnt[s * stride + k] = run;
+      run += v;
+    }
+  }
+  __syncthreads();
+
+  // 4. rank: each warp walks its segment in index order
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp >= segs) return;
+  const unsigned below = (1u << lane) - 1u;
+  int* row = cnt + warp * stride;
+  const int lo = warp * seg_len, hi = min(lo + seg_len, M);
+  int b[TR_UNROLL];
+  unsigned grp[TR_UNROLL];
+  for (int base = lo; base < hi; base += 32 * TR_UNROLL) {
+    load_steps(port, base, hi, lane, n_ports, b);
+    groups_of(b, bits, grp);
+#pragma unroll
+    for (int u = 0; u < TR_UNROLL; ++u) {
+      if (base + u * 32 >= hi) break;           // warp-uniform
+      const int seen = b[u] >= 0 ? row[b[u]] : 0;
+      __syncwarp();
+      if (b[u] >= 0) {
+        if ((grp[u] & below) == 0) row[b[u]] = seen + __popc(grp[u]);
+        rank[base + u * 32 + lane] = seen + __popc(grp[u] & below);
+      }
+      __syncwarp();
+    }
+  }
+}
+
+__global__ void tick_rank_pairwise_kernel(const int* __restrict__ port,
+                                          int* __restrict__ rank, int M,
+                                          int n_ports) {
   __shared__ int tile[TR_THREADS];
   const int i = blockIdx.x * TR_THREADS + threadIdx.x;
   const int mine = i < M ? bucket(port[i], n_ports) : -1;
@@ -41,12 +152,32 @@ __global__ void tick_rank_kernel(const int* __restrict__ port,
   if (i < M) rank[i] = count;
 }
 
+// segs: the smem path's segment count (1..16), or 0 for the pairwise
+// path.  The smem path needs segs * round_up(n_ports + 1, 4) * 4 bytes of
+// shared memory, which the caller has checked against the device's limit.
 extern "C" int tick_rank_launch(const void* port, void* rank, int M,
-                                int n_ports, void* stream) {
-  if (M > 0) {
+                                int n_ports, int segs, void* stream) {
+  if (segs < 0 || segs > TR_MAX_SEGS) return (int)cudaErrorInvalidValue;
+  if (M <= 0) return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (segs == 0) {
     const int blocks = (M + TR_THREADS - 1) / TR_THREADS;
-    tick_rank_kernel<<<blocks, TR_THREADS, 0, (cudaStream_t)stream>>>(
+    tick_rank_pairwise_kernel<<<blocks, TR_THREADS, 0, s>>>(
         (const int*)port, (int*)rank, M, n_ports);
+    return (int)cudaGetLastError();
   }
+  const int stride = (n_ports + 1 + 3) / 4 * 4;
+  const int seg_len = ((M + segs - 1) / segs + 31) / 32 * 32;
+  const size_t smem = (size_t)segs * stride * sizeof(int);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        tick_rank_smem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  int bits = 1;                                  // buckets 0..n_ports
+  while (bits < 31 && (1 << bits) <= n_ports) ++bits;
+  tick_rank_smem_kernel<<<1, TR_SMEM_THREADS, smem, s>>>(
+      (const int*)port, (int*)rank, M, n_ports, segs, seg_len, stride, bits);
   return (int)cudaGetLastError();
 }

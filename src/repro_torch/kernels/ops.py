@@ -6,7 +6,8 @@ current CUDA stream (tensors on the card) or calls the kernel's plain
 version in :mod:`repro_torch.kernels.ref` (tensors on the CPU, the
 analogue of Pallas interpret mode).  There is no fallback: a tensor on
 the card runs the kernel or raises.  ``LAUNCHES`` counts kernel launches
-per wrapper, so a run can show that it went through the kernels.
+per wrapper, so a run can show that it went through the kernels;
+``FLASH_PATHS`` and ``TICK_RANK_PATHS`` count the path each launch took.
 """
 from __future__ import annotations
 
@@ -23,15 +24,20 @@ LAUNCHES = dict.fromkeys(("flow_agg", "tick_rank", "red_ecn",
                           "rwkv6_chunked"), 0)
 # flash_attention launches by the path the kernel took (see flash_plan)
 FLASH_PATHS = dict.fromkeys(("wgmma", "split", "simt"), 0)
+# tick_rank launches by the path the kernel took (see tick_rank_plan)
+TICK_RANK_PATHS = dict.fromkeys(("smem", "pairwise"), 0)
 _FLASH_CODES = {"simt": 0, "wgmma": 1, "split": 2}
 _FLOAT_CODES = {torch.float32: 0, torch.bfloat16: 1}
 WGMMA_ROWS = 64          # rows of the wgmma path's Q tile
 SPLIT_ROWS = 16          # most rows (Sq * G) the split path takes
 SPLIT_KEYS = 64          # a split holds a multiple of this many keys
+SMEM_OPTIN = 232_448     # dynamic shared memory a block may opt in to (sm_90)
+TICK_RANK_SEGS = 16      # most segments of tick_rank's smem path (its warps)
+TICK_RANK_BALANCE = 96   # segments ~ sqrt(this * M / buckets): walk vs passes
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, FLASH_PATHS):
+    for counts in (LAUNCHES, FLASH_PATHS, TICK_RANK_PATHS):
         for k in counts:
             counts[k] = 0
 
@@ -97,9 +103,43 @@ def tick_rank(port: torch.Tensor, *, n_ports: int):
     if _on_cpu(port):
         return R.tick_rank_reference(port, n_ports=n_ports)
     rank = torch.empty_like(port)
+    path, segs, _ = tick_rank_plan(port.shape[0], n_ports)
+    if path == "none":
+        return rank
     _launch("tick_rank", port.data_ptr(), rank.data_ptr(), port.shape[0],
-            n_ports)
+            n_ports, segs)
+    TICK_RANK_PATHS[path] += 1
     return rank
+
+
+def tick_rank_plan(M: int, n_ports: int) -> tuple[str, int, int]:
+    """The rank kernel's path for ``M`` entries over ``n_ports`` ports,
+    as ``(path, segs, smem_bytes)``.
+
+    ``"smem"``: one block walks ``segs`` contiguous segments of ``[0,
+    M)``, one a warp, with a row of ``n_ports + 1`` counts each (padded
+    to a multiple of 4) in ``smem_bytes`` of shared memory.  More
+    segments shorten the rank walk (``M / (32 segs)`` warp steps) and
+    lengthen the zero fill and the scan (passes over the rows), so
+    ``segs`` is about ``sqrt(TICK_RANK_BALANCE * M / (n_ports + 1))``,
+    at most ``TICK_RANK_SEGS``, as many rows as ``SMEM_OPTIN`` holds and
+    no empty segment.  ``"pairwise"``: not even one row fits; every
+    entry compares against all earlier ones.  ``"none"``: M = 0, nothing
+    to launch."""
+    if M < 0 or n_ports < 1:
+        raise ValueError(f"tick_rank_plan: need M >= 0 and n_ports >= 1, "
+                         f"got M={M}, n_ports={n_ports}")
+    if M == 0:
+        return "none", 0, 0
+    stride = -(-(n_ports + 1) // 4) * 4
+    fit = SMEM_OPTIN // (4 * stride)
+    if fit < 1:
+        return "pairwise", 0, 0
+    want = round(math.sqrt(TICK_RANK_BALANCE * M / (n_ports + 1)))
+    segs = max(1, min(want, fit, TICK_RANK_SEGS))
+    seg_len = -(-(-(-M // segs)) // 32) * 32       # the kernel's rounding
+    segs = -(-M // seg_len)
+    return "smem", segs, segs * stride * 4
 
 
 def red_ecn(eport, rank, enq, unif, q_tail, t: int, *, qsize: int,

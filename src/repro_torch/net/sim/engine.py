@@ -139,6 +139,20 @@ def _scatter_add(size: int, idx: torch.Tensor, src: torch.Tensor):
     return out.scatter_add_(0, idx, src)
 
 
+def sorted_rank(cport: torch.Tensor, ar_m: torch.Tensor) -> torch.Tensor:
+    """The engine's torch form of the FIFO rank for large shapes: a
+    stable sort, each run's start by ``cummax``, scattered back.
+    ``ar_m`` is ``arange(M)`` in int32 on ``cport``'s device."""
+    order = torch.argsort(cport, stable=True)
+    sorted_port = cport[order]
+    is_start = torch.cat([torch.ones(1, dtype=torch.bool,
+                                     device=cport.device),
+                          sorted_port[1:] != sorted_port[:-1]])
+    seg_start = torch.cummax(torch.where(is_start, ar_m, 0), 0).values
+    return torch.zeros_like(cport).scatter_(0, order,
+                                            (ar_m - seg_start).to(_I32))
+
+
 def build_tick(spec: SimSpec, device=None):
     """Returns the transition ``tick(carry, t) -> carry`` for ``spec``
     (its scheme fixed) on ``device`` (default ``"cuda"``); ``t`` is a
@@ -232,13 +246,7 @@ def build_tick(spec: SimSpec, device=None):
             oh = cport[:, None] == ar_np[None, :]
             pos = torch.cumsum(oh.to(_I32), 0, dtype=_I32) * oh
             return (pos.sum(-1) - 1).clamp_min(0).to(_I32)
-        order = torch.argsort(cport, stable=True)
-        sorted_port = cport[order]
-        is_start = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
-                              sorted_port[1:] != sorted_port[:-1]])
-        seg_start = torch.cummax(torch.where(is_start, ar_m, 0), 0).values
-        return torch.zeros(M, dtype=_I32, device=dev).scatter_(
-            0, order, (ar_m - seg_start).to(_I32))
+        return sorted_rank(cport, ar_m)
 
     def collect_feedback(c: Carry, pstate0, pevent0, t, flow_sums):
         """A: feedback arrivals + timeouts -> per-flow counts and the
@@ -287,9 +295,10 @@ def build_tick(spec: SimSpec, device=None):
         denom = r_acks.clamp_min(1)
         frac = r_marks / denom
         frac_trim = r_nacks / denom
-        # XLA contracts (1 - g) * alpha + g * frac into one fma
-        alpha_new = PAR.fma_f32(torch.full_like(alpha, ONE_MINUS_G), alpha,
-                                frac * G_F32)
+        # (1 - g) * alpha + g * frac: inside the reference's while-loop XLA
+        # CPU leaves this line unfused (each product rounds to f32, then
+        # the sum), where it contracts exp_alpha below into an fma
+        alpha_new = alpha * ONE_MINUS_G + frac * G_F32
         alpha = torch.where(round_done, alpha_new, alpha)
         cw_cut = (cwnd * (1 - alpha / 2)).clamp_min(1.0)
         cw_qa = (r_acks - r_nacks).float().clamp_min(1.0)

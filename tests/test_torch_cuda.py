@@ -63,11 +63,36 @@ def test_flow_agg_kernel(cuda, K, N, F):
            ref.flow_agg_reference(rows_c, pf_c, n_flows=F))
 
 
-@pytest.mark.parametrize("M,P", [(1, 1), (257, 8), (5024, 3960)])
-def test_tick_rank_kernel(cuda, M, P):
-    pc, pg = _pair(RNG.integers(-1, P + 2, M), torch.int32, cuda)
-    _equal(ops.tick_rank(pg, n_ports=P), ref.tick_rank_reference(pc,
-                                                                  n_ports=P))
+def _stable_rank(port, n_ports):
+    """The rank by a stable sort: position in the sorted run of equal
+    buckets (for shapes whose one-hot plain version is too large)."""
+    b = np.where((port < 0) | (port >= n_ports), n_ports, port)
+    order = np.argsort(b, kind="stable")
+    srt = b[order]
+    rank = np.empty(len(b), np.int32)
+    rank[order] = np.arange(len(b)) - np.searchsorted(srt, srt, "left")
+    return torch.from_numpy(rank)
+
+
+@pytest.mark.parametrize("M,P,kind", [
+    (1, 1, "random"), (257, 8, "random"), (5024, 3960, "random"),
+    (5024, 3960, "one_port"), (3960, 3960, "distinct"),
+    (5024, 3960, "sentinel"), (5023, 3960, "random"),
+    (65536, 64, "random"), (2000, 70000, "random")])
+def test_tick_rank_kernel(cuda, M, P, kind):
+    port = {"random": lambda: RNG.integers(-1, P + 2, M),
+            "one_port": lambda: np.full(M, 5),
+            "distinct": lambda: RNG.permutation(P)[:M],
+            "sentinel": lambda: np.full(M, P)}[kind]()
+    pc, pg = _pair(port, torch.int32, cuda)
+    path = ops.tick_rank_plan(M, P)[0]
+    ops.reset_launches()
+    got = ops.tick_rank(pg, n_ports=P)
+    assert ops.TICK_RANK_PATHS[path] == 1
+    assert path == ("pairwise" if P == 70000 else "smem")
+    want = (_stable_rank(port, P) if M * (P + 1) > 1 << 26
+            else ref.tick_rank_reference(pc, n_ports=P))
+    _equal(got, want)
 
 
 @pytest.mark.parametrize("M,P,t", [(17, 4, 0), (5024, 3960, 70000)])

@@ -6,7 +6,9 @@ final carry leaf, the Spritz policy state included, out.  Covered: six
 schemes (static and Spritz families) x the compressed and dense steppers
 x ``use_kernels`` False (the engine's torch forms) and True (the kernel
 wrappers, which run the plain versions on CPU tensors), the
-``_ONEHOT_CELLS`` form switch, a static link failure, and a one-tick
+``_ONEHOT_CELLS`` form switch, a static link failure, an incast whose
+DCTCP rounds see ECN marks (so ``alpha`` and ``cwnd`` move), a failed
+link that only retransmission timeouts get past, and a one-tick
 comparison from a mid-run reference state — the tool for bisecting a
 divergence to its first tick.  Tolerance: zero.
 """
@@ -89,6 +91,52 @@ def test_port_matches_reference(scheme, dense, use_kernels):
     _same_result(got, want, ctx)
     _same_state(state, want_state, ctx)
     assert all(want.done), "the micro cell must run to completion"
+
+
+# 71-to-1 incast under a low ECN threshold: marked DCTCP rounds from
+# about tick 500.  768 ticks is the shortest horizon at which the fma
+# form of alpha's update (the reference's standalone jit) leaves the
+# reference's loop in every scheme; the run stops there, unfinished.
+INCAST = [B.Flow(e, 0, 48, start_tick=0) for e in range(1, 72)]
+
+
+@functools.lru_cache(maxsize=None)
+def _marking_reference(scheme, seed):
+    spec = B.build_spec(DF, INCAST, scheme, n_ticks=768, ecn_threshold=4)
+    res, state = E.run(spec, seed=seed, return_carry=True)
+    return spec, res, state
+
+
+@pytest.mark.parametrize("use_kernels", [False, True],
+                         ids=["torch_forms", "kernels"])
+@pytest.mark.parametrize("scheme,seed", [(s, 0) for s in SCHEMES]
+                         + [("spritz_spray_w", 3)])
+def test_marking_incast_matches_reference(scheme, seed, use_kernels):
+    """DCTCP alpha and the cwnd cut it drives, in the final carry: inside
+    the reference's loop XLA rounds ``(1 - g) * alpha + g * frac``
+    unfused."""
+    spec, want, want_state = _marking_reference(scheme, seed)
+    assert (want_state["alpha"] != 0).any(), "no DCTCP round saw a mark"
+    got, state = TE.run(_port(spec, use_kernels), device="cpu", seed=seed,
+                        return_carry=True)
+    ctx = ("incast", scheme, seed, use_kernels)
+    _same_result(got, want, ctx)
+    _same_state(state, want_state, ctx)
+
+
+@pytest.mark.parametrize("use_kernels", [False, True],
+                         ids=["torch_forms", "kernels"])
+def test_timeouts_match_reference(use_kernels):
+    """A failed link on the minimal path: flows 0 and 1 lose packets on
+    it until their retransmission timeouts fire, run after run."""
+    link = (0, int(DF.nbr[0, 1]))
+    spec = _spec("minimal", failed_links=[link])
+    want, want_state = E.run(spec, return_carry=True)
+    assert want.timeouts.sum() > 0
+    got, state = TE.run(_port(spec, use_kernels), device="cpu",
+                        return_carry=True)
+    _same_result(got, want, ("timeouts", use_kernels))
+    _same_state(state, want_state, ("timeouts", use_kernels))
 
 
 def test_onehot_cells_straddle(monkeypatch):

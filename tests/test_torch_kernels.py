@@ -89,6 +89,42 @@ def test_tick_rank_matches_engine_onehot_form_on_valid_entries():
     assert (got[~valid] != onehot[~valid]).any()
 
 
+@pytest.mark.parametrize("M,P", [(5024, 3960), (37, 3960), (1, 1),
+                                 (65536, 64), (2000, 58111), (4095, 300)])
+def test_tick_rank_plan_fits(M, P):
+    path, segs, smem = ops.tick_rank_plan(M, P)
+    assert path == "smem"
+    assert 1 <= segs <= ops.TICK_RANK_SEGS
+    # one row of counts a segment, padded to 16 bytes, inside the opt-in
+    stride = -(-(P + 1) // 4) * 4
+    assert smem == segs * stride * 4 <= ops.SMEM_OPTIN
+    # the kernel's segments (32-entry steps) cover [0, M), none empty
+    seg_len = -(-(-(-M // segs)) // 32) * 32
+    assert (segs - 1) * seg_len < M <= segs * seg_len
+
+
+def test_tick_rank_plan_paths():
+    # DF-1056's compacted enqueues take the shared-memory path
+    assert ops.tick_rank_plan(5024, 3960) == ("smem", 11, 11 * 3964 * 4)
+    # a row of counts that does not fit even alone: the pairwise body
+    assert ops.tick_rank_plan(2000, 70000) == ("pairwise", 0, 0)
+    assert ops.tick_rank_plan(2000, 58112)[0] == "pairwise"
+    # nothing to rank: nothing to launch
+    assert ops.tick_rank_plan(0, 3960) == ("none", 0, 0)
+    with pytest.raises(ValueError):
+        ops.tick_rank_plan(-1, 8)
+    with pytest.raises(ValueError):
+        ops.tick_rank_plan(8, 0)
+
+
+def test_tick_rank_empty():
+    ops.reset_launches()
+    got = ops.tick_rank(torch.zeros(0, dtype=torch.int32), n_ports=8)
+    assert got.shape == (0,) and got.dtype == torch.int32
+    assert ops.LAUNCHES["tick_rank"] == 0
+    assert ops.TICK_RANK_PATHS == dict.fromkeys(ops.TICK_RANK_PATHS, 0)
+
+
 # -------------------------------------------------------------- red_ecn --
 @pytest.mark.parametrize("M,P", [(512, 32), (5024, 3960), (17, 4)])
 @pytest.mark.parametrize("t", [0, 70000])
