@@ -14,10 +14,14 @@ Phases (any failure exits non-zero before the final line):
    one port, all distinct ports, all sentinels, M = 1, 65,536 entries
    over 64 ports and n_ports = 70,000 (its pairwise path), against a
    stable numpy sort where the one-hot plain version is too large, each
-   case on the path ``ops.tick_rank_plan`` gives; CUDA-event times of
-   kernel, plain version and (flow_agg) ``index_add_``, and the device
-   times of flow_agg, ``index_add_``, tick_rank and the engine's torch
-   form of the rank (argsort + cummax + scatter) from torch.profiler;
+   case on the path ``ops.tick_rank_plan`` gives; flow_agg also on bool
+   and uint8 rows; spritz_select at P 16, 17, 64, 200 and 256 and with
+   u = 0 and u just below 1; CUDA-event times of kernel, plain version
+   and (flow_agg) ``index_add_``, and the device time of every tick
+   kernel, of ``index_add_`` and of the engine's torch form of the rank
+   (argsort + cummax + scatter) from torch.profiler; the ptxas registers
+   and stack of spritz_select and flow_agg (spritz_select must have no
+   stack frame and no spills);
 4. engine path: the 1,056-endpoint Dragonfly permutation run for ecmp,
    spritz_scout and spritz_spray_w through ``engine.run`` on the card,
    kernels on, held against the committed golden record of the JAX
@@ -162,24 +166,37 @@ def device_us(fn, torch, n: int = 50, what: str = "") -> float:
     return time_ms(fn, reps=n, warmup=2) * 1e3
 
 
+def ptxas_entries(log: str) -> dict:
+    """Registers, stack frame and spill store bytes of every entry
+    function in nvcc's ``-Xptxas -v`` report, keyed by mangled name."""
+    out, key = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            key = m.group(1)
+            out[key] = dict(registers=None, stack_bytes=None, spill_bytes=None)
+        elif key and "stack frame" in line:
+            out[key]["stack_bytes"] = int(re.search(
+                r"(\d+) bytes stack frame", line).group(1))
+            out[key]["spill_bytes"] = int(re.search(
+                r"(\d+) bytes spill stores", line).group(1))
+        elif key and "Used" in line and "registers" in line:
+            out[key]["registers"] = int(re.search(
+                r"Used (\d+) registers", line).group(1))
+    return out
+
+
 def rwkv_ptxas(log: str) -> dict:
     """(registers, spill store bytes) of each ``rwkv6_chunked_kernel``
     instantiation in nvcc's ``-Xptxas -v`` report, keyed "f32 CP16" (input
     type, chunk padded to a multiple of 16)."""
-    out, key, spill = {}, None, 0
-    for line in log.splitlines():
+    out = {}
+    for name, ent in ptxas_entries(log).items():
         m = re.search(r"rwkv6_chunked_kernelI(f|13__nv_bfloat16)Li(\d+)E",
-                      line)
-        if "Compiling entry function" in line:
-            key = (f"{'f32' if m.group(1) == 'f' else 'bf16'} "
-                   f"CP{m.group(2)}") if m else None
-        elif key and "spill stores" in line:
-            spill = int(re.search(r"(\d+) bytes spill stores", line)
-                        .group(1))
-        elif key and "Used" in line and "registers" in line:
-            out[key] = (int(re.search(r"Used (\d+) registers", line)
-                            .group(1)), spill)
-            key = None
+                      name)
+        if m:
+            key = f"{'f32' if m.group(1) == 'f' else 'bf16'} CP{m.group(2)}"
+            out[key] = (ent["registers"], ent["spill_bytes"])
     return out
 
 
@@ -211,21 +228,28 @@ def check_kernels(ops, ref, sorted_rank, torch, np, shapes,
     i32, f32 = torch.int32, torch.float32
 
     # ---- flow_agg: K = 6 (phase A) and K = 2 (phase B), ragged, sentinels
-    def agg_inputs(K, n, vmax, sentinels):
+    def agg_inputs(K, n, vmax, sentinels, dtype=i32):
         rows = rng.random((K, n)) < 0.05
-        rows = rows * rng.integers(1, vmax + 1, (K, n))
+        if dtype != torch.bool:
+            rows = rows * rng.integers(1, vmax + 1, (K, n))
         pflow = rng.integers(0, F, n)
         if sentinels:
             pflow[rng.integers(0, n, 64)] = rng.choice([-1, F, F + 7], 64)
-        return cu(rows, i32), cu(pflow, i32)
+        return cu(rows, dtype), cu(pflow, i32)
 
     err = 0.0
-    for K, n, vmax, sent in ((6, N, 1, False), (2, N, 4000, False),
-                             (6, 1000, 1, True), (3, 257, 9, True)):
-        rows, pflow = agg_inputs(K, n, vmax, sent)
-        err = max(err, same("flow_agg", ops.flow_agg(rows, pflow, n_flows=F),
+    for K, n, vmax, sent, dt in (
+            (6, N, 1, False, torch.bool), (6, N, 1, False, i32),
+            (2, N, 4000, False, i32), (6, 1000, 1, True, i32),
+            (3, 257, 9, True, i32), (6, 1000, 1, True, torch.bool),
+            (3, 257, 255, True, torch.uint8), (4, 0, 1, False, torch.bool)):
+        rows, pflow = agg_inputs(K, n, vmax, sent, dt)
+        err = max(err, same(f"flow_agg K {K} N {n} {dt}",
+                            ops.flow_agg(rows, pflow, n_flows=F),
                             ref.flow_agg_reference(rows, pflow, n_flows=F)))
-    rows, pflow = agg_inputs(6, N, 1, False)
+    # phase A's call: six stacked bool indicators, as the engine passes them
+    rows_b, pflow = agg_inputs(6, N, 1, False, torch.bool)
+    rows = rows_b.to(i32)
     rows_t = rows.T.contiguous()
 
     def lib_agg():
@@ -235,18 +259,24 @@ def check_kernels(ops, ref, sorted_rank, torch, np, shapes,
         fail("flow_agg: index_add_ yardstick disagrees")
     out["flow_agg"] = dict(
         max_abs_err=err,
-        ms=time_ms(lambda: ops.flow_agg(rows, pflow, n_flows=F)),
-        plain_ms=time_ms(lambda: ref.flow_agg_reference(rows, pflow,
+        ms=time_ms(lambda: ops.flow_agg(rows_b, pflow, n_flows=F)),
+        plain_ms=time_ms(lambda: ref.flow_agg_reference(rows_b, pflow,
                                                         n_flows=F)),
         library_ms=time_ms(lib_agg),
-        device_us=device_us(lambda: ops.flow_agg(rows, pflow, n_flows=F),
+        device_us=device_us(lambda: ops.flow_agg(rows_b, pflow, n_flows=F),
                             torch, what="flow_agg"),
+        int32_device_us=device_us(
+            lambda: ops.flow_agg(rows, pflow, n_flows=F), torch,
+            what="flow_agg int32 rows"),
         library_device_us=device_us(lib_agg, torch,
                                     what="flow_agg index_add_"),
-        bytes=nbytes(rows, pflow) + 6 * F * 4)
+        bytes=nbytes(rows_b, pflow) + 6 * F * 4)
     rows2, pflow2 = agg_inputs(2, N, 4000, False)
     out["flow_agg"]["ms_k2"] = time_ms(
         lambda: ops.flow_agg(rows2, pflow2, n_flows=F))
+    out["flow_agg"]["k2_device_us"] = device_us(
+        lambda: ops.flow_agg(rows2, pflow2, n_flows=F), torch,
+        what="flow_agg K 2")
 
     # ---- tick_rank: a compacted set (valid prefix, sentinel tail), ragged
     def rank_inputs(m, n_valid):
@@ -353,12 +383,15 @@ def check_kernels(ops, ref, sorted_rank, torch, np, shapes,
         plain_ms=time_ms(lambda: ref.red_ecn_reference(
             eport, rank, enq, unif, q_tail, 70000, **kw)),
         library_ms=None,
+        device_us=device_us(lambda: ops.red_ecn(eport, rank, enq, unif,
+                                                q_tail, 70000, **kw),
+                            torch, what="red_ecn"),
         bytes=nbytes(eport, rank, enq, unif, q_tail, *outs))
 
     # ---- spritz_select: Eq.-1-like rows, zero rows, wide dynamic range
     thr = shapes["explore_threshold"]
 
-    def sel_inputs(f, p, explore_all=False, wide=False):
+    def sel_inputs(f, p, explore_all=False, wide=False, u_edge=None):
         w = rng.random((f, p)).astype(np.float32) * 7.0 + 1.0
         if wide:
             w = np.exp(rng.normal(0, 6, (f, p))).astype(np.float32)
@@ -366,17 +399,25 @@ def check_kernels(ops, ref, sorted_rank, torch, np, shapes,
         w[np.arange(p)[None, :] >= npaths[:, None]] = 0.0
         w[rng.integers(0, f, 5)] = 0.0
         u = rng.random(f).astype(np.float32)
+        if u_edge is not None:      # u = 0, or just below 1 (the total)
+            u[:] = u_edge
         front = rng.integers(-1, p, f)
         count = (np.full(f, thr) if explore_all
                  else rng.integers(0, 2 * thr, f))
         return (cu(w, f32), cu(u, f32), cu(front, i32), cu(count, i32))
 
     err = 0.0
-    for f, p, ex, wide in ((F, P, False, False), (F, P, True, False),
-                           (F, P, True, True), (1000, 37, True, True),
-                           (33, 1, True, False), (257, 200, True, True)):
-        args = sel_inputs(f, p, ex, wide)
-        err = max(err, same("spritz_select",
+    below_one = np.nextafter(np.float32(1), np.float32(0))
+    for f, p, ex, wide, ue in (
+            (F, P, False, False, None), (F, P, True, False, None),
+            (F, P, True, True, None), (1000, 37, True, True, None),
+            (33, 1, True, False, None), (257, 200, True, True, None),
+            (300, 16, True, True, None), (300, 17, True, True, None),
+            (300, 256, True, True, None), (F, P, True, True, 0.0),
+            (F, P, True, True, below_one), (300, 17, True, True, 0.0),
+            (300, 256, True, True, below_one)):
+        args = sel_inputs(f, p, ex, wide, ue)
+        err = max(err, same(f"spritz_select F {f} P {p} u {ue}",
                             ops.spritz_select(*args, explore_threshold=thr),
                             ref.spritz_select_reference(
                                 *args, explore_threshold=thr)))
@@ -387,7 +428,9 @@ def check_kernels(ops, ref, sorted_rank, torch, np, shapes,
         ms=time_ms(lambda: ops.spritz_select(*args, explore_threshold=thr)),
         plain_ms=time_ms(lambda: ref.spritz_select_reference(
             *args, explore_threshold=thr)),
-        library_ms=None, bytes=nbytes(*args, *outs))
+        library_ms=None, bytes=nbytes(*args, *outs),
+        device_us=device_us(lambda: ops.spritz_select(
+            *args, explore_threshold=thr), torch, what="spritz_select"))
     return out
 
 
@@ -859,10 +902,32 @@ def main() -> None:
               + f", {v['bytes']} B", flush=True)
     print(f"kernel flow_agg (K=2): {nums['flow_agg']['ms_k2'] * 1e3:.2f} us",
           flush=True)
+    agg = nums["flow_agg"]
     print(f"kernel flow_agg device time ({timed_by('flow_agg')}, zero fill "
-          f"included): {nums['flow_agg']['device_us']:.2f} us a call; "
-          f"index_add_ {nums['flow_agg']['library_device_us']:.2f} us a "
-          f"call", flush=True)
+          f"included): K 6 bool rows {agg['device_us']:.2f} us a call, "
+          f"int32 rows {agg['int32_device_us']:.2f} us, K 2 int32 "
+          f"{agg['k2_device_us']:.2f} us; index_add_ (K 6 int32, its zero "
+          f"fill included) {agg['library_device_us']:.2f} us a call",
+          flush=True)
+    for name in ("spritz_select", "red_ecn"):
+        print(f"kernel {name} device time ({timed_by(name)}): "
+              f"{nums[name]['device_us']:.2f} us a call", flush=True)
+    tick_ptx = {}
+    for name, pattern in (("spritz_select", "spritz_select_kernel"),
+                          ("flow_agg", "flow_agg_kernel")):
+        ents = ptxas_entries(_build.BUILD_INFO.get("ptxas", {})
+                             .get(name, ""))
+        tick_ptx[name] = {k: v for k, v in ents.items() if pattern in k}
+        if not tick_ptx[name]:
+            fail(f"{name}: no ptxas report of its kernel")
+        print(f"kernel {name} ptxas (registers / stack / spill bytes): "
+              + ", ".join(f"{k} {v['registers']} / {v['stack_bytes']} / "
+                          f"{v['spill_bytes']}"
+                          for k, v in sorted(tick_ptx[name].items())),
+              flush=True)
+    if any(v["stack_bytes"] or v["spill_bytes"]
+           for v in tick_ptx["spritz_select"].values()):
+        fail("spritz_select: a stack frame or spills in the ptxas report")
     tr = nums["tick_rank"]
     print(f"kernel tick_rank at M {shapes['M']}, n_ports {shapes['n_ports']}"
           f": path {tr['path']}, {tr['segs']} segments, {tr['smem_bytes']} B"
@@ -975,8 +1040,20 @@ def main() -> None:
         for k2 in ("ms", "device_ms", "bound_ms"):
             rwkv[f"{key}_{k2}"] = nums[f"rwkv {label}"][k2]
     agg = next(r for r in rows if r["name"] == "flow_agg")
-    for key in ("device_us", "library_device_us"):
+    for key in ("device_us", "int32_device_us", "k2_device_us",
+                "library_device_us"):
         agg[key] = nums["flow_agg"][key]
+    # the instantiation of the main path: P 64 (two registers a lane);
+    # 1-byte rows (phase A)
+    for row, key in ((next(r for r in rows if r["name"] == "spritz_select"),
+                      "spritz_select_kernelILi2E"),
+                     (agg, "flow_agg_kernelIhE")):
+        ent = next(v for k, v in tick_ptx[row["name"]].items() if key in k)
+        row.update(registers=ent["registers"],
+                   stack_bytes=ent["stack_bytes"], smem_bytes=0)
+    for name in ("spritz_select", "red_ecn"):
+        next(r for r in rows if r["name"] == name)["device_us"] = \
+            nums[name]["device_us"]
     rank_row = next(r for r in rows if r["name"] == "tick_rank")
     for key in ("device_us", "path", "segs", "smem_bytes",
                 "torch_form_device_us", "torch_form_ms"):
@@ -1038,11 +1115,13 @@ def run_profile(E, spec, seed, torch, warm_wall: float) -> None:
     print(f"profile {spec.name}: {res.steps_executed} steps, "
           f"{n_launch / res.steps_executed:.0f} launches per step",
           flush=True)
+    tick = re.compile(r"(?:void )?((?:flow_agg|tick_rank_smem|"
+                      r"tick_rank_pairwise|red_ecn|spritz_select)_kernel"
+                      r"(?:<[^>]*>)?)\(")
     for e in kern:
-        if e.key.split("(")[0] in ("flow_agg_kernel", "tick_rank_smem_kernel",
-                                   "tick_rank_pairwise_kernel",
-                                   "red_ecn_kernel", "spritz_select_kernel"):
-            print(f"profile: {e.key.split('(')[0]} device "
+        m = tick.match(e.key)
+        if m:
+            print(f"profile: {m.group(1)} device "
                   f"{e.self_device_time_total / e.count:.2f} us per call, "
                   f"{e.count} calls", flush=True)
 

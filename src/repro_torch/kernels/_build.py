@@ -4,8 +4,9 @@ Each ``csrc/*.cu`` file is compiled by its own ``nvcc`` process for
 ``sm_90a`` into a shared library with a plain C interface; the processes
 run side by side.  The libraries land in ``build/torch_kernels/<hash>/``
 at the repository root, where ``<hash>`` covers the sources and the
-flags, so an edit rebuilds and an unchanged tree reuses the build.  They
-are loaded with ``ctypes``.  A missing ``nvcc`` or a failed build
+flags, so an edit rebuilds and an unchanged tree reuses the build; each
+library's ptxas report is kept beside it (``lib<name>.ptxas``), so a
+reused build still reports it.  They are loaded with ``ctypes``.  A missing ``nvcc`` or a failed build
 raises; nothing falls back.
 
 Nothing here runs at import: the first call to :func:`library` builds.
@@ -33,7 +34,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry point, argument types and extra nvcc flags of each kernel's
 # library (every entry point takes the stream last)
 SIGNATURES = {
-    "flow_agg": ("flow_agg_launch", (_P, _P, _P, _I, _I, _I, _P), EXACT),
+    "flow_agg": ("flow_agg_launch", (_P, _P, _P, _I, _I, _I, _I, _P), EXACT),
     "tick_rank": ("tick_rank_launch", (_P, _P, _I, _I, _I, _P), EXACT),
     "red_ecn": ("red_ecn_launch", (_P, _P, _P, _P, _P, _I, _I, _F, _F, _I,
                                    _I, _P, _P, _P, _P, _P), EXACT),
@@ -76,10 +77,18 @@ def build() -> dict[str, Path]:
     out = BUILD_ROOT / _digest()
     libs = {name: out / f"lib{name}.so" for name in SIGNATURES}
     todo = [n for n, p in libs.items() if not p.exists()]
-    if not todo:
+    if todo:
+        _compile(out, libs, todo)
+    else:
         BUILD_INFO.setdefault("seconds", 0.0)
         BUILD_INFO.setdefault("dir", str(out))
-        return libs
+    BUILD_INFO["ptxas"] = {n: p.with_suffix(".ptxas").read_text()
+                           for n, p in libs.items()
+                           if p.with_suffix(".ptxas").exists()}
+    return libs
+
+
+def _compile(out: Path, libs: dict[str, Path], todo: list[str]) -> None:
     out.mkdir(parents=True, exist_ok=True)
     exe = nvcc()
     t0 = time.perf_counter()
@@ -91,19 +100,17 @@ def build() -> dict[str, Path]:
         procs[name] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True))
-    failed, reports = [], {}
+    failed = []
     for name, (tmp, proc) in procs.items():
         log, _ = proc.communicate()
-        reports[name] = log
         if proc.returncode != 0:
             failed.append(f"{name}.cu (exit {proc.returncode}):\n{log}")
-        else:
+        else:              # the report first: a library implies its report
+            libs[name].with_suffix(".ptxas").write_text(log)
             os.replace(tmp, libs[name])
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
-    BUILD_INFO.update(seconds=time.perf_counter() - t0, dir=str(out),
-                      ptxas=reports)
-    return libs
+    BUILD_INFO.update(seconds=time.perf_counter() - t0, dir=str(out))
 
 
 def library(name: str):

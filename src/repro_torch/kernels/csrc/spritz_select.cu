@@ -1,4 +1,4 @@
-// Spritz Algorithm 1's path choice, one flow per thread:
+// Spritz Algorithm 1's path choice, one flow per warp:
 //   csum    = prefix sum of the weight row w[f, :]
 //   sampled = min(count(csum < u[f] * max(csum[P-1], 1e-30)), P - 1)
 //   explore = count[f] >= explore_threshold
@@ -10,58 +10,111 @@
 // weights tiled in VMEM, cumsum plus compare-reduce on the vector unit).
 //
 // Bound on the H100: F = 1,056 rows of P = 64 weights at DF-1056 move
-// about 300 KB, 0.09 us at 3.35 TB/s; the launch dominates.  Design:
-// the sampled index must equal XLA's, so the prefix sum follows XLA's
-// f32 order exactly: sequential inside blocks of 16, then each block
-// adds the running (sequential) sum of the earlier block totals.  One
-// thread walks its row twice: once for the total, once to count.  Adds
-// and multiplies are __fadd_rn/__fmul_rn and the file is built with
+// about 300 KB, 0.09 us at 3.35 TB/s; what is left is latency.  The
+// sampled index must equal XLA's, so the prefix sum follows XLA's f32
+// order exactly: sequential inside blocks of 16, then each block adds
+// the sequential sum of the earlier block totals (P <= 256 gives at most
+// 16 blocks, so that sum is itself one sequential block).
+//
+// Design: one warp a row, 8 rows a block (132 blocks at F = 1,056, one
+// wave).  Lane l holds entries l, l+32, ... of its row in NR registers
+// (coalesced loads); padding past P is +0.0, which leaves every real
+// prefix unchanged and is never counted.  Register i holds the 16-blocks
+// 2i (lanes 0-15) and 2i+1 (lanes 16-31), so a half-warp is one block:
+// lane j of it starts from the block's entry 0 and adds entry k for
+// k = 1..15 when k <= j, the left-to-right order with no tree.  Block
+// totals come from lanes 15 and 31; every lane forms the sequential
+// offsets itself in registers (no array indexed at run time, so no
+// stack frame).  The count is a ballot per register.  Adds and
+// multiplies are __fadd_rn/__fmul_rn and the file is built with
 // -fmad=false, so no step is contracted.
 #include <cuda_runtime.h>
 
-#define SEL_MAX_BLOCKS 16
+#define SEL_WARPS 8      // rows (warps) a block
+#define SEL_MAX_REGS 8   // 32-entry registers a lane holds: P <= 256
 
-__global__ void spritz_select_kernel(const float* __restrict__ w,
-                                     const float* __restrict__ u,
-                                     const int* __restrict__ front,
-                                     const int* __restrict__ count, int F,
-                                     int P, int explore_threshold,
-                                     int* __restrict__ ev_out,
-                                     int* __restrict__ newcnt_out,
-                                     bool* __restrict__ used_out) {
-  const int f = blockIdx.x * blockDim.x + threadIdx.x;
-  if (f >= F) return;
+constexpr unsigned FULL = 0xffffffffu;
+
+template <int NR>
+__global__ void __launch_bounds__(32 * SEL_WARPS)
+    spritz_select_kernel(const float* __restrict__ w,
+                         const float* __restrict__ u,
+                         const int* __restrict__ front,
+                         const int* __restrict__ count, int F, int P,
+                         int explore_threshold, int* __restrict__ ev_out,
+                         int* __restrict__ newcnt_out,
+                         bool* __restrict__ used_out) {
+  const int f = blockIdx.x * SEL_WARPS + (threadIdx.x >> 5);
+  if (f >= F) return;  // the whole warp leaves together
+  const int lane = threadIdx.x & 31;
+  const int j = lane & 15;     // position inside the 16-block
+  const bool hi = lane >= 16;  // the register's second block
   const float* row = w + (long long)f * P;
-  const int nb = (P + 15) / 16;
-  float offset[SEL_MAX_BLOCKS];  // sum of earlier block totals, per block
-  float run = 0.0f;
-  float total = 0.0f;
-  for (int b = 0; b < nb; ++b) {
-    const int lo = 16 * b, hi = min(lo + 16, P);
-    float acc = row[lo];
-    for (int j = lo + 1; j < hi; ++j) acc = __fadd_rn(acc, row[j]);
-    offset[b] = run;
-    total = b == 0 ? acc : __fadd_rn(acc, run);
-    run = b == 0 ? acc : __fadd_rn(run, acc);
+  float x[NR];
+#pragma unroll
+  for (int i = 0; i < NR; ++i) {
+    const int e = 32 * i + lane;
+    x[i] = e < P ? __ldg(row + e) : 0.0f;
   }
-  const float uu = __fmul_rn(u[f], fmaxf(total, 1e-30f));
-  int below = 0;
-  for (int b = 0; b < nb; ++b) {
-    const int lo = 16 * b, hi = min(lo + 16, P);
-    float acc = row[lo];
-    below += ((b == 0 ? acc : __fadd_rn(acc, offset[b])) < uu);
-    for (int j = lo + 1; j < hi; ++j) {
-      acc = __fadd_rn(acc, row[j]);
-      below += ((b == 0 ? acc : __fadd_rn(acc, offset[b])) < uu);
+  const float uf = __ldg(u + f);
+
+  // in-block prefix c = ((x_0 + x_1) + ...) + x_j, sequential
+  float c[NR];
+#pragma unroll
+  for (int i = 0; i < NR; ++i) {
+    float acc = __shfl_sync(FULL, x[i], 0, 16);
+#pragma unroll
+    for (int k = 1; k < 16; ++k) {
+      const float v = __shfl_sync(FULL, x[i], k, 16);
+      if (k <= j) acc = __fadd_rn(acc, v);
     }
+    c[i] = acc;
   }
-  const int sampled = min(below, P - 1);
-  const int c = count[f];
-  const bool explore = c >= explore_threshold;
-  const bool used = !explore && front[f] >= 0;
-  ev_out[f] = used ? front[f] : sampled;
-  newcnt_out[f] = explore ? 0 : c + 1;
-  used_out[f] = used;
+
+  // csum = c + offset of its block, offset_b = ((T_0 + T_1) + ...) + T_b-1
+  // (block 0 adds nothing)
+  float s[NR];
+  float run = 0.0f;  // T_0 + ... + T_2i-1, sequential
+#pragma unroll
+  for (int i = 0; i < NR; ++i) {
+    const float t0 = __shfl_sync(FULL, c[i], 15);
+    const float t1 = __shfl_sync(FULL, c[i], 31);
+    const float off1 = i == 0 ? t0 : __fadd_rn(run, t0);
+    if (i == 0)
+      s[i] = hi ? __fadd_rn(c[i], off1) : c[i];
+    else
+      s[i] = __fadd_rn(c[i], hi ? off1 : run);
+    run = __fadd_rn(off1, t1);
+  }
+
+  // total = csum[P - 1], which lies in the last register
+  const float total = __shfl_sync(FULL, s[NR - 1], (P - 1) & 31);
+  const float uu = __fmul_rn(uf, total < 1e-30f ? 1e-30f : total);
+  int below = 0;
+#pragma unroll
+  for (int i = 0; i < NR; ++i)
+    below += __popc(__ballot_sync(FULL, 32 * i + lane < P && s[i] < uu));
+
+  if (lane == 0) {
+    const int sampled = min(below, P - 1);
+    const int c0 = count[f];
+    const int fr = front[f];
+    const bool explore = c0 >= explore_threshold;
+    const bool used = !explore && fr >= 0;
+    ev_out[f] = used ? fr : sampled;
+    newcnt_out[f] = explore ? 0 : c0 + 1;
+    used_out[f] = used;
+  }
+}
+
+template <int NR>
+static void launch(const void* w, const void* u, const void* front,
+                   const void* count, int F, int P, int explore_threshold,
+                   void* ev, void* newcnt, void* used, cudaStream_t stream) {
+  const int blocks = (F + SEL_WARPS - 1) / SEL_WARPS;
+  spritz_select_kernel<NR><<<blocks, 32 * SEL_WARPS, 0, stream>>>(
+      (const float*)w, (const float*)u, (const int*)front, (const int*)count,
+      F, P, explore_threshold, (int*)ev, (int*)newcnt, (bool*)used);
 }
 
 extern "C" int spritz_select_launch(const void* w, const void* u,
@@ -69,14 +122,19 @@ extern "C" int spritz_select_launch(const void* w, const void* u,
                                     int F, int P, int explore_threshold,
                                     void* ev, void* newcnt, void* used,
                                     void* stream) {
-  if (P < 1 || P > 16 * SEL_MAX_BLOCKS) return (int)cudaErrorInvalidValue;
+  if (P < 1 || P > 32 * SEL_MAX_REGS) return (int)cudaErrorInvalidValue;
   if (F > 0) {
-    const int threads = 128;
-    const int blocks = (F + threads - 1) / threads;
-    spritz_select_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        (const float*)w, (const float*)u, (const int*)front,
-        (const int*)count, F, P, explore_threshold, (int*)ev, (int*)newcnt,
-        (bool*)used);
+    cudaStream_t s = (cudaStream_t)stream;
+    switch ((P + 31) / 32) {
+#define SEL_CASE(n)                                                       \
+  case n:                                                                 \
+    launch<n>(w, u, front, count, F, P, explore_threshold, ev, newcnt,   \
+              used, s);                                                   \
+    break;
+      SEL_CASE(1) SEL_CASE(2) SEL_CASE(3) SEL_CASE(4)
+      SEL_CASE(5) SEL_CASE(6) SEL_CASE(7) SEL_CASE(8)
+#undef SEL_CASE
+    }
   }
   return (int)cudaGetLastError();
 }

@@ -34,6 +34,8 @@ SPLIT_KEYS = 64          # a split holds a multiple of this many keys
 SMEM_OPTIN = 232_448     # dynamic shared memory a block may opt in to (sm_90)
 TICK_RANK_SEGS = 16      # most segments of tick_rank's smem path (its warps)
 TICK_RANK_BALANCE = 96   # segments ~ sqrt(this * M / buckets): walk vs passes
+# row types the flow_agg kernel reads, by their size in bytes
+_AGG_ROWS = {torch.int32: 4, torch.bool: 1, torch.uint8: 1}
 
 
 def reset_launches() -> None:
@@ -70,15 +72,17 @@ def _launch(name: str, *args) -> None:
 
 
 def flow_agg(rows: torch.Tensor, pflow: torch.Tensor, *, n_flows: int):
-    """rows: [K, N] int32; pflow: [N] int32.  Returns [K, n_flows] int32
-    ``out[k, f] = sum(rows[k, pflow == f])``; a pflow outside
-    ``[0, n_flows)`` adds nothing."""
+    """rows: [K, N] int32, bool or uint8; pflow: [N] int32.  Returns [K,
+    n_flows] int32 ``out[k, f] = sum(rows[k, pflow == f])``; a pflow
+    outside ``[0, n_flows)`` adds nothing."""
     if rows.ndim != 2:
         raise ValueError(f"rows must be 2-D [K, N], got shape {tuple(rows.shape)}")
     if pflow.ndim != 1 or rows.shape[1] != pflow.shape[0]:
         raise ValueError(f"rows/pflow length mismatch: {tuple(rows.shape)} "
                          f"vs {tuple(pflow.shape)}")
-    _dtype(rows, torch.int32, "rows")
+    if rows.dtype not in _AGG_ROWS:
+        raise ValueError(f"rows must be int32, bool or uint8, got "
+                         f"{rows.dtype}")
     _dtype(pflow, torch.int32, "pflow")
     if n_flows < 1:
         raise ValueError(f"n_flows must be >= 1, got {n_flows}")
@@ -87,7 +91,7 @@ def flow_agg(rows: torch.Tensor, pflow: torch.Tensor, *, n_flows: int):
     K, N = rows.shape
     out = torch.zeros((K, n_flows), dtype=torch.int32, device=rows.device)
     _launch("flow_agg", rows.data_ptr(), pflow.data_ptr(), out.data_ptr(),
-            K, N, n_flows)
+            K, N, n_flows, _AGG_ROWS[rows.dtype])
     return out
 
 

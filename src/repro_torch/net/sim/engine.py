@@ -215,8 +215,8 @@ def build_tick(spec: SimSpec, device=None):
     # ------------------------------------------------------- tick phases --
     if use_kernels:
         def flow_sums_fn(pflow):
-            def flow_sums(rows):                              # [K,N] -> [K,F]
-                return KOPS.flow_agg(rows.to(_I32), pflow, n_flows=F)
+            def flow_sums(rows):        # [K,N] int32 or bool -> [K,F] int32
+                return KOPS.flow_agg(rows, pflow, n_flows=F)
             return flow_sums
     elif use_gemm_sums:
         def flow_sums_fn(pflow):

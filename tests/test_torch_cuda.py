@@ -54,10 +54,15 @@ def _equal(got, want):
         assert g.dtype == w.dtype and torch.equal(g.cpu(), w.cpu())
 
 
-@pytest.mark.parametrize("K,N,F", [(6, 513, 16), (2, 7000, 1056), (1, 1, 1)])
-def test_flow_agg_kernel(cuda, K, N, F):
-    rows = RNG.integers(0, 50, (K, N)) * (RNG.random((K, N)) < 0.2)
-    rows_c, rows_g = _pair(rows, torch.int32, cuda)
+@pytest.mark.parametrize("K,N,F", [(6, 513, 16), (2, 7000, 1056), (1, 1, 1),
+                                   (6, 33856, 1056), (3, 0, 40),
+                                   (6, 3000, 9700)])
+@pytest.mark.parametrize("dtype", ["int32", "bool", "uint8"])
+def test_flow_agg_kernel(cuda, K, N, F, dtype):
+    rows = RNG.random((K, N)) < 0.2
+    if dtype != "bool":
+        rows = rows * RNG.integers(1, 50 if dtype == "int32" else 256, (K, N))
+    rows_c, rows_g = _pair(rows, getattr(torch, dtype), cuda)
     pf_c, pf_g = _pair(RNG.integers(-1, F + 2, N), torch.int32, cuda)
     _equal(ops.flow_agg(rows_g, pf_g, n_flows=F),
            ref.flow_agg_reference(rows_c, pf_c, n_flows=F))
@@ -107,11 +112,16 @@ def test_red_ecn_kernel(cuda, M, P, t):
            ref.red_ecn_reference(*[c for c, _ in ins], t, **kw))
 
 
-@pytest.mark.parametrize("F,P", [(1, 1), (100, 37), (1056, 64), (9, 256)])
-def test_spritz_select_kernel(cuda, F, P):
+@pytest.mark.parametrize("F,P", [(1, 1), (100, 37), (1056, 64), (9, 256),
+                                 (64, 16), (50, 17), (300, 256)])
+@pytest.mark.parametrize("u_kind", ["random", "zero", "below_one"])
+def test_spritz_select_kernel(cuda, F, P, u_kind):
     w = np.exp(RNG.normal(0, 5, (F, P))) * (RNG.random((F, P)) < 0.8)
+    u = {"random": RNG.random(F), "zero": np.zeros(F),
+         "below_one": np.full(F, np.nextafter(np.float32(1),
+                                              np.float32(0)))}[u_kind]
     ins = [_pair(w, torch.float32, cuda),
-           _pair(RNG.random(F), torch.float32, cuda),
+           _pair(u, torch.float32, cuda),
            _pair(RNG.integers(-1, P, F), torch.int32, cuda),
            _pair(RNG.integers(0, 60, F), torch.int32, cuda)]
     _equal(ops.spritz_select(*[g for _, g in ins], explore_threshold=44),

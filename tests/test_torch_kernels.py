@@ -10,6 +10,8 @@ multiplies by the f32 reciprocal, and the port follows the engine.  The
 CUDA kernels are held against the same plain
 versions on the card by ``chip_smoke.py``.
 """
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -55,6 +57,34 @@ def test_flow_agg(K, N, F):
                                      n_flows=F))
     _eq(got, JOPS.flow_agg(jnp.asarray(rows), jnp.asarray(pflow), n_flows=F,
                            block_n=256, interpret=True))
+
+
+@pytest.mark.parametrize("dtype", ["bool", "uint8"])
+@pytest.mark.parametrize("K,N,F", [(6, 700, 40), (2, 5000, 1056)])
+def test_flow_agg_byte_rows(dtype, K, N, F):
+    # the engine's stacked indicators go in as bool rows, uncast; the
+    # Pallas kernel takes any integer-valued rows the same way
+    rows = RNG.random((K, N)) < 0.3
+    if dtype == "uint8":
+        rows = rows * RNG.integers(1, 256, (K, N))
+    rows = rows.astype(dtype)
+    pflow = RNG.integers(-1, F + 2, N).astype(np.int32)
+    got = ops.flow_agg(_t(rows), _t(pflow), n_flows=F)
+    _eq(got, JOPS.flow_agg(jnp.asarray(rows), jnp.asarray(pflow), n_flows=F,
+                           block_n=256, interpret=True))
+    _eq(got, ops.flow_agg(_t(rows.astype(np.int32)), _t(pflow), n_flows=F))
+
+
+@pytest.mark.parametrize("K,N", [(3, 0), (0, 40)])
+@pytest.mark.parametrize("dtype", ["int32", "bool"])
+def test_flow_agg_empty(K, N, dtype):
+    # no slots: every flow sums to 0; no rows: an empty [0, F] result
+    rows = np.ones((K, N), dtype)
+    pflow = np.zeros(N, np.int32)
+    got = ops.flow_agg(_t(rows), _t(pflow), n_flows=5)
+    assert got.shape == (K, 5) and not got.any()
+    _eq(got, JREF.flow_agg_reference(jnp.asarray(rows), jnp.asarray(pflow),
+                                     n_flows=5))
 
 
 # ------------------------------------------------------------ tick_rank --
@@ -161,7 +191,7 @@ def test_red_ecn_every_occupancy_marks_like_the_reference():
 
 # -------------------------------------------------------- spritz_select --
 @pytest.mark.parametrize("F,P", [(16, 8), (100, 37), (256, 64), (1000, 64),
-                                 (33, 1)])
+                                 (33, 1), (64, 16), (50, 17), (40, 256)])
 @pytest.mark.parametrize("explore_all", [False, True])
 def test_spritz_select(F, P, explore_all):
     w = (np.exp(RNG.normal(0, 3, (F, P)))
@@ -179,6 +209,28 @@ def test_spritz_select(F, P, explore_all):
                                 interpret=True))
 
 
+@pytest.mark.parametrize("P", [16, 17, 33, 256])
+@pytest.mark.parametrize("u_edge", ["zero", "below_one"])
+def test_spritz_select_edge_u(P, u_edge):
+    # u = 0 samples the first entry whose prefix is above 0; u just below
+    # 1 sits on the row total, where one rounding step of the prefix sum
+    # moves the sample
+    F = 48
+    w = np.exp(RNG.normal(0, 6, (F, P))).astype(np.float32)
+    w[:, RNG.random(P) < 0.2] = 0.0
+    w[:2] = 0.0
+    u = np.full(F, 0.0 if u_edge == "zero" else
+                np.nextafter(np.float32(1), np.float32(0)), np.float32)
+    front = RNG.integers(-1, P, F).astype(np.int32)
+    cnt = np.full(F, 44, np.int32)                  # every row samples
+    got = ops.spritz_select(_t(w), _t(u), _t(front), _t(cnt),
+                            explore_threshold=44)
+    args = [jnp.asarray(a) for a in (w, u, front, cnt)]
+    _eq(got, JREF.spritz_select_reference(*args, explore_threshold=44))
+    _eq(got, JOPS.spritz_select(*args, explore_threshold=44, block_f=16,
+                                interpret=True))
+
+
 # ------------------------------------------------------ input validation --
 def test_wrappers_reject_bad_inputs():
     i32 = torch.int32
@@ -188,6 +240,10 @@ def test_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError):
         ops.flow_agg(torch.zeros((2, 8)), torch.zeros(8, dtype=i32),
                      n_flows=4)
+    for dt in (torch.float32, torch.int64, torch.int16):   # not int32/1-byte
+        with pytest.raises(ValueError):
+            ops.flow_agg(torch.zeros((2, 8), dtype=dt),
+                         torch.zeros(8, dtype=i32), n_flows=4)
     with pytest.raises(ValueError):
         ops.tick_rank(torch.zeros(4), n_ports=4)
     with pytest.raises(ValueError):
@@ -207,10 +263,42 @@ def test_wrappers_reject_bad_inputs():
                           explore_threshold=4)
 
 
+def test_build_reports_ptxas_when_reused(tmp_path, monkeypatch):
+    # a stand-in for nvcc writes each library and a ptxas line; a second
+    # build() reuses the libraries and must still report ptxas, which
+    # chip_smoke.py reads on every run from a checkout
+    from repro_torch.kernels import _build
+
+    class FakeNvcc:
+        def __init__(self, cmd, **kw):
+            self.out, self.returncode = Path(cmd[cmd.index("-o") + 1]), 0
+
+        def communicate(self):
+            self.out.write_text("library")
+            return "ptxas info    : Used 27 registers\n", None
+
+    def never(*a, **kw):
+        raise AssertionError("a reused build ran nvcc")
+    monkeypatch.setattr(_build, "nvcc", lambda: "nvcc")
+    monkeypatch.setattr(_build.subprocess, "Popen", FakeNvcc)
+    monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path)
+    monkeypatch.setattr(_build, "BUILD_INFO", {})
+    libs = _build.build()
+    assert all(p.exists() for p in libs.values())
+    first = dict(_build.BUILD_INFO["ptxas"])
+    assert sorted(first) == sorted(_build.SIGNATURES)
+    assert all("Used 27 registers" in log for log in first.values())
+    monkeypatch.setattr(_build.subprocess, "Popen", never)
+    monkeypatch.setattr(_build, "BUILD_INFO", {})
+    assert _build.build() == libs
+    assert _build.BUILD_INFO["ptxas"] == first
+
+
 def test_cpu_tensors_never_launch():
     ops.reset_launches()
     rows = torch.ones((2, 16), dtype=torch.int32)
     ops.flow_agg(rows, torch.zeros(16, dtype=torch.int32), n_flows=3)
+    ops.flow_agg(rows.bool(), torch.zeros(16, dtype=torch.int32), n_flows=3)
     ops.tick_rank(torch.zeros(16, dtype=torch.int32), n_ports=3)
     assert ops.LAUNCHES == dict.fromkeys(ops.LAUNCHES, 0)
 
