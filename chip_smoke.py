@@ -167,14 +167,16 @@ def device_us(fn, torch, n: int = 50, what: str = "") -> float:
 
 
 def ptxas_entries(log: str) -> dict:
-    """Registers, stack frame and spill store bytes of every entry
-    function in nvcc's ``-Xptxas -v`` report, keyed by mangled name."""
+    """Registers, static shared memory, stack frame and spill store bytes
+    of every entry function in nvcc's ``-Xptxas -v`` report, keyed by
+    mangled name (ptxas leaves out ``bytes smem`` when it is 0)."""
     out, key = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             key = m.group(1)
-            out[key] = dict(registers=None, stack_bytes=None, spill_bytes=None)
+            out[key] = dict(registers=None, smem_bytes=None, stack_bytes=None,
+                            spill_bytes=None)
         elif key and "stack frame" in line:
             out[key]["stack_bytes"] = int(re.search(
                 r"(\d+) bytes stack frame", line).group(1))
@@ -183,6 +185,8 @@ def ptxas_entries(log: str) -> dict:
         elif key and "Used" in line and "registers" in line:
             out[key]["registers"] = int(re.search(
                 r"Used (\d+) registers", line).group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            out[key]["smem_bytes"] = int(m.group(1)) if m else 0
     return out
 
 
@@ -265,9 +269,6 @@ def check_kernels(ops, ref, sorted_rank, torch, np, shapes,
         library_ms=time_ms(lib_agg),
         device_us=device_us(lambda: ops.flow_agg(rows_b, pflow, n_flows=F),
                             torch, what="flow_agg"),
-        int32_device_us=device_us(
-            lambda: ops.flow_agg(rows, pflow, n_flows=F), torch,
-            what="flow_agg int32 rows"),
         library_device_us=device_us(lib_agg, torch,
                                     what="flow_agg index_add_"),
         bytes=nbytes(rows_b, pflow) + 6 * F * 4)
@@ -905,7 +906,7 @@ def main() -> None:
     agg = nums["flow_agg"]
     print(f"kernel flow_agg device time ({timed_by('flow_agg')}, zero fill "
           f"included): K 6 bool rows {agg['device_us']:.2f} us a call, "
-          f"int32 rows {agg['int32_device_us']:.2f} us, K 2 int32 "
+          f"K 2 int32 "
           f"{agg['k2_device_us']:.2f} us; index_add_ (K 6 int32, its zero "
           f"fill included) {agg['library_device_us']:.2f} us a call",
           flush=True)
@@ -920,9 +921,10 @@ def main() -> None:
         tick_ptx[name] = {k: v for k, v in ents.items() if pattern in k}
         if not tick_ptx[name]:
             fail(f"{name}: no ptxas report of its kernel")
-        print(f"kernel {name} ptxas (registers / stack / spill bytes): "
-              + ", ".join(f"{k} {v['registers']} / {v['stack_bytes']} / "
-                          f"{v['spill_bytes']}"
+        print(f"kernel {name} ptxas (registers / static shared memory / "
+              "stack / spill bytes): "
+              + ", ".join(f"{k} {v['registers']} / {v['smem_bytes']} / "
+                          f"{v['stack_bytes']} / {v['spill_bytes']}"
                           for k, v in sorted(tick_ptx[name].items())),
               flush=True)
     if any(v["stack_bytes"] or v["spill_bytes"]
@@ -1040,17 +1042,18 @@ def main() -> None:
         for k2 in ("ms", "device_ms", "bound_ms"):
             rwkv[f"{key}_{k2}"] = nums[f"rwkv {label}"][k2]
     agg = next(r for r in rows if r["name"] == "flow_agg")
-    for key in ("device_us", "int32_device_us", "k2_device_us",
-                "library_device_us"):
+    for key in ("device_us", "k2_device_us", "library_device_us"):
         agg[key] = nums["flow_agg"][key]
     # the instantiation of the main path: P 64 (two registers a lane);
-    # 1-byte rows (phase A)
+    # 1-byte rows (phase A). Both launch with no dynamic shared memory, so
+    # ptxas's static figure is all the block holds.
     for row, key in ((next(r for r in rows if r["name"] == "spritz_select"),
                       "spritz_select_kernelILi2E"),
                      (agg, "flow_agg_kernelIhE")):
         ent = next(v for k, v in tick_ptx[row["name"]].items() if key in k)
         row.update(registers=ent["registers"],
-                   stack_bytes=ent["stack_bytes"], smem_bytes=0)
+                   stack_bytes=ent["stack_bytes"],
+                   smem_bytes=ent["smem_bytes"])
     for name in ("spritz_select", "red_ecn"):
         next(r for r in rows if r["name"] == name)["device_us"] = \
             nums[name]["device_us"]

@@ -19,8 +19,8 @@
 //
 // A single-launch design without the caller's zero fill (one cluster of
 // 16 blocks, shared-memory histograms summed through distributed shared
-// memory) measured slower than this kernel plus its fill; see
-// kernels/probes/flow_agg_cluster.cu.
+// memory) measured slower than this kernel plus its fill; PERF.md
+// keeps its times and design.
 #include <cuda_runtime.h>
 
 template <typename T>
