@@ -16,17 +16,24 @@ Phases (any failure exits non-zero before the final line):
    stable numpy sort where the one-hot plain version is too large, each
    case on the path ``ops.tick_rank_plan`` gives; flow_agg also on bool
    and uint8 rows; spritz_select at P 16, 17, 64, 200 and 256 and with
-   u = 0 and u just below 1; CUDA-event times of kernel, plain version
-   and (flow_agg) ``index_add_``, and the device time of every tick
-   kernel, of ``index_add_`` and of the engine's torch form of the rank
+   u = 0 and u just below 1; the fused rank + RED/ECN launch
+   (``ops.tick_rank_red_ecn``) against tick_rank's then red_ecn's plain
+   versions at the DF-1056 shapes (t 0 and 70,000), M 17, 1 and 0 (no
+   launch), all sentinels, negative and out-of-range ports, every
+   occupancy 0..qsize+M with u at the RED probability and one f32 step
+   below, and n_ports 70,000 (pairwise path); CUDA-event times of
+   kernel, plain version and (flow_agg) ``index_add_``, and the device
+   time of every tick kernel (the fused one beside tick_rank and red_ecn
+   alone), of ``index_add_`` and of the engine's torch form of the rank
    (argsort + cummax + scatter) from torch.profiler; the ptxas registers
-   and stack of spritz_select and flow_agg (spritz_select must have no
-   stack frame and no spills);
+   and stack of spritz_select, flow_agg and the tick_rank entries
+   (spritz_select must have no stack frame and no spills);
 4. engine path: the 1,056-endpoint Dragonfly permutation run for ecmp,
    spritz_scout and spritz_spray_w through ``engine.run`` on the card,
    kernels on, held against the committed golden record of the JAX
-   reference; every tick kernel must have launched, tick_rank on its
-   shared-memory path only;
+   reference; flow_agg, the fused tick_rank_red_ecn (on its
+   shared-memory path only) and, for Spritz, spritz_select must have
+   launched, and the standalone tick_rank and red_ecn never;
 5. model kernel checks: flash attention and chunked RWKV-6 against their
    plain versions at the serving path's shapes (prefill and decode, bf16
    and f32) and at ragged, sliding-window and strong-decay cases, within
@@ -82,6 +89,10 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
                   "src/repro/kernels/tick_rank.py:75"),
     "red_ecn": ("src/repro_torch/kernels/csrc/red_ecn.cu",
                 "src/repro/kernels/red_ecn.py:90"),
+    # tick_rank's launch with red_ecn's stage as its epilogue: the engine's
+    # phase E (also carries tick_rank.py:75's work there)
+    "tick_rank_red_ecn": ("src/repro_torch/kernels/csrc/tick_rank.cu",
+                          "src/repro/kernels/red_ecn.py:90"),
     "spritz_select": ("src/repro_torch/kernels/csrc/spritz_select.cu",
                       "src/repro/kernels/spritz_select.py:72"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -89,7 +100,8 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
     "rwkv6_chunked": ("src/repro_torch/kernels/csrc/rwkv6_chunked.cu",
                       "src/repro/kernels/rwkv6_chunked.py:90"),
 }
-TICK_KERNELS = ("flow_agg", "tick_rank", "red_ecn", "spritz_select")
+TICK_KERNELS = ("flow_agg", "tick_rank", "red_ecn", "tick_rank_red_ecn",
+                "spritz_select")
 SERVE_ARCHS = {"phi3_medium_14b": "flash_attention",
                "rwkv6_7b": "rwkv6_chunked"}
 
@@ -388,6 +400,82 @@ def check_kernels(ops, ref, sorted_rank, torch, np, shapes,
                                                 q_tail, 70000, **kw),
                             torch, what="red_ecn"),
         bytes=nbytes(eport, rank, enq, unif, q_tail, *outs))
+
+    # ---- tick_rank_red_ecn: the rank and red_ecn's stage in one launch,
+    # against tick_rank's then red_ecn's plain versions
+    def rank_red_plain(port, enq, unif, q_tail, t, n):
+        rank = (stable_rank(port, n) if port.shape[0] * (n + 1) > 1 << 26
+                else ref.tick_rank_reference(port, n_ports=n))
+        return ref.red_ecn_reference(port, rank, enq, unif, q_tail, t,
+                                     **dict(kw, n_ports=n))[1:]
+
+    def fused_case(label, port, enq, unif, q_tail, t, n):
+        path = ops.tick_rank_plan(port.shape[0], n)[0]
+        before = dict(ops.TICK_RANK_PATHS)
+        launched = ops.LAUNCHES["tick_rank_red_ecn"]
+        got = ops.tick_rank_red_ecn(port, enq, unif, q_tail, t,
+                                    **dict(kw, n_ports=n))
+        want_launch = int(path != "none")
+        if ops.LAUNCHES["tick_rank_red_ecn"] != launched + want_launch or (
+                want_launch and
+                ops.TICK_RANK_PATHS[path] != before[path] + 1):
+            fail(f"tick_rank_red_ecn {label}: not one launch on its planned "
+                 f"path {path}")
+        return same(f"tick_rank_red_ecn {label} ({path})", got,
+                    rank_red_plain(port, enq, unif, q_tail, t, n))
+
+    def tails(t, n):
+        return cu(t + rng.integers(-40, 120, n), i32)
+
+    err = 0.0
+    for tt in (0, 70000):                      # the DF-1056 shapes
+        port = rank_inputs(M, 4200)
+        err = max(err, fused_case(f"M {M} t {tt}", port, port < NP_,
+                                  cu(rng.random(M), f32), tails(tt, NP_),
+                                  tt, NP_))
+    for m in (17, 1, 0):                       # ragged, then nothing
+        port = rank_inputs(m, m) if m else cu(np.zeros(0), i32)
+        err = max(err, fused_case(f"M {m}", port, port < NP_,
+                                  cu(rng.random(m), f32), tails(40, NP_), 40,
+                                  NP_))
+    port = cu(np.full(M, NP_), i32)            # all sentinels
+    err = max(err, fused_case("all sentinels", port, port < NP_,
+                              cu(rng.random(M), f32), tails(40, NP_), 40,
+                              NP_))
+    port = cu(rng.integers(-NP_, NP_ + 3, M), i32)   # negative, out of range
+    err = max(err, fused_case("negative and out-of-range ports", port,
+                              cu(rng.random(M) < 0.8, torch.bool),
+                              cu(rng.random(M), f32), tails(40, NP_), 40,
+                              NP_))
+    # every occupancy 0..qsize+M (red_ecn's t, occ_all, pr and tails qt
+    # above): from the rank (one port, tail t) and from the tails (a port
+    # each, rank 0), u at the RED probability and one f32 step below it
+    for u in (pr, torch.nextafter(pr, torch.zeros_like(pr))):
+        u = u.contiguous()
+        err = max(err, fused_case("every occupancy, one port",
+                                  cu(np.full(n_all, 5), i32), en, u, qt, t,
+                                  NP_))
+        err = max(err, fused_case("every occupancy, a port each", occ_all,
+                                  en, u, t + occ_all, t, n_all))
+    port = cu(rng.integers(-1, 70002, 2000), i32)    # the pairwise path
+    err = max(err, fused_case("n_ports 70000", port, port < 70000,
+                              cu(rng.random(2000), f32), tails(40, 70000),
+                              40, 70000))
+    port = rank_inputs(M, 4200)
+    enq, unif, q_tail = port < NP_, cu(rng.random(M), f32), tails(70000, NP_)
+    outs = ops.tick_rank_red_ecn(port, enq, unif, q_tail, 70000, **kw)
+    out["tick_rank_red_ecn"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: ops.tick_rank_red_ecn(port, enq, unif, q_tail,
+                                                 70000, **kw)),
+        plain_ms=time_ms(lambda: rank_red_plain(port, enq, unif, q_tail,
+                                                70000, NP_)),
+        library_ms=None,
+        device_us=device_us(lambda: ops.tick_rank_red_ecn(
+            port, enq, unif, q_tail, 70000, **kw), torch,
+            what="tick_rank_red_ecn"),
+        bytes=nbytes(port, enq, unif, q_tail, *outs),
+        path=plan[0], segs=plan[1], dynamic_smem_bytes=plan[2])
 
     # ---- spritz_select: Eq.-1-like rows, zero rows, wide dynamic range
     thr = shapes["explore_threshold"]
@@ -914,10 +1002,12 @@ def main() -> None:
         print(f"kernel {name} device time ({timed_by(name)}): "
               f"{nums[name]['device_us']:.2f} us a call", flush=True)
     tick_ptx = {}
-    for name, pattern in (("spritz_select", "spritz_select_kernel"),
-                          ("flow_agg", "flow_agg_kernel")):
+    for name, lib, pattern in (
+            ("spritz_select", "spritz_select", "spritz_select_kernel"),
+            ("flow_agg", "flow_agg", "flow_agg_kernel"),
+            ("tick_rank", "tick_rank", "tick_rank_")):
         ents = ptxas_entries(_build.BUILD_INFO.get("ptxas", {})
-                             .get(name, ""))
+                             .get(lib, ""))
         tick_ptx[name] = {k: v for k, v in ents.items() if pattern in k}
         if not tick_ptx[name]:
             fail(f"{name}: no ptxas report of its kernel")
@@ -938,6 +1028,27 @@ def main() -> None:
           f"(argsort + cummax + scatter) {tr['torch_form_device_us']:.2f} us"
           f" a call on the device, {tr['torch_form_ms'] * 1e3:.2f} us "
           f"wrapper", flush=True)
+    fu = nums["tick_rank_red_ecn"]
+    # the fused smem entry (kRed = true) of the tick_rank library
+    fu_ptx = next((v for k, v in tick_ptx["tick_rank"].items()
+                   if "tick_rank_smem_kernelILb1E" in k), None)
+    if fu_ptx is None:
+        fail("tick_rank_red_ecn: no ptxas report of its smem kernel")
+    fu.update(registers=fu_ptx["registers"],
+              stack_bytes=fu_ptx["stack_bytes"],
+              spill_bytes=fu_ptx["spill_bytes"],
+              static_smem_bytes=fu_ptx["smem_bytes"])
+    print(f"kernel tick_rank_red_ecn at M {shapes['M']}, n_ports "
+          f"{shapes['n_ports']}: path {fu['path']}, {fu['segs']} segments; "
+          f"device time ({timed_by('tick_rank_red_ecn')}) "
+          f"{fu['device_us']:.2f} us a call against tick_rank alone "
+          f"{tr['device_us']:.2f} + red_ecn alone "
+          f"{nums['red_ecn']['device_us']:.2f} = "
+          f"{tr['device_us'] + nums['red_ecn']['device_us']:.2f} us; "
+          f"wrapper {fu['ms'] * 1e3:.2f} us; ptxas {fu['registers']} "
+          f"registers, {fu['stack_bytes']} B stack, {fu['spill_bytes']} B "
+          f"spills, shared memory {fu['static_smem_bytes']} B static + "
+          f"{fu['dynamic_smem_bytes']} B dynamic", flush=True)
 
     # 4. engine path
     golden = GOLD.load()["schemes"]
@@ -961,14 +1072,17 @@ def main() -> None:
         if res.down_violations != 0 or not bool(np.all(res.done)):
             fail(f"{s}: down_violations {res.down_violations}, "
                  f"done {int(np.sum(res.done))}/{len(res.done)}")
-        need = ["flow_agg", "tick_rank", "red_ecn"]
+        need = ["flow_agg", "tick_rank_red_ecn"]
         if s.startswith("spritz"):
             need.append("spritz_select")
         if any(counts[k] == 0 for k in need):
             fail(f"{s}: a kernel of the path never launched: {counts}")
+        if counts["tick_rank"] or counts["red_ecn"]:
+            fail(f"{s}: standalone tick_rank / red_ecn launched on the "
+                 f"engine path, whose phase E is one fused launch: {counts}")
         if rank_paths["pairwise"] or \
-                rank_paths["smem"] != counts["tick_rank"]:
-            fail(f"{s}: tick_rank left its shared-memory path: "
+                rank_paths["smem"] != counts["tick_rank_red_ecn"]:
+            fail(f"{s}: tick_rank_red_ecn left its shared-memory path: "
                  f"{rank_paths}")
         print(f"main {s}: equal to golden; ticks {res.ticks_simulated} "
               f"steps {res.steps_executed}; wall {wall:.3f} s "
@@ -1057,6 +1171,10 @@ def main() -> None:
     for name in ("spritz_select", "red_ecn"):
         next(r for r in rows if r["name"] == name)["device_us"] = \
             nums[name]["device_us"]
+    next(r for r in rows if r["name"] == "tick_rank_red_ecn").update(
+        {k: nums["tick_rank_red_ecn"][k] for k in (
+            "device_us", "path", "segs", "registers", "stack_bytes",
+            "spill_bytes", "static_smem_bytes", "dynamic_smem_bytes")})
     rank_row = next(r for r in rows if r["name"] == "tick_rank")
     for key in ("device_us", "path", "segs", "smem_bytes",
                 "torch_form_device_us", "torch_form_ms"):

@@ -3,11 +3,12 @@
 Each ``csrc/*.cu`` file is compiled by its own ``nvcc`` process for
 ``sm_90a`` into a shared library with a plain C interface; the processes
 run side by side.  The libraries land in ``build/torch_kernels/<hash>/``
-at the repository root, where ``<hash>`` covers the sources and the
-flags, so an edit rebuilds and an unchanged tree reuses the build; each
+at the repository root, where ``<hash>`` covers every file under
+``csrc/`` (the shared ``*.cuh`` headers too) and the flags, so an edit
+rebuilds and an unchanged tree reuses the build; each
 library's ptxas report is kept beside it (``lib<name>.ptxas``), so a
-reused build still reports it.  They are loaded with ``ctypes``.  A missing ``nvcc`` or a failed build
-raises; nothing falls back.
+reused build still reports it.  They are loaded with ``ctypes``.  A
+missing ``nvcc`` or a failed build raises; nothing falls back.
 
 Nothing here runs at import: the first call to :func:`library` builds.
 """
@@ -47,6 +48,13 @@ SIGNATURES = {
                       (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                        _P), ()),
 }
+# entry points beside their library's own: name -> (library, C entry
+# point, argument types)
+EXTRA_ENTRIES = {
+    "tick_rank_red_ecn": ("tick_rank", "tick_rank_red_ecn_launch",
+                          (_P, _P, _P, _P, _I, _I, _F, _F, _I, _I, _I, _P,
+                           _P, _P, _P)),
+}
 
 _FUNCS: dict = {}
 BUILD_INFO: dict = {}   # seconds, directory and ptxas report of the build
@@ -63,11 +71,15 @@ def nvcc() -> str:
 
 
 def _digest() -> str:
+    """Hash of the flags and of every file under ``csrc/`` (sources and
+    the headers they share), sorted by name."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in sorted(SIGNATURES):
         h.update(name.encode())
         h.update(" ".join(SIGNATURES[name][2]).encode())
-        h.update((CSRC / f"{name}.cu").read_bytes())
+    for path in sorted(p for p in CSRC.rglob("*") if p.is_file()):
+        h.update(path.relative_to(CSRC).as_posix().encode())
+        h.update(path.read_bytes())
     return h.hexdigest()[:16]
 
 
@@ -118,8 +130,11 @@ def library(name: str):
     fn = _FUNCS.get(name)
     if fn is None:
         libs = build()
-        for kname, (sym, argtypes, _) in SIGNATURES.items():
-            f = getattr(ctypes.CDLL(str(libs[kname])), sym)
+        entries = {k: (k, sym, args) for k, (sym, args, _) in
+                   SIGNATURES.items()}
+        entries.update(EXTRA_ENTRIES)
+        for kname, (lib, sym, argtypes) in entries.items():
+            f = getattr(ctypes.CDLL(str(libs[lib])), sym)
             f.argtypes = list(argtypes)
             f.restype = ctypes.c_int
             _FUNCS[kname] = f

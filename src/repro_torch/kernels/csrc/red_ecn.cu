@@ -1,9 +1,6 @@
-// RED/ECN enqueue stage of the packet engine's tick, per candidate i:
-//   occ   = max(q_tail[port] - t, 0) + rank
-//   trim  = enq & (occ >= qsize)
-//   mark  = accept & (unif < clip((occ - kmin) * recip, 0, 1))
-//   slot  = accept ? max(q_tail[port], t) + rank + 1 : 0
-// with port = min(eport, n_ports - 1) and accept = enq & !trim.
+// RED/ECN enqueue stage of the packet engine's tick, per candidate i
+// (red_ecn.cuh): occupancy, trim, RED/ECN mark and service slot from the
+// candidate's port tail and its rank.
 //
 // Replaces: src/repro/kernels/red_ecn.py, _red_ecn_kernel (a VMEM-tiled
 // elementwise pass with the port tails replicated per block).
@@ -11,11 +8,13 @@
 // Bound on the H100: M = 5,024 candidates and 3,960 port tails at
 // DF-1056 move about 130 KB, 0.04 us at 3.35 TB/s; the launch dominates.
 // Design: one thread per candidate with one gather from q_tail.  The
-// float steps are written with __fsub_rn/__fmul_rn (and the file is
-// built with -fmad=false) so nothing is contracted: XLA computes the
-// RED probability as (occ - kmin) times the f32 reciprocal of
-// (kmax - kmin), which the caller passes in as `recip`.
+// engine does not launch this kernel: it runs the same stage as the
+// epilogue of tick_rank's launch (tick_rank.cu), where the ranks are
+// made.  This standalone form is the counterpart of the reference's
+// red_ecn, which takes the ranks as an input.
 #include <cuda_runtime.h>
+
+#include "red_ecn.cuh"
 
 __global__ void red_ecn_kernel(const int* __restrict__ eport,
                                const int* __restrict__ rank,
@@ -29,20 +28,13 @@ __global__ void red_ecn_kernel(const int* __restrict__ eport,
                                int* __restrict__ slot_out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= M) return;
-  int pc = min(eport[i], n_ports - 1);
-  if (pc < 0) pc += n_ports;  // a negative index counts from the end
-  const int tail = q_tail[pc];
-  const int r = rank[i];
-  const int occ = max(tail - t, 0) + r;
-  const bool e = enq[i];
-  const bool trim = e && (occ >= qsize);
-  const bool accept = e && !trim;
-  float pr = __fmul_rn(__fsub_rn(__int2float_rn(occ), kmin), recip);
-  pr = fminf(fmaxf(pr, 0.0f), 1.0f);
-  occ_out[i] = occ;
-  trim_out[i] = trim;
-  mark_out[i] = accept && (unif[i] < pr);
-  slot_out[i] = accept ? max(tail, t) + r + 1 : 0;
+  const RedEcnOut o = red_ecn_one(q_tail[red_ecn_port(eport[i], n_ports)],
+                                  rank[i], enq[i], unif[i], t, qsize, kmin,
+                                  recip);
+  occ_out[i] = o.occ;
+  trim_out[i] = o.trim;
+  mark_out[i] = o.mark;
+  slot_out[i] = o.slot;
 }
 
 extern "C" int red_ecn_launch(const void* eport, const void* rank,

@@ -38,7 +38,22 @@
 // shared memory: each thread counts the equal ports at lower indices
 // itself, the block staging 256 ports at a time in shared memory,
 // M^2 / 2 compares in all.
+//
+// Fused RED/ECN epilogue (tick_rank_red_ecn_launch).  The engine's next
+// step, red_ecn (red_ecn.cu), reads each entry's rank, its port's tail,
+// its enqueue flag and its uniform draw, and keeps only trim, mark and
+// slot.  Its own launch costs more than its 130 KB of traffic, so the
+// fused entry point applies red_ecn.cuh's stage where the rank is made
+// and writes trim, mark and slot in place of the rank (neither the rank
+// nor the occupancy reaches device memory).  It also replaces
+// src/repro/kernels/red_ecn.py, _red_ecn_kernel, on the engine's path.
+// The smem path issues the epilogue's loads (enq, unif and the q_tail
+// gather, an L2 round trip behind the port load) with the step batch's
+// port loads, before the ballots, so they overlap the ballots instead of
+// following each rank; the pairwise path loads them before its count.
 #include <cuda_runtime.h>
+
+#include "red_ecn.cuh"
 
 #define TR_THREADS 256        // pairwise path
 #define TR_SMEM_THREADS 512   // smem path: 16 warps
@@ -49,15 +64,58 @@ __device__ __forceinline__ int bucket(int p, int n_ports) {
   return (p < 0 || p >= n_ports) ? n_ports : p;
 }
 
-// Loads the buckets of steps [base, base + 32 * TR_UNROLL) of one lane
-// (-1 past the segment's end), all in flight together.
+// The fused epilogue's inputs and outputs; a rank-only launch passes it
+// empty and never reads it.
+struct RedEcnArgs {
+  const bool* enq;
+  const float* unif;
+  const int* q_tail;
+  int t, qsize;
+  float kmin, recip;
+  bool* trim;
+  bool* mark;
+  int* slot;
+};
+
+// What an entry's epilogue reads besides its rank.
+struct RedEcnIn {
+  int tail;
+  bool enq;
+  float unif;
+};
+
+__device__ __forceinline__ RedEcnIn load_red(const RedEcnArgs& red, int i,
+                                             int p, int n_ports) {
+  return {__ldg(red.q_tail + red_ecn_port(p, n_ports)), red.enq[i],
+          __ldg(red.unif + i)};
+}
+
+// Entry i's result: its rank, or (kRed) its trim, mark and slot.
+template <bool kRed>
+__device__ __forceinline__ void put(int* __restrict__ rank,
+                                    const RedEcnArgs& red, int i, int r,
+                                    const RedEcnIn& in) {
+  if constexpr (kRed) {
+    const RedEcnOut o = red_ecn_one(in.tail, r, in.enq, in.unif, red.t,
+                                    red.qsize, red.kmin, red.recip);
+    red.trim[i] = o.trim;
+    red.mark[i] = o.mark;
+    red.slot[i] = o.slot;
+  } else {
+    rank[i] = r;
+  }
+}
+
+// Loads the ports and buckets of steps [base, base + 32 * TR_UNROLL) of
+// one lane (bucket -1 past the segment's end), all in flight together.
 __device__ __forceinline__ void load_steps(const int* __restrict__ port,
                                            int base, int hi, int lane,
-                                           int n_ports, int* b) {
+                                           int n_ports, int* p, int* b) {
 #pragma unroll
   for (int u = 0; u < TR_UNROLL; ++u) {
     const int i = base + u * 32 + lane;
-    b[u] = i < hi ? bucket(__ldg(port + i), n_ports) : -1;
+    p[u] = i < hi ? __ldg(port + i) : 0;
+    b[u] = i < hi ? bucket(p[u], n_ports) : -1;
   }
 }
 
@@ -79,10 +137,11 @@ __device__ __forceinline__ void groups_of(const int* b, int bits,
   }
 }
 
+template <bool kRed>
 __global__ void __launch_bounds__(TR_SMEM_THREADS)
 tick_rank_smem_kernel(const int* __restrict__ port, int* __restrict__ rank,
-                      int M, int n_ports, int segs, int seg_len,
-                      int stride, int bits) {
+                      RedEcnArgs red, int M, int n_ports, int segs,
+                      int seg_len, int stride, int bits) {
   extern __shared__ int4 cnt4[];
   int* cnt = reinterpret_cast<int*>(cnt4);
   const int total4 = segs * stride / 4;          // stride % 4 == 0
@@ -114,10 +173,17 @@ tick_rank_smem_kernel(const int* __restrict__ port, int* __restrict__ rank,
   const unsigned below = (1u << lane) - 1u;
   int* row = cnt + warp * stride;
   const int lo = warp * seg_len, hi = min(lo + seg_len, M);
-  int b[TR_UNROLL];
+  int p[TR_UNROLL], b[TR_UNROLL];
   unsigned grp[TR_UNROLL];
+  RedEcnIn in[TR_UNROLL] = {};
   for (int base = lo; base < hi; base += 32 * TR_UNROLL) {
-    load_steps(port, base, hi, lane, n_ports, b);
+    load_steps(port, base, hi, lane, n_ports, p, b);
+    if constexpr (kRed) {          // in flight while the ballots run
+#pragma unroll
+      for (int u = 0; u < TR_UNROLL; ++u)
+        if (b[u] >= 0) in[u] = load_red(red, base + u * 32 + lane, p[u],
+                                        n_ports);
+    }
     groups_of(b, bits, grp);
 #pragma unroll
     for (int u = 0; u < TR_UNROLL; ++u) {
@@ -126,19 +192,25 @@ tick_rank_smem_kernel(const int* __restrict__ port, int* __restrict__ rank,
       __syncwarp();
       if (b[u] >= 0) {
         if ((grp[u] & below) == 0) row[b[u]] = seen + __popc(grp[u]);
-        rank[base + u * 32 + lane] = seen + __popc(grp[u] & below);
+        put<kRed>(rank, red, base + u * 32 + lane,
+                  seen + __popc(grp[u] & below), in[u]);
       }
       __syncwarp();
     }
   }
 }
 
+template <bool kRed>
 __global__ void tick_rank_pairwise_kernel(const int* __restrict__ port,
-                                          int* __restrict__ rank, int M,
+                                          int* __restrict__ rank,
+                                          RedEcnArgs red, int M,
                                           int n_ports) {
   __shared__ int tile[TR_THREADS];
   const int i = blockIdx.x * TR_THREADS + threadIdx.x;
-  const int mine = i < M ? bucket(port[i], n_ports) : -1;
+  const int p = i < M ? port[i] : 0;
+  const int mine = i < M ? bucket(p, n_ports) : -1;
+  RedEcnIn in = {};
+  if (kRed && i < M) in = load_red(red, i, p, n_ports);
   const int block_end = min((int)(blockIdx.x + 1) * TR_THREADS, M);
   int count = 0;
   for (int base = 0; base < block_end; base += TR_THREADS) {
@@ -149,21 +221,21 @@ __global__ void tick_rank_pairwise_kernel(const int* __restrict__ port,
     for (int u = 0; u < lim; ++u) count += (tile[u] == mine);
     __syncthreads();
   }
-  if (i < M) rank[i] = count;
+  if (i < M) put<kRed>(rank, red, i, count, in);
 }
 
 // segs: the smem path's segment count (1..16), or 0 for the pairwise
 // path.  The smem path needs segs * round_up(n_ports + 1, 4) * 4 bytes of
 // shared memory, which the caller has checked against the device's limit.
-extern "C" int tick_rank_launch(const void* port, void* rank, int M,
-                                int n_ports, int segs, void* stream) {
+template <bool kRed>
+static int launch(const int* port, int* rank, const RedEcnArgs& red, int M,
+                  int n_ports, int segs, cudaStream_t s) {
   if (segs < 0 || segs > TR_MAX_SEGS) return (int)cudaErrorInvalidValue;
   if (M <= 0) return (int)cudaGetLastError();
-  const cudaStream_t s = (cudaStream_t)stream;
   if (segs == 0) {
     const int blocks = (M + TR_THREADS - 1) / TR_THREADS;
-    tick_rank_pairwise_kernel<<<blocks, TR_THREADS, 0, s>>>(
-        (const int*)port, (int*)rank, M, n_ports);
+    tick_rank_pairwise_kernel<kRed><<<blocks, TR_THREADS, 0, s>>>(
+        port, rank, red, M, n_ports);
     return (int)cudaGetLastError();
   }
   const int stride = (n_ports + 1 + 3) / 4 * 4;
@@ -171,13 +243,35 @@ extern "C" int tick_rank_launch(const void* port, void* rank, int M,
   const size_t smem = (size_t)segs * stride * sizeof(int);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        tick_rank_smem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        tick_rank_smem_kernel<kRed>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   int bits = 1;                                  // buckets 0..n_ports
   while (bits < 31 && (1 << bits) <= n_ports) ++bits;
-  tick_rank_smem_kernel<<<1, TR_SMEM_THREADS, smem, s>>>(
-      (const int*)port, (int*)rank, M, n_ports, segs, seg_len, stride, bits);
+  tick_rank_smem_kernel<kRed><<<1, TR_SMEM_THREADS, smem, s>>>(
+      port, rank, red, M, n_ports, segs, seg_len, stride, bits);
   return (int)cudaGetLastError();
+}
+
+extern "C" int tick_rank_launch(const void* port, void* rank, int M,
+                                int n_ports, int segs, void* stream) {
+  return launch<false>((const int*)port, (int*)rank, RedEcnArgs{}, M,
+                       n_ports, segs, (cudaStream_t)stream);
+}
+
+// The rank, then red_ecn's stage on it, in one launch: writes trim, mark
+// and slot [M] (no rank, no occupancy).  recip is the f32 reciprocal of
+// kmax - kmin, as red_ecn_launch takes it.
+extern "C" int tick_rank_red_ecn_launch(const void* port, const void* enq,
+                                        const void* unif, const void* q_tail,
+                                        int t, int qsize, float kmin,
+                                        float recip, int n_ports, int M,
+                                        int segs, void* trim, void* mark,
+                                        void* slot, void* stream) {
+  const RedEcnArgs red{(const bool*)enq, (const float*)unif,
+                       (const int*)q_tail, t, qsize, kmin, recip,
+                       (bool*)trim, (bool*)mark, (int*)slot};
+  return launch<true>((const int*)port, nullptr, red, M, n_ports, segs,
+                      (cudaStream_t)stream);
 }

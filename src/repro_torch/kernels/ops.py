@@ -1,5 +1,6 @@
 """Wrappers of the six CUDA kernels (four tick kernels, attention and
-the chunked RWKV-6 time mix).
+the chunked RWKV-6 time mix), and of the fused launch of two of them
+(``tick_rank_red_ecn``: the rank and the RED/ECN stage on it).
 
 Each wrapper checks its inputs, then either launches its kernel on the
 current CUDA stream (tensors on the card) or calls the kernel's plain
@@ -20,11 +21,12 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ref as R
 
 LAUNCHES = dict.fromkeys(("flow_agg", "tick_rank", "red_ecn",
-                          "spritz_select", "flash_attention",
-                          "rwkv6_chunked"), 0)
+                          "tick_rank_red_ecn", "spritz_select",
+                          "flash_attention", "rwkv6_chunked"), 0)
 # flash_attention launches by the path the kernel took (see flash_plan)
 FLASH_PATHS = dict.fromkeys(("wgmma", "split", "simt"), 0)
-# tick_rank launches by the path the kernel took (see tick_rank_plan)
+# tick_rank and tick_rank_red_ecn launches by the path the kernel took
+# (see tick_rank_plan)
 TICK_RANK_PATHS = dict.fromkeys(("smem", "pairwise"), 0)
 _FLASH_CODES = {"simt": 0, "wgmma": 1, "split": 2}
 _FLOAT_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -99,11 +101,7 @@ def tick_rank(port: torch.Tensor, *, n_ports: int):
     """port: [M] int32.  Returns [M] int32, the position among equal
     ports in index order; ports outside ``[0, n_ports)`` share one
     overflow bucket."""
-    if port.ndim != 1:
-        raise ValueError(f"port must be 1-D, got shape {tuple(port.shape)}")
-    _dtype(port, torch.int32, "port")
-    if n_ports < 1:
-        raise ValueError(f"n_ports must be >= 1, got {n_ports}")
+    _check_candidates(n_ports, port=port)
     if _on_cpu(port):
         return R.tick_rank_reference(port, n_ports=n_ports)
     rank = torch.empty_like(port)
@@ -146,26 +144,38 @@ def tick_rank_plan(M: int, n_ports: int) -> tuple[str, int, int]:
     return "smem", segs, segs * stride * 4
 
 
+_CANDIDATE_TYPES = {"port": torch.int32, "eport": torch.int32,
+                    "rank": torch.int32, "enq": torch.bool,
+                    "unif": torch.float32}
+
+
+def _check_candidates(n_ports: int, q_tail=None, **cands) -> None:
+    """The [M] per-candidate inputs of the rank and RED/ECN wrappers
+    (1-D, one length, their types) and ``q_tail`` [n_ports] int32."""
+    if any(c.ndim != 1 for c in cands.values()):
+        raise ValueError(f"{'/'.join(cands)} must be 1-D, got shapes "
+                         f"{[tuple(c.shape) for c in cands.values()]}")
+    if len({c.shape for c in cands.values()}) != 1:
+        raise ValueError("ragged inputs: " + ", ".join(
+            f"{k} {tuple(c.shape)}" for k, c in cands.items()))
+    for k, c in cands.items():
+        _dtype(c, _CANDIDATE_TYPES[k], k)
+    if n_ports < 1:
+        raise ValueError(f"n_ports must be >= 1, got {n_ports}")
+    if q_tail is not None:
+        _dtype(q_tail, torch.int32, "q_tail")
+        if tuple(q_tail.shape) != (n_ports,):
+            raise ValueError(f"q_tail shape {tuple(q_tail.shape)} != "
+                             f"(n_ports,) = ({n_ports},)")
+
+
 def red_ecn(eport, rank, enq, unif, q_tail, t: int, *, qsize: int,
             kmin: float, kmax: float, n_ports: int):
     """eport/rank: [M] int32; enq: [M] bool; unif: [M] f32; q_tail:
     [n_ports] int32.  Returns (occ int32, trim bool, mark bool, slot
     int32), each [M]."""
-    if not (eport.ndim == rank.ndim == enq.ndim == unif.ndim == 1):
-        raise ValueError("eport/rank/enq/unif must be 1-D")
-    if not (eport.shape == rank.shape == enq.shape == unif.shape):
-        raise ValueError(
-            f"ragged inputs: eport {tuple(eport.shape)}, rank "
-            f"{tuple(rank.shape)}, enq {tuple(enq.shape)}, unif "
-            f"{tuple(unif.shape)}")
-    _dtype(eport, torch.int32, "eport")
-    _dtype(rank, torch.int32, "rank")
-    _dtype(enq, torch.bool, "enq")
-    _dtype(unif, torch.float32, "unif")
-    _dtype(q_tail, torch.int32, "q_tail")
-    if tuple(q_tail.shape) != (n_ports,):
-        raise ValueError(f"q_tail shape {tuple(q_tail.shape)} != "
-                         f"(n_ports,) = ({n_ports},)")
+    _check_candidates(n_ports, q_tail, eport=eport, rank=rank, enq=enq,
+                      unif=unif)
     kw = dict(qsize=qsize, kmin=kmin, kmax=kmax, n_ports=n_ports)
     if _on_cpu(eport, rank, enq, unif, q_tail):
         return R.red_ecn_reference(eport, rank, enq, unif, q_tail, t, **kw)
@@ -177,6 +187,33 @@ def red_ecn(eport, rank, enq, unif, q_tail, t: int, *, qsize: int,
             f32(kmin), red_recip(kmin, kmax), n_ports, M, occ.data_ptr(),
             trim.data_ptr(), mark.data_ptr(), slot.data_ptr())
     return occ, trim, mark, slot
+
+
+def tick_rank_red_ecn(port, enq, unif, q_tail, t: int, *, qsize: int,
+                      kmin: float, kmax: float, n_ports: int):
+    """:func:`tick_rank` of ``port``, then :func:`red_ecn` on that rank
+    (``eport`` = ``port``), in one launch that keeps only what the
+    engine reads.  port: [M] int32; enq: [M] bool; unif: [M] f32;
+    q_tail: [n_ports] int32.  Returns (trim bool, mark bool, slot int32),
+    each [M].  The launch takes :func:`tick_rank_plan`'s path."""
+    _check_candidates(n_ports, q_tail, port=port, enq=enq, unif=unif)
+    kw = dict(qsize=qsize, kmin=kmin, kmax=kmax, n_ports=n_ports)
+    if _on_cpu(port, enq, unif, q_tail):
+        rank = R.tick_rank_reference(port, n_ports=n_ports)
+        return R.red_ecn_reference(port, rank, enq, unif, q_tail, t,
+                                   **kw)[1:]
+    M = port.shape[0]
+    trim, mark = torch.empty_like(enq), torch.empty_like(enq)
+    slot = torch.empty_like(port)
+    path, segs, _ = tick_rank_plan(M, n_ports)
+    if path == "none":
+        return trim, mark, slot
+    _launch("tick_rank_red_ecn", port.data_ptr(), enq.data_ptr(),
+            unif.data_ptr(), q_tail.data_ptr(), int(t), int(qsize),
+            f32(kmin), red_recip(kmin, kmax), n_ports, M, segs,
+            trim.data_ptr(), mark.data_ptr(), slot.data_ptr())
+    TICK_RANK_PATHS[path] += 1
+    return trim, mark, slot
 
 
 def spritz_select(w, u, buf_front, packet_count, *, explore_threshold: int):

@@ -18,7 +18,7 @@ from torch import nn
 
 from repro_torch.kernels import ops
 
-UNPORTED = "not ported yet (ROADMAP.md queue 1, item 10)"
+UNPORTED = 'not ported yet (ROADMAP.md queue 1, "The rest of the model zoo")'
 
 
 @dataclasses.dataclass(frozen=True)

@@ -4,7 +4,7 @@
 
 Layers are a ``ModuleList`` (no stacked scan).  The MoE, hybrid, VLM
 and enc-dec families raise ``NotImplementedError`` (ROADMAP.md queue 1,
-item 10).
+"The rest of the model zoo").
 """
 from __future__ import annotations
 

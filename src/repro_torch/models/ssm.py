@@ -4,7 +4,7 @@ reference's ``repro.models.ssm``.
 Prefill (S > 1, S divisible by the chunk) runs the chunked recurrence
 through ``ops.rwkv6_chunked``; decode (or a ragged S) runs the exact
 per-token recurrence.  Mamba waits for the hybrid family (ROADMAP.md
-queue 1, item 10).
+queue 1, "The rest of the model zoo").
 """
 from __future__ import annotations
 

@@ -16,7 +16,7 @@ from repro_torch.net.policies import spritz as _spritz
 from repro_torch.net.policies import static as _static
 from repro_torch.net.sim import types as T
 
-_TODO = "ROADMAP.md Queue 1, item 3 (policy layer)"
+_TODO = 'ROADMAP.md queue 1, "The rest of the policy layer"'
 
 # schemes whose device functions are still to port: host rules only
 _HOST_ONLY = (

@@ -108,7 +108,8 @@ def _check_spec(spec: SimSpec) -> None:
     if len(spec.fail_event_tick):
         raise NotImplementedError(
             "failure timelines (fail_event_tick) are not ported to "
-            "repro_torch yet: ROADMAP.md Queue 1, item 4")
+            "repro_torch yet: ROADMAP.md queue 1, \"Failure and capacity "
+            "timeline, batched driver, segmented runs\"")
 
 
 def _use_kernels(spec: SimSpec) -> bool:
@@ -239,9 +240,8 @@ def build_tick(spec: SimSpec, device=None):
 
     def enqueue_rank(cport):
         """FIFO rank among same-tick enqueues per port, in compacted
-        space (the same rank for valid entries in every form)."""
-        if use_kernels:
-            return KOPS.tick_rank(cport, n_ports=NP_)
+        space (the same rank for valid entries in every form; the
+        kernels' form is fused with RED/ECN in phase E)."""
         if use_onehot_rank:
             oh = cport[:, None] == ar_np[None, :]
             pos = torch.cumsum(oh.to(_I32), 0, dtype=_I32) * oh
@@ -477,14 +477,14 @@ def build_tick(spec: SimSpec, device=None):
         chop = _padded(phop, 0)[cidx_s]
         cport = _padded(eport_n, NP_)[cidx_s]
 
-        # FIFO rank among same-tick arrivals per port (compacted)
-        rank = enqueue_rank(cport)
-
-        if use_kernels:
-            _, trim, mark, slot = KOPS.red_ecn(
-                cport, rank, valid, unif, q_tail0, t, qsize=spec.qsize,
+        # FIFO rank among same-tick arrivals per port (compacted), then
+        # RED/ECN marking and trim on it
+        if use_kernels:      # one launch: rank, RED/ECN, trim and slot
+            trim, mark, slot = KOPS.tick_rank_red_ecn(
+                cport, valid, unif, q_tail0, t, qsize=spec.qsize,
                 kmin=spec.kmin, kmax=spec.kmax, n_ports=NP_)
         else:
+            rank = enqueue_rank(cport)
             tail_e = q_tail0[cport.clamp_max(NP_ - 1)]
             occ_at = (tail_e - t).clamp_min(0) + rank
             trim = valid & (occ_at >= spec.qsize)

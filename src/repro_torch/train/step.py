@@ -1,6 +1,7 @@
 """Serve-step factories: the port of ``repro.train.step``'s
 ``make_prefill_step`` and ``make_serve_step``.  The loss and the train
-step wait for the training slice (ROADMAP.md queue 1, item 10)."""
+step wait for the training slice (ROADMAP.md queue 1, "The rest of the
+model zoo")."""
 from __future__ import annotations
 
 from repro_torch.models.lm import LM

@@ -112,6 +112,32 @@ def test_red_ecn_kernel(cuda, M, P, t):
            ref.red_ecn_reference(*[c for c, _ in ins], t, **kw))
 
 
+@pytest.mark.parametrize("M,P,t,kind", [
+    (5024, 3960, 0, "random"), (5024, 3960, 70000, "random"),
+    (17, 4, 0, "random"), (1, 1, 0, "random"), (5024, 3960, 0, "sentinel"),
+    (65536, 64, 500, "random"), (2000, 70000, 500, "random")])
+def test_tick_rank_red_ecn_kernel(cuda, M, P, t, kind):
+    # the fused launch against tick_rank's then red_ecn's plain versions,
+    # on the smem path and (P 70,000) the pairwise one
+    kw = dict(qsize=88, kmin=17.6, kmax=70.4, n_ports=P)
+    port = (np.full(M, P) if kind == "sentinel"
+            else RNG.integers(-1, P + 2, M))
+    ins = [_pair(port, torch.int32, cuda),
+           _pair((RNG.random(M) < 0.7) & (port < P), torch.bool, cuda),
+           _pair(RNG.random(M), torch.float32, cuda),
+           _pair(t + RNG.integers(-50, 100, P), torch.int32, cuda)]
+    path = ops.tick_rank_plan(M, P)[0]
+    ops.reset_launches()
+    got = ops.tick_rank_red_ecn(*[g for _, g in ins], t, **kw)
+    assert ops.TICK_RANK_PATHS[path] == ops.LAUNCHES["tick_rank_red_ecn"] == 1
+    assert path == ("pairwise" if P == 70000 else "smem")
+    pc = ins[0][0]
+    rank = (_stable_rank(port, P) if M * (P + 1) > 1 << 26
+            else ref.tick_rank_reference(pc, n_ports=P))
+    _equal(got, ref.red_ecn_reference(pc, rank, *[c for c, _ in ins[1:]], t,
+                                      **kw)[1:])
+
+
 @pytest.mark.parametrize("F,P", [(1, 1), (100, 37), (1056, 64), (9, 256),
                                  (64, 16), (50, 17), (300, 256)])
 @pytest.mark.parametrize("u_kind", ["random", "zero", "below_one"])
@@ -155,8 +181,9 @@ def test_engine_on_card_equals_cpu(cuda, scheme, dense, use_kernels):
             np.testing.assert_array_equal(gst[k], v, err_msg=k)
     for k, v in wst["policy"]["spritz"].items():
         np.testing.assert_array_equal(gst["policy"]["spritz"][k], v)
-    if use_kernels is None:
-        assert launched["flow_agg"] > 0 and launched["tick_rank"] > 0
+    if use_kernels is None:     # phase E: one fused launch, no other
+        assert launched["flow_agg"] > 0 and launched["tick_rank_red_ecn"] > 0
+        assert launched["tick_rank"] == launched["red_ecn"] == 0
     else:
         assert sum(launched.values()) == 0
 

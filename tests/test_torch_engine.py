@@ -221,7 +221,7 @@ def test_timeline_plan_raises():
     link = (0, int(DF.nbr[0, 0]))
     plan = FailureSchedule(DF).fail_links(40, [link])
     spec = _spec("ecmp", failure_plan=plan)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 4"):
+    with pytest.raises(NotImplementedError, match="Failure and capacity timeline"):
         TE.run(_port(spec, True), device="cpu")
 
 
@@ -229,7 +229,7 @@ def test_timeline_plan_raises():
                                     "reps"])
 def test_unported_scheme_raises(scheme):
     spec = _spec(scheme)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 3"):
+    with pytest.raises(NotImplementedError, match="The rest of the policy layer"):
         TE.run(_port(spec, True), device="cpu")
 
 

@@ -189,6 +189,83 @@ def test_red_ecn_every_occupancy_marks_like_the_reference():
         _eq(got, RED_REF(*map(jnp.asarray, args), 0, **kw))
 
 
+# ---------------------------------------- tick_rank + red_ecn, one launch --
+def _jax_rank_red(port, enq, unif, tails, t, **kw):
+    """The reference's two Pallas kernels in turn (interpret mode), as
+    the reference engine's phase E calls them; (trim, mark, slot)."""
+    jport = jnp.asarray(port)
+    rank = JOPS.tick_rank(jport, n_ports=kw["n_ports"], block_m=256,
+                          interpret=True)
+    return JOPS.red_ecn(jport, rank, jnp.asarray(enq), jnp.asarray(unif),
+                        jnp.asarray(tails), t, block_n=128, interpret=True,
+                        **kw)[1:]
+
+
+@pytest.mark.parametrize("M,P", [(512, 32), (5024, 3960), (17, 4)])
+@pytest.mark.parametrize("t", [0, 70000])
+def test_tick_rank_red_ecn(M, P, t):
+    # sentinel (P), out-of-range (P + 1) and negative (-1) ports, with
+    # enq set on some of them too
+    port = RNG.integers(-1, P + 2, M).astype(np.int32)
+    port[:M // 8] = RNG.integers(0, 3, M // 8)     # long same-port runs
+    enq = RNG.random(M) < 0.7
+    unif = RNG.random(M).astype(np.float32)
+    tails = (t + RNG.integers(-100, 200, P)).astype(np.int32)
+    kw = dict(qsize=88, kmin=17.6, kmax=70.4, n_ports=P)
+    got = ops.tick_rank_red_ecn(_t(port), _t(enq), _t(unif), _t(tails), t,
+                                **kw)
+    _eq(got, _jax_rank_red(port, enq, unif, tails, t, **kw))
+    rank = ops.tick_rank(_t(port), n_ports=P)
+    _eq(got, ops.red_ecn(_t(port), rank, _t(enq), _t(unif), _t(tails), t,
+                         **kw)[1:])
+
+
+@pytest.mark.parametrize("form", ["one_port", "distinct_ports"])
+def test_tick_rank_red_ecn_every_occupancy_marks_like_the_reference(form):
+    # every occupancy up to qsize + 331, from the rank (all on one port
+    # whose tail is t) or from the tails (each entry on its own port),
+    # with the uniform draw at the reference's probability and one f32
+    # step below it
+    qsize, kmin, kmax, t = 102, 20.4, 81.6, 500
+    n = qsize + 332
+    occ = np.arange(n, dtype=np.int32)
+    pr = np.asarray(jax.jit(lambda o: jnp.clip(
+        (o.astype(jnp.float32) - kmin) / max(kmax - kmin, 1e-9), 0.0,
+        1.0))(occ))
+    if form == "one_port":
+        port, tails = np.zeros(n, np.int32), np.array([t], np.int32)
+    else:
+        port, tails = occ.copy(), (t + occ).astype(np.int32)
+    kw = dict(qsize=qsize, kmin=kmin, kmax=kmax, n_ports=len(tails))
+    enq = np.ones(n, bool)
+    marks = []
+    for unif in (pr, np.nextafter(pr, np.float32(0))):
+        unif = unif.astype(np.float32)
+        got = ops.tick_rank_red_ecn(_t(port), _t(enq), _t(unif), _t(tails),
+                                    t, **kw)
+        jport = jnp.asarray(port)
+        want = RED_REF(jport, JREF.tick_rank_reference(jport,
+                                                       n_ports=len(tails)),
+                       jnp.asarray(enq), jnp.asarray(unif),
+                       jnp.asarray(tails), t, **kw)
+        _eq(got, want[1:])
+        marks.append(int(got[1].sum()))
+    # at the probability nothing marks; one step below, every accepted
+    # occupancy above kmin does
+    assert marks == [0, qsize - 21]
+
+
+def test_tick_rank_red_ecn_empty():
+    ops.reset_launches()
+    z = torch.zeros(0, dtype=torch.int32)
+    got = ops.tick_rank_red_ecn(z, z.bool(), z.float(),
+                                torch.zeros(8, dtype=torch.int32), 0,
+                                qsize=8, kmin=1.0, kmax=4.0, n_ports=8)
+    assert [(g.shape, g.dtype) for g in got] == [
+        ((0,), torch.bool), ((0,), torch.bool), ((0,), torch.int32)]
+    assert ops.LAUNCHES == dict.fromkeys(ops.LAUNCHES, 0)
+
+
 # -------------------------------------------------------- spritz_select --
 @pytest.mark.parametrize("F,P", [(16, 8), (100, 37), (256, 64), (1000, 64),
                                  (33, 1), (64, 16), (50, 17), (40, 256)])
@@ -255,6 +332,20 @@ def test_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError):
         ops.red_ecn(z, z, z.bool(), z.float(), torch.zeros(4, dtype=i32),
                     0, qsize=8, kmin=1.0, kmax=4.0, n_ports=3)
+    kw = dict(qsize=8, kmin=1.0, kmax=4.0, n_ports=3)
+    q3 = torch.zeros(3, dtype=i32)
+    for bad in ((z[:7], z.bool(), z.float(), q3),       # ragged
+                (z.float(), z.bool(), z.float(), q3),   # port not int32
+                (z, z, z.float(), q3),                  # enq not bool
+                (z, z.bool(), z.double(), q3),          # unif not f32
+                (z, z.bool(), z.float(), q3[:2]),       # q_tail length
+                (z, z.bool(), z.float(), q3.long()),    # q_tail not int32
+                (z[None], z[None].bool(), z[None].float(), q3)):  # 2-D
+        with pytest.raises(ValueError):
+            ops.tick_rank_red_ecn(*bad, 0, **kw)
+    with pytest.raises(ValueError):
+        ops.tick_rank_red_ecn(z, z.bool(), z.float(), q3[:0], 0,
+                              **dict(kw, n_ports=0))
     with pytest.raises(ValueError):
         ops.spritz_select(torch.zeros((8, 4)), torch.zeros(7), z, z,
                           explore_threshold=4)
@@ -294,13 +385,39 @@ def test_build_reports_ptxas_when_reused(tmp_path, monkeypatch):
     assert _build.BUILD_INFO["ptxas"] == first
 
 
+def test_build_digest_covers_headers(tmp_path, monkeypatch):
+    # the build directory's hash covers every file under csrc/, so an
+    # edit to a header that two sources include rebuilds both
+    import shutil
+
+    from repro_torch.kernels import _build
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    assert (csrc / "red_ecn.cuh").exists()
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = _build._digest()
+    assert _build._digest() == before
+    with open(csrc / "red_ecn.cuh", "a") as f:
+        f.write("// edited\n")
+    edited = _build._digest()
+    assert edited != before
+    (csrc / "extra.cuh").write_text("#pragma once\n")
+    assert _build._digest() not in (before, edited)
+
+
 def test_cpu_tensors_never_launch():
     ops.reset_launches()
     rows = torch.ones((2, 16), dtype=torch.int32)
     ops.flow_agg(rows, torch.zeros(16, dtype=torch.int32), n_flows=3)
     ops.flow_agg(rows.bool(), torch.zeros(16, dtype=torch.int32), n_flows=3)
     ops.tick_rank(torch.zeros(16, dtype=torch.int32), n_ports=3)
+    z = torch.zeros(16, dtype=torch.int32)
+    ops.red_ecn(z, z, z.bool(), z.float(), z[:3], 0, qsize=8, kmin=1.0,
+                kmax=4.0, n_ports=3)
+    ops.tick_rank_red_ecn(z, z.bool(), z.float(), z[:3], 0, qsize=8,
+                          kmin=1.0, kmax=4.0, n_ports=3)
     assert ops.LAUNCHES == dict.fromkeys(ops.LAUNCHES, 0)
+    assert ops.TICK_RANK_PATHS == dict.fromkeys(ops.TICK_RANK_PATHS, 0)
 
 
 # ------------------------------------------------------ flash_attention --
