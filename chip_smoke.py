@@ -29,11 +29,28 @@ Phases (any failure exits non-zero before the final line):
    and stack of spritz_select, flow_agg and the tick_rank entries
    (spritz_select must have no stack frame and no spills);
 4. engine path: the 1,056-endpoint Dragonfly permutation run for ecmp,
-   spritz_scout and spritz_spray_w through ``engine.run`` on the card,
-   kernels on, held against the committed golden record of the JAX
-   reference; flow_agg, the fused tick_rank_red_ecn (on its
-   shared-memory path only) and, for Spritz, spritz_select must have
-   launched, and the standalone tick_rank and red_ecn never;
+   ugal_l, spritz_scout and spritz_spray_w (the scheme set of the
+   registered cell engine.dragonfly1056.permutation.quick, and Scout)
+   through ``engine.run`` on the card, kernels on, held against the
+   committed golden record of the JAX reference; flow_agg, the fused
+   tick_rank_red_ecn (on its shared-memory path only) and, for Spritz,
+   spritz_select must have launched, and the standalone tick_rank and
+   red_ecn never;
+4b. failover path: the same run under two failure plans built with the
+   port's ``failures.py``, held against the committed failover record:
+   ``midrun`` (29 sampled links down at tick 16, up at 528; all 11
+   schemes) and ``degraded`` (72 links at a quarter of line rate over the
+   same window; ugal_l, flicr_w, ops_u, reps, spritz_spray_w).  Every run
+   must report zero down and rate violations and finish every flow;
+   flow_agg launches twice a step, spritz_select once a step for the
+   Spritz schemes and never for the others; on ``midrun`` phase E is the
+   fused launch once a step (shared-memory path) and the standalone
+   tick_rank and red_ecn never launch; on ``degraded`` (a capacity plan)
+   the standalone tick_rank launches once a step on its shared-memory
+   path and the fused launch and red_ecn never.  spritz_spray_w on
+   ``midrun`` run as two segments (``until_tick`` 528, then ``resume``)
+   must equal the unsegmented run, final carry included.  Warm steps/s
+   for ugal_l, ops_u, reps and spritz_spray_w;
 5. model kernel checks: flash attention and chunked RWKV-6 against their
    plain versions at the serving path's shapes (prefill and decode, bf16
    and f32) and at ragged, sliding-window and strong-decay cases, within
@@ -57,10 +74,12 @@ Phases (any failure exits non-zero before the final line):
    request must complete, the model kernel of each path must launch, and
    Phi-3's attention must take the wgmma path in the prefill and the
    split path in the decode;
-9. a JSON line of kernel numbers, then the final JSON line.
+9. the script's wall time, a JSON line of kernel numbers, then the final
+   JSON line.
 
 ``--profile`` adds ``torch.profiler`` breakdowns of one warm engine
-run and, per served model, of one prefill and 8 decode steps.
+run, of the failover phase's spritz_spray_w runs (midrun and degraded),
+and, per served model, of one prefill and 8 decode steps.
 Imports torch and the port only, never jax nor the reference package.
 """
 from __future__ import annotations
@@ -917,6 +936,7 @@ def serve_path(arch, C, Server, step, ops, torch, np, card,
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     profile = "--profile" in sys.argv[1:]
     import numpy as np
     import torch
@@ -933,6 +953,7 @@ def main() -> None:
         from repro_torch.kernels import ref as KREF
         from repro_torch.net.sim import build as B
         from repro_torch.net.sim import engine as E
+        from repro_torch.net.sim import failures as FF
         from repro_torch.net.sim.types import enqueue_bound
         from repro_torch.net.topology.dragonfly import make_dragonfly
         from repro_torch.net.workloads.synthetic import permutation
@@ -1100,7 +1121,15 @@ def main() -> None:
               f"{res.steps_executed / wall:.1f} steps/s, "
               f"{res.ticks_simulated / wall:.1f} ticks/s", flush=True)
     if profile:
-        run_profile(E, specs["spritz_spray_w"], cfg["seed"], torch, wall)
+        run_profile(E, specs["spritz_spray_w"], cfg["seed"], torch, wall,
+                    "main spritz_spray_w")
+    # 4b. failover path
+    failover = failover_path(GOLD, B, E, FF, ops, topo, flows, torch, np,
+                             profile)
+    launches_by_path = {k: {"permutation": launches[k],
+                            "failover": failover[k]} for k in TICK_KERNELS}
+    for k in TICK_KERNELS:
+        launches[k] += failover[k]
     card = card_line()
 
     # 5. model kernel checks
@@ -1175,6 +1204,9 @@ def main() -> None:
         {k: nums["tick_rank_red_ecn"][k] for k in (
             "device_us", "path", "segs", "registers", "stack_bytes",
             "spill_bytes", "static_smem_bytes", "dynamic_smem_bytes")})
+    for row in rows:
+        if row["name"] in launches_by_path:
+            row["launches_by_path"] = launches_by_path[row["name"]]
     rank_row = next(r for r in rows if r["name"] == "tick_rank")
     for key in ("device_us", "path", "segs", "smem_bytes",
                 "torch_form_device_us", "torch_form_ms"):
@@ -1189,10 +1221,131 @@ def main() -> None:
               f"no CUDA kernel: {'; '.join(EVENT_TIMED)}", flush=True)
     else:
         print("device times: all from torch.profiler", flush=True)
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s wall in all, "
+          f"the build included", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def same_state(a: dict, b: dict, path: str = "") -> list:
+    """Keys of two nested-NumPy carry states whose arrays differ."""
+    import numpy as np
+    bad = []
+    for k in set(a) | set(b):
+        x, y = a.get(k), b.get(k)
+        if isinstance(x, dict) and isinstance(y, dict):
+            bad += same_state(x, y, f"{path}{k}.")
+        elif x is None or y is None or x.dtype != y.dtype or \
+                not np.array_equal(x, y):
+            bad.append(path + k)
+    return bad
+
+
+def failover_path(GOLD, B, E, FF, ops, topo, flows, torch, np,
+                  profile=False) -> dict:
+    """Phase 4b: the DF-1056 permutation under the failover record's two
+    plans, every listed scheme on the card, kernels on.  Launches are
+    counted per run from just before it to just after; returns their
+    sums by kernel."""
+    record = GOLD.load(GOLD.FAILOVER_GOLDEN)
+    if record["config"] != GOLD.FAILOVER_CONFIG:
+        fail("failover record: config differs from data.FAILOVER_CONFIG")
+    cfg = GOLD.FAILOVER_CONFIG
+    totals = dict.fromkeys(KERNELS, 0)
+    specs, walls = {}, {}
+    for plan in GOLD.FAILOVER_PLANS:
+        want = record["plans"][plan]
+        compiled = GOLD.failover_schedule(FF, topo, plan).compile()
+        if compiled.n_events != want["n_events"]:
+            fail(f"failover {plan}: {compiled.n_events} events, record "
+                 f"{want['n_events']}")
+        rate = compiled.has_rate_events
+        if rate != (plan == "degraded"):
+            fail(f"failover {plan}: has_rate_events {rate}")
+        base = B.build_spec(topo, flows, cfg["base_scheme"],
+                            n_ticks=cfg["n_ticks"], failure_plan=compiled,
+                            block_ticks=cfg["block_ticks"])
+        for s in GOLD.FAILOVER_SCHEMES[plan]:
+            spec = specs[plan, s] = B.respec_scheme(base, s)
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            res = E.run(spec, seed=cfg["seed"], device="cuda")
+            torch.cuda.synchronize()
+            wall = walls[plan, s] = time.perf_counter() - t0
+            counts = dict(ops.LAUNCHES)
+            paths = dict(ops.TICK_RANK_PATHS)
+            for k in totals:
+                totals[k] += counts[k]
+            got = GOLD.summarize(res)
+            if got != want["schemes"][s]:
+                diff = [k for k in got if got[k] != want["schemes"][s][k]]
+                fail(f"failover {plan} {s}: result differs from the record "
+                     f"in {diff}")
+            if res.down_violations or res.rate_violations or \
+                    not bool(np.all(res.done)):
+                fail(f"failover {plan} {s}: down_violations "
+                     f"{res.down_violations}, rate_violations "
+                     f"{res.rate_violations}, done "
+                     f"{int(np.sum(res.done))}/{len(res.done)}")
+            n = res.steps_executed
+            rank = "tick_rank" if rate else "tick_rank_red_ecn"
+            want_counts = dict.fromkeys(KERNELS, 0)
+            want_counts.update({"flow_agg": 2 * n, rank: n})
+            if s.startswith("spritz"):
+                want_counts["spritz_select"] = n
+            if counts != want_counts or paths != {"smem": n, "pairwise": 0}:
+                fail(f"failover {plan} {s}: launches {counts}, tick_rank "
+                     f"paths {paths}; want {want_counts} on the smem path "
+                     f"({n} steps)")
+            print(f"failover {plan} {s}: equal to the record; ticks "
+                  f"{res.ticks_simulated} steps {n}; violations down 0 rate "
+                  f"0; wall {wall:.3f} s ({n / wall:.1f} steps/s, first "
+                  f"run); launches {counts}; tick_rank paths {paths}",
+                  flush=True)
+
+    # segments: spritz_spray_w on midrun cut at the end of the outage
+    spec = specs["midrun", "spritz_spray_w"]
+    full, full_state = E.run(spec, seed=cfg["seed"], device="cuda",
+                             return_carry=True)
+    bound = GOLD.FAILOVER_WINDOW[1]
+    res, st = E.run(spec, seed=cfg["seed"], device="cuda", until_tick=bound,
+                    return_carry=True)
+    if not bound <= res.ticks_simulated < full.ticks_simulated:
+        fail(f"failover resume: the first segment stopped at "
+             f"{res.ticks_simulated}, want [{bound}, "
+             f"{full.ticks_simulated})")
+    res2, st2 = E.run(spec, device="cuda", resume=E.checkpoint(res, st),
+                      return_carry=True)
+    bad = same_state(st2, full_state)
+    if GOLD.summarize(res2) != GOLD.summarize(full) or bad:
+        fail(f"failover resume: segmented run differs from the unsegmented "
+             f"one (carry leaves {bad})")
+    print(f"failover resume midrun spritz_spray_w: segments [0, "
+          f"{res.ticks_simulated}] ({res.steps_executed} steps) and on to "
+          f"{res2.ticks_simulated} ({res2.steps_executed} steps in all) equal"
+          f" the unsegmented run, final carry included", flush=True)
+
+    # warm repeats, timed only (launches not counted)
+    for key in [("midrun", s) for s in ("ugal_l", "ops_u", "reps",
+                                        "spritz_spray_w")] + \
+            [("degraded", "spritz_spray_w")]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = E.run(specs[key], seed=cfg["seed"], device="cuda")
+        torch.cuda.synchronize()
+        walls[key] = time.perf_counter() - t0
+        print(f"failover {key[0]} {key[1]} warm: wall {walls[key]:.3f} s, "
+              f"{res.steps_executed / walls[key]:.1f} steps/s, "
+              f"{res.ticks_simulated / walls[key]:.1f} ticks/s", flush=True)
+    if profile:
+        for plan in GOLD.FAILOVER_PLANS:
+            run_profile(E, specs[plan, "spritz_spray_w"], cfg["seed"], torch,
+                        walls[plan, "spritz_spray_w"],
+                        f"failover {plan} spritz_spray_w")
+    return totals
 
 
 def profile_block(label, fn, warm_wall: float, torch, top: int = 8):
@@ -1226,23 +1379,25 @@ def profile_block(label, fn, warm_wall: float, torch, top: int = 8):
     return kern, n_launch, out
 
 
-def run_profile(E, spec, seed, torch, warm_wall: float) -> None:
+def run_profile(E, spec, seed, torch, warm_wall: float, label: str) -> None:
     """Where one warm engine run spends the card's time: the busy share
     against the unprofiled warm wall time, the kernels launched per step,
     and the device time per call of the tick kernels."""
     kern, n_launch, res = profile_block(
-        spec.name, lambda: E.run(spec, seed=seed, device="cuda"), warm_wall,
+        label, lambda: E.run(spec, seed=seed, device="cuda"), warm_wall,
         torch, top=12)
-    print(f"profile {spec.name}: {res.steps_executed} steps, "
-          f"{n_launch / res.steps_executed:.0f} launches per step",
-          flush=True)
+    busy_us = sum(e.self_device_time_total for e in kern)
+    print(f"profile {label}: {res.steps_executed} steps, "
+          f"{n_launch / res.steps_executed:.0f} launches per step, "
+          f"{busy_us / 1e3 / res.steps_executed:.4f} ms of device time a "
+          f"step", flush=True)
     tick = re.compile(r"(?:void )?((?:flow_agg|tick_rank_smem|"
                       r"tick_rank_pairwise|red_ecn|spritz_select)_kernel"
                       r"(?:<[^>]*>)?)\(")
     for e in kern:
         m = tick.match(e.key)
         if m:
-            print(f"profile: {m.group(1)} device "
+            print(f"profile {label}: {m.group(1)} device "
                   f"{e.self_device_time_total / e.count:.2f} us per call, "
                   f"{e.count} calls", flush=True)
 

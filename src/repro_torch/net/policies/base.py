@@ -88,15 +88,13 @@ class FlowLevelRule:
 class PolicyDef:
     """One registered scheme.  ``family`` keys the scheme's substate in
     the engine's policy dict; ``uniform_weights`` / ``pin_minimal`` are
-    the host lane rules ``build_spec`` and ``lane_arrays`` read.
-    ``choose_path`` is ``None`` for a scheme whose device functions the
-    port does not have yet (``todo`` names where that work is queued)."""
+    the host lane rules ``build_spec`` and ``lane_arrays`` read."""
 
     name: str
     code: int
     family: str | None
-    make_cfg: Callable[[Any], Any] | None = None
-    choose_path: Callable[..., tuple] | None = None
+    make_cfg: Callable[[Any], Any]
+    choose_path: Callable[..., tuple]
     on_feedback: Callable[..., Any] | None = None
     init_state: Callable[..., Any] | None = None
     uniform_weights: bool = False
@@ -104,7 +102,6 @@ class PolicyDef:
     failover: bool = False
     flow_level: FlowLevelRule | None = None
     doc: str = ""
-    todo: str = ""
 
 
 def weighted_sample_rows(u: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

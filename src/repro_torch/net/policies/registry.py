@@ -1,10 +1,9 @@
 """Sender-policy registry (DESIGN.md §11).
 
-Port of ``repro.net.policies.registry``.  The host table is complete:
-all 11 schemes with their name, code, family, lane rules, failover flag
-and flow-level rule, which ``build_spec`` and ``lane_arrays`` read.  The
-device functions exist for the static and Spritz families; asking the
-engine for any other scheme raises ``NotImplementedError``.
+Port of ``repro.net.policies.registry``: all 11 schemes with their name,
+code, family, device functions, lane rules, failover flag and flow-level
+rule.  ``build_spec`` and ``lane_arrays`` read the host rules; the
+engine calls a scheme's device functions through :func:`device_policy`.
 """
 from __future__ import annotations
 
@@ -12,43 +11,27 @@ import numpy as np
 import torch
 
 from repro_torch.net.policies import base as PB
+from repro_torch.net.policies import flicr as _flicr
+from repro_torch.net.policies import ops as _ops
+from repro_torch.net.policies import reps as _reps
 from repro_torch.net.policies import spritz as _spritz
 from repro_torch.net.policies import static as _static
+from repro_torch.net.policies import ugal as _ugal
 from repro_torch.net.sim import types as T
 
-_TODO = 'ROADMAP.md queue 1, "The rest of the policy layer"'
-
-# schemes whose device functions are still to port: host rules only
-_HOST_ONLY = (
-    PB.PolicyDef(name="ugal_l", code=T.UGAL_L, family=None,
-                 flow_level=PB.FlowLevelRule("ugal", init="weighted",
-                                             n_cands=1),
-                 doc="UGAL-L adaptive routing", todo=_TODO),
-    PB.PolicyDef(name="flicr_w", code=T.FLICR_W, family="flicr",
-                 flow_level=PB.FlowLevelRule("evict", init="weighted",
-                                             cands="eq1_scaled", n_cands=1,
-                                             hysteresis=1.0),
-                 doc="FLICR flowlet switching, Eq.-1 weights", todo=_TODO),
-    PB.PolicyDef(name="ops_u", code=T.OPS_U, family=None,
-                 uniform_weights=True, failover=True,
-                 flow_level=PB.FlowLevelRule("respray"),
-                 doc="oblivious packet spraying, uniform over live paths",
-                 todo=_TODO),
-    PB.PolicyDef(name="ops_w", code=T.OPS_W, family=None, failover=True,
-                 flow_level=PB.FlowLevelRule("respray", init="weighted",
-                                             cands="eq1_scaled"),
-                 doc="oblivious packet spraying, Eq.-1 weights", todo=_TODO),
-    PB.PolicyDef(name="reps", code=T.REPS, family="reps",
-                 uniform_weights=True, failover=True,
-                 flow_level=PB.FlowLevelRule("recycle", n_cands=1),
-                 doc="REPS entropy recycling", todo=_TODO),
+# module -> the scheme codes it registers, in the reference's order
+_MODULES = (
+    (_static, (T.MINIMAL, T.ECMP, T.VALIANT)),
+    (_ugal, (T.UGAL_L,)),
+    (_flicr, (T.FLICR_W,)),
+    (_ops, (T.OPS_U, T.OPS_W)),
+    (_spritz, (T.SCOUT, T.SPRAY_U, T.SPRAY_W)),
+    (_reps, (T.REPS,)),
 )
 
 
 def _build() -> tuple[PB.PolicyDef, ...]:
-    defs = [*_static.make_policies((T.MINIMAL, T.ECMP, T.VALIANT)),
-            *_spritz.make_policies((T.SCOUT, T.SPRAY_U, T.SPRAY_W)),
-            *_HOST_ONLY]
+    defs = [p for mod, codes in _MODULES for p in mod.make_policies(codes)]
     defs.sort(key=lambda p: p.code)
     codes = [p.code for p in defs]
     if codes != list(range(len(defs))):
@@ -102,26 +85,24 @@ def names() -> list[str]:
 
 
 def device_policy(scheme) -> PB.PolicyDef:
-    """The policy with its device functions; raises for a scheme whose
-    device functions the port does not have yet."""
-    p = resolve(scheme)
-    if p.choose_path is None:
-        raise NotImplementedError(
-            f"scheme {p.name!r} is not ported to repro_torch yet: {p.todo}")
-    return p
+    """The policy with its device functions; raises ``ValueError`` for an
+    unknown scheme."""
+    return resolve(scheme)
 
 
 # --------------------------------------------------- device-side assembly
 def init_state(weights: np.ndarray, static_path: np.ndarray,
                device) -> dict:
-    """The policy state dict: one substate per ported family."""
+    """The stacked policy state: one substate per family, whatever the
+    scheme, keyed in sorted order (the order the reference's carry comes
+    back in from ``jax.jit``)."""
     w = torch.as_tensor(np.asarray(weights, np.float32), device=device)
     sp = torch.as_tensor(np.asarray(static_path, np.int32), device=device)
     out: dict = {}
     for p in _POLICIES:
-        if p.family and p.init_state is not None and p.family not in out:
+        if p.family and p.family not in out:
             out[p.family] = p.init_state(w, sp)
-    return out
+    return dict(sorted(out.items()))
 
 
 # ------------------------------------------------------- host lane rules

@@ -1,19 +1,21 @@
 """Packet-level network simulator with event-horizon time compression,
 on torch tensors.
 
-Port of ``repro.net.sim.engine`` (solo runs, static networks).  The
+Port of ``repro.net.sim.engine`` (solo runs: every registered scheme,
+static networks, failure and capacity timelines, segmented runs).  The
 model is the reference's (DESIGN.md §3-§4): the in-flight packet table
 is a fixed-shape structure of arrays, per-port FIFO order is kept
 analytically with one service-slot counter per port,
 
-    depart(pkt) = max(tail[port], t) + rank_within_tick + 1
+    depart(pkt) = max(tail[port], t) + (rank_within_tick + 1) * ivl[port]
 
-and time jumps to the next event tick (``build_horizon``), which is
-exact because every skipped tick would have been the identity.  Each
-step applies one ``build_tick`` transition, phases A (feedback, CC,
-policy feedback), B (service), C (propagation), D (injection with the
-policy's path choice) and E (enqueue: compaction, FIFO rank, RED/ECN,
-trim).
+(``ivl`` is 1 at full rate) and time jumps to the next event tick
+(``build_horizon``), which is exact because every skipped tick would
+have been the identity.  Each step applies one ``build_tick``
+transition, phases A0 (failure and capacity events), A (feedback, CC,
+policy feedback), B (service, the rate audit), C (propagation), D
+(injection with the policy's path choice) and E (enqueue: compaction,
+FIFO rank, RED/ECN, trim).
 
 Every operation reproduces the reference's arithmetic, so a run is
 bit-identical to ``repro.net.sim.engine.run`` on the same spec and seed:
@@ -24,7 +26,10 @@ go through ``kernels.ops``: the CUDA kernels on the card, their plain
 versions on the CPU.
 
 The run loop is plain Python: it reads the next event tick and the stop
-flag back from the device once per step.
+flag back from the device once per step.  ``run(until_tick=...)`` stops
+a segment between steps and ``run(resume=checkpoint(res, state))``
+continues it, bit-identical to one unsegmented run; a checkpoint's state
+is the nested-NumPy form both packages emit, so it resumes in either.
 """
 from __future__ import annotations
 
@@ -104,12 +109,19 @@ def _device(device) -> torch.device:
     return dev
 
 
-def _check_spec(spec: SimSpec) -> None:
-    if len(spec.fail_event_tick):
-        raise NotImplementedError(
-            "failure timelines (fail_event_tick) are not ported to "
-            "repro_torch yet: ROADMAP.md queue 1, \"Failure and capacity "
-            "timeline, batched driver, segmented runs\"")
+def _event_ivls(spec: SimSpec) -> np.ndarray:
+    """Per-event service intervals (ticks/packet, 0 = down).  A spec with
+    an empty ``fail_event_ivl`` gets the binary encoding (up -> 1, down
+    -> 0) from ``fail_event_up``."""
+    if len(spec.fail_event_ivl) == len(spec.fail_event_tick):
+        return np.asarray(spec.fail_event_ivl, np.int32)
+    return np.where(spec.fail_event_up, 1, 0).astype(np.int32)
+
+
+def _ceildiv(a: torch.Tensor, b) -> torch.Tensor:
+    """``(a + b - 1) // b`` in int32 with floor division, as XLA computes
+    it (products before it wrap in int32 on both devices)."""
+    return torch.div(a + b - 1, b, rounding_mode="floor")
 
 
 def _use_kernels(spec: SimSpec) -> bool:
@@ -158,7 +170,6 @@ def build_tick(spec: SimSpec, device=None):
     """Returns the transition ``tick(carry, t) -> carry`` for ``spec``
     (its scheme fixed) on ``device`` (default ``"cuda"``); ``t`` is a
     Python int."""
-    _check_spec(spec)
     dev = _device(device)
     F = spec.n_flows
     N = spec.n_pkt
@@ -187,6 +198,20 @@ def build_tick(spec: SimSpec, device=None):
     has_dep = bool((spec.dep >= 0).any())
     has_bg = bool(spec.bg_mask.any())
 
+    # failure timeline (DESIGN.md §10); E_EV == 0 (a static network)
+    # leaves phase A0 out
+    E_EV = len(spec.fail_event_tick)
+    fev_tick = tens(spec.fail_event_tick, _I32)           # [E]
+    fev_port = tens(spec.fail_event_port, _I32)           # [E]
+    fev_up = tens(spec.fail_event_up, torch.bool)         # [E]
+    fev_ivl_np = _event_ivls(spec)
+    fev_ivl = tens(fev_ivl_np, _I32)                      # [E]
+    eidx = torch.arange(E_EV, dtype=_I32, device=dev)
+    # the rate machinery runs only for plans with degraded intervals, as
+    # the reference traces it only for them: a binary plan runs the same
+    # operations (and launches) as before
+    HAS_RATE = bool((fev_ivl_np > 1).any())
+
     n_eps = int(spec.src_ep.max()) + 1 if len(spec.src_ep) else 1
     M = enqueue_bound(N, NP_, n_eps)
     use_kernels = _use_kernels(spec)
@@ -214,6 +239,62 @@ def build_tick(spec: SimSpec, device=None):
     cfg = pol.make_cfg(spec)
 
     # ------------------------------------------------------- tick phases --
+    def apply_failure_events(c: Carry, t: int):
+        """A0 (DESIGN.md §10): apply every timeline event with tick <= t
+        past the cursor; the last event per port wins (a scatter-max
+        over the event index).  A port going down turns its queued
+        packets into NACKs (counted as trims) and its packets on the wire
+        into losses, and caps its queue tail at t."""
+        if not E_EV:
+            return (c.port_up, c.port_ivl, c.last_svc, c.fail_idx,
+                    c.q_tail, c.pstate, c.pevent, c.trims)
+        due = (eidx >= c.fail_idx) & (fev_tick <= t)
+        last = torch.full((NP_ + 1,), -1, dtype=_I32, device=dev)
+        last = last.scatter_reduce(
+            0, torch.where(due, fev_port, NP_).long(),
+            torch.where(due, eidx, -1), "amax")[:NP_]
+        new_up = torch.where(last >= 0, fev_up[last.clamp_min(0)],
+                             c.port_up)
+        went_down = c.port_up & ~new_up
+        fail_idx = (c.fail_idx + due.sum()).to(_I32)
+        cur0 = path_ports[c.pflow, c.ppath, c.phop]
+        cur_s = cur0.clamp(0, NP_ - 1)
+        hit = went_down[cur_s]
+        killq = (c.pstate == P_QUEUED) & hit
+        killp = (c.pstate == P_PROP) & hit
+        nack_at0 = t + rem_ticks[c.pflow, c.ppath,
+                                 c.phop.clamp_max(H_REM - 1)]
+        pstate0 = torch.where(killq, P_NACKWAIT,
+                              torch.where(killp, P_LOST, c.pstate))
+        pevent0 = torch.where(killq, nack_at0, c.pevent)
+        trims0 = c.trims + _scatter_add(
+            F + 1, torch.where(killq, c.pflow, F).long(),
+            torch.ones(N, dtype=_I32, device=dev))[:F]
+        q_tail0 = torch.where(went_down, c.q_tail.clamp_max(t), c.q_tail)
+        if not HAS_RATE:
+            return (new_up, c.port_ivl, c.last_svc, fail_idx, q_tail0,
+                    pstate0, pevent0, trims0)
+        # rate events: only up-events (ivl > 0) change the live interval
+        # (a down port keeps its pre-outage one).  On a live port whose
+        # interval changes, the backlog rescales so the k-th queued
+        # packet's slot moves from t + k*old to t + k*new; last_svc is
+        # reset to t - new_ivl so a service at the event tick is legal.
+        applied = last >= 0
+        ivl_ev = fev_ivl[last.clamp_min(0)]
+        new_ivl = torch.where(applied & (ivl_ev > 0), ivl_ev, c.port_ivl)
+        resc = applied & new_up & (new_ivl != c.port_ivl)
+        backlog = (q_tail0 - t).clamp_min(0)
+        q_tail0 = torch.where(
+            resc, t + _ceildiv(backlog * new_ivl, c.port_ivl), q_tail0)
+        presc = (pstate0 == P_QUEUED) & resc[cur_s]
+        rel = (pevent0 - t).clamp_min(0)
+        pevent0 = torch.where(
+            presc, t + _ceildiv(rel * new_ivl[cur_s], c.port_ivl[cur_s]),
+            pevent0)
+        last_svc = torch.where(applied, t - new_ivl, c.last_svc)
+        return (new_up, new_ivl, last_svc.to(_I32), fail_idx,
+                q_tail0.to(_I32), pstate0, pevent0.to(_I32), trims0)
+
     if use_kernels:
         def flow_sums_fn(pflow):
             def flow_sums(rows):        # [K,N] int32 or bool -> [K,F] int32
@@ -326,8 +407,11 @@ def build_tick(spec: SimSpec, device=None):
         # in one threefry pass
         u_path, unif = PAR.uniforms([(k_path, (F, 1)), (k_mark, (M,))], dev)
 
-        # A0: static network — no timeline events
-        q_tail0, pstate0, pevent0 = c.q_tail, c.pstate, c.pevent
+        # ------------- A0. failure timeline events (DESIGN.md §10) ----------
+        (port_up, port_ivl, last_svc, fail_idx, q_tail0, pstate0,
+         pevent0, trims0) = apply_failure_events(c, t)
+        # load signal for the policies: ticks to drain, so a degraded port
+        # advertises proportionally more load for the same backlog
         occ = (q_tail0 - t).clamp_min(0)
 
         # ---------------- A. feedback arrivals + timeouts -------------------
@@ -382,7 +466,15 @@ def build_tick(spec: SimSpec, device=None):
 
         # conformance counter: a service never crosses a down port
         cur_s = cur_port.clamp(0, NP_ - 1)
-        viol = c.viol + (svc & ~c.port_up[cur_s]).sum().to(_I32)
+        viol = c.viol + (svc & ~port_up[cur_s]).sum().to(_I32)
+        rviol = c.rviol
+        if HAS_RATE:
+            # rate audit: services on one port are >= its interval apart
+            rviol = rviol + (svc & (t - last_svc[cur_s] < port_ivl[cur_s])
+                             ).sum().to(_I32)
+            last_svc = _padded(last_svc, _NEVER_SVC).scatter_reduce(
+                0, torch.where(svc, cur_port, NP_).long(),
+                torch.full((N,), t, dtype=_I32, device=dev), "amax")[:NP_]
 
         ret = ret_ticks[c.pflow, c.ppath]
         pevent = torch.where(deliver, t + ret, pevent0)
@@ -462,7 +554,7 @@ def build_tick(spec: SimSpec, device=None):
         enq0 = arrive | injected_pkt
         eport_n = torch.where(enq0, path_ports[pflow, ppath, phop], NP_)
         failed = enq0 & (eport_n < NP_) & \
-            ~c.port_up[eport_n.clamp_max(NP_ - 1)]
+            ~port_up[eport_n.clamp_max(NP_ - 1)]
         enq = enq0 & ~failed
         pstate = torch.where(failed, P_LOST, pstate)
 
@@ -479,19 +571,32 @@ def build_tick(spec: SimSpec, device=None):
 
         # FIFO rank among same-tick arrivals per port (compacted), then
         # RED/ECN marking and trim on it
-        if use_kernels:      # one launch: rank, RED/ECN, trim and slot
+        ivl_e = None
+        if use_kernels and not HAS_RATE:
+            # one launch: rank, RED/ECN, trim and slot (full rate only)
             trim, mark, slot = KOPS.tick_rank_red_ecn(
                 cport, valid, unif, q_tail0, t, qsize=spec.qsize,
                 kmin=spec.kmin, kmax=spec.kmax, n_ports=NP_)
         else:
-            rank = enqueue_rank(cport)
-            tail_e = q_tail0[cport.clamp_max(NP_ - 1)]
-            occ_at = (tail_e - t).clamp_min(0) + rank
+            rank = (KOPS.tick_rank(cport, n_ports=NP_) if use_kernels
+                    else enqueue_rank(cport))
+            cport_s = cport.clamp_max(NP_ - 1)
+            tail_e = q_tail0[cport_s]
+            if HAS_RATE:
+                # backlog in packets: ticks to drain over the interval
+                ivl_e = port_ivl[cport_s]
+                occ_at = _ceildiv((tail_e - t).clamp_min(0), ivl_e) + rank
+            else:
+                occ_at = (tail_e - t).clamp_min(0) + rank
             trim = valid & (occ_at >= spec.qsize)
             # RED / ECN marking probability between kmin..kmax
             pr = ((occ_at.float() - KMIN) * RECIP).clamp(0.0, 1.0)
             mark = valid & ~trim & (unif < pr)
-            slot = tail_e.clamp_min(t) + rank + 1
+            if HAS_RATE:
+                # rank-k accept departs at max(tail, t) + (k+1)*ivl
+                slot = tail_e.clamp_min(t) + (rank + 1) * ivl_e
+            else:
+                slot = tail_e.clamp_min(t) + rank + 1
         accept = valid & ~trim
         pecn = pecn | _scatter_at(
             torch.zeros(N + 1, dtype=torch.bool, device=dev),
@@ -507,22 +612,24 @@ def build_tick(spec: SimSpec, device=None):
         pevent = _scatter_at(_padded(pevent, 0), ctgt,
                              torch.where(valid, new_event, 0))[:N]
 
-        trims = c.trims + _scatter_add(
+        trims = trims0 + _scatter_add(
             F + 1, torch.where(trim, cflow, F).long(),
             torch.ones(M, dtype=_I32, device=dev))[:F]
         timeouts = c.timeouts + n_to
         delivered = c.delivered + n_ack
 
-        # q_tail advances by one service slot per accepted packet
+        # q_tail advances by the interval per accepted packet (1 at full
+        # rate)
         n_acc = _scatter_add(
             NP_ + 1, torch.where(accept, cport, NP_).long(),
-            torch.ones(M, dtype=_I32, device=dev))[:NP_]
+            torch.ones(M, dtype=_I32, device=dev) if ivl_e is None
+            else ivl_e.to(_I32))[:NP_]
         q_tail = torch.where(n_acc > 0, q_tail0.clamp_min(t) + n_acc, q_tail0)
 
         return Carry(
             rng=c.rng, q_tail=q_tail.to(_I32),
-            port_up=c.port_up, port_ivl=c.port_ivl, last_svc=c.last_svc,
-            fail_idx=c.fail_idx, viol=viol, rviol=c.rviol,
+            port_up=port_up, port_ivl=port_ivl, last_svc=last_svc,
+            fail_idx=fail_idx, viol=viol, rviol=rviol,
             pstate=pstate.to(_I32), pflow=pflow, ppath=ppath, phop=phop,
             pevent=pevent.to(_I32), pecn=pecn, pexp=pexp, psent=psent,
             ppsn=ppsn, next_seq=next_seq, acked=acked, retx_pend=retx_pend,
@@ -541,15 +648,20 @@ def build_horizon(spec: SimSpec, device=None):
     """Returns ``horizon(carry, t) -> next event tick > t`` as a 0-d i32
     tensor (DESIGN.md §4): the min over scheduled packet events, RTO
     deadlines, injection eligibility (gated on a free table slot) and
-    deferred CC round closure.  Every tick strictly inside the jump is a
-    no-op of the transition.  ``device`` defaults to ``"cuda"``."""
-    _check_spec(spec)
+    deferred CC round closure, and the next unapplied timeline event.
+    Every tick strictly inside the jump is a no-op of the transition.
+    ``device`` defaults to ``"cuda"``."""
     dev = _device(device)
     size_pkts = torch.as_tensor(spec.size_pkts, dtype=_I32, device=dev)
     start_tick = torch.as_tensor(spec.start_tick, dtype=_I32, device=dev)
     dep = torch.as_tensor(spec.dep, dtype=torch.int64, device=dev)
     has_dep = bool((spec.dep >= 0).any())
     rto1 = spec.rto_ticks + 1
+    # the next unapplied timeline event is an event: never jump over it
+    E_EV = len(spec.fail_event_tick)
+    fev_tick_x = torch.as_tensor(
+        np.append(np.asarray(spec.fail_event_tick, np.int32), INF_TICK)
+        .astype(np.int32), device=dev)
 
     def horizon(c: Carry, t: int) -> torch.Tensor:
         live = ((c.pstate == P_QUEUED) | (c.pstate == P_PROP)
@@ -577,6 +689,8 @@ def build_horizon(spec: SimSpec, device=None):
         ev_cc = torch.where(pend_round, t + 1, INF_TICK)
         h = torch.minimum(torch.minimum(ev_pkt, ev_rto),
                           torch.minimum(ev_inj, ev_cc))
+        if E_EV:
+            h = torch.minimum(h, fev_tick_x[c.fail_idx.clamp_max(E_EV)])
         return h.clamp_min(t + 1).to(_I32)
 
     return horizon
@@ -585,12 +699,22 @@ def build_horizon(spec: SimSpec, device=None):
 def init_carry(spec: SimSpec, seed: int = 0, device=None,
                weights: np.ndarray | None = None,
                static_path: np.ndarray | None = None) -> Carry:
-    """The initial carry of ``spec`` on ``device`` (default ``"cuda"``)."""
-    _check_spec(spec)
+    """The initial carry of ``spec`` on ``device`` (default ``"cuda"``).
+    Timeline events at tick <= 0 are initial conditions: they are folded
+    into ``port_up`` / ``port_ivl`` here, so a plan whose events all fire
+    at t = 0 runs like the static ``failed_links`` build."""
     dev = _device(device)
     F, N, NP_ = spec.n_flows, spec.n_pkt, spec.n_ports
     w = spec.weights if weights is None else weights
     sp = spec.static_path if static_path is None else static_path
+    port_up0 = ~np.asarray(spec.port_failed, bool)
+    port_ivl0 = np.ones(NP_, np.int32)
+    ivl0 = _event_ivls(spec)
+    n0 = int(np.searchsorted(spec.fail_event_tick, 0, side="right"))
+    for i in range(n0):
+        port_up0[spec.fail_event_port[i]] = bool(spec.fail_event_up[i])
+        if ivl0[i] > 0:
+            port_ivl0[spec.fail_event_port[i]] = int(ivl0[i])
 
     def zi(n):
         return torch.zeros(n, dtype=_I32, device=dev)
@@ -604,11 +728,10 @@ def init_carry(spec: SimSpec, seed: int = 0, device=None,
     return Carry(
         rng=torch.tensor(PAR.prng_key(seed), dtype=torch.int64),
         q_tail=zi(NP_),
-        port_up=torch.as_tensor(~np.asarray(spec.port_failed, bool),
-                                device=dev),
-        port_ivl=torch.ones(NP_, dtype=_I32, device=dev),
+        port_up=torch.as_tensor(port_up0, device=dev),
+        port_ivl=torch.as_tensor(port_ivl0, device=dev),
         last_svc=torch.full((NP_,), _NEVER_SVC, dtype=_I32, device=dev),
-        fail_idx=scalar(0), viol=scalar(0), rviol=scalar(0),
+        fail_idx=scalar(n0), viol=scalar(0), rviol=scalar(0),
         pstate=zi(N), pflow=zi(N), ppath=zi(N), phop=zi(N), pevent=zi(N),
         pecn=zb(N), pexp=zb(N), psent=zi(N), ppsn=zi(N),
         next_seq=zi(F), acked=zi(F), retx_pend=zi(F), inflight=zi(F),
@@ -629,15 +752,15 @@ def init_carry(spec: SimSpec, seed: int = 0, device=None,
 def carry_from_state(spec: SimSpec, state: dict, device=None) -> Carry:
     """A carry on ``device`` (default ``"cuda"``) from the nested-NumPy
     state form (``carry_state`` here, ``_carry_state`` in the reference
-    engine), restricted to the policy families this package has.  Shapes
-    must match ``spec``."""
+    engine).  Shapes must match ``spec``."""
     tmpl = init_carry(spec, 0, device)
 
     def leaf(arr, ref):
         a = np.array(arr)                     # an owned, writable copy
         if a.shape != tuple(ref.shape):
             raise ValueError(f"state leaf shape {a.shape} != spec's "
-                             f"{tuple(ref.shape)}")
+                             f"{tuple(ref.shape)}: resume requires the "
+                             "identical SimSpec")
         if ref.dtype == torch.int64:          # the rng's uint32 words
             a = a.astype(np.int64)
         return torch.as_tensor(a, device=ref.device).to(ref.dtype)
@@ -692,17 +815,37 @@ def _result(carry: Carry, t: int, steps: int) -> SimResult:
     )
 
 
+class Checkpoint(NamedTuple):
+    """A resumable engine snapshot: the nested-NumPy carry state (the
+    form ``return_carry=True`` emits, here and in the reference engine)
+    and the loop counters.  ``run(spec, resume=cp)`` continues the loop
+    from exactly this state."""
+
+    state: dict   # nested numpy carry (incl. the stacked policy dict)
+    t: int        # ticks simulated so far (the loop's current tick)
+    steps: int    # horizon steps executed so far
+
+
+def checkpoint(res: SimResult, state: dict) -> Checkpoint:
+    """Pair a ``return_carry=True`` result with its carry state."""
+    return Checkpoint(state=state, t=int(res.ticks_simulated),
+                      steps=int(res.steps_executed))
+
+
 def drive(spec: SimSpec, carry: Carry, watch: torch.Tensor, *,
-          dense: bool = False):
-    """Advance a fresh ``carry`` until ``spec.n_ticks`` or until every
-    watched flow completed.  ``dense`` steps every tick (the exact oracle
-    for the event-horizon jump).  Returns (carry, t, steps)."""
+          dense: bool = False, t: int = -1, steps: int = 0,
+          limit: int | None = None):
+    """Advance ``carry`` from loop tick ``t`` (``-1`` for a fresh carry)
+    while ``t < spec.n_ticks``, ``t < limit`` and some watched flow is
+    unfinished, tested before each step; a step may jump past ``limit``,
+    as in the reference's loop.  ``dense`` steps every tick (the exact
+    oracle for the event-horizon jump).  Returns (carry, t, steps)."""
     dev = carry.fct.device
     tick = build_tick(spec, dev)
     hor = None if dense else build_horizon(spec, dev)
     n_ticks = spec.n_ticks
-    t, steps = -1, 0
-    while t < n_ticks:
+    limit = n_ticks if limit is None else int(limit)
+    while t < n_ticks and t < limit:
         done = torch.where(watch, carry.fct >= 0, True).all()
         if dense:
             if bool(done):
@@ -723,7 +866,8 @@ def drive(spec: SimSpec, carry: Carry, watch: torch.Tensor, *,
 
 def run(spec: SimSpec, seed: int = 0, *, device=None,
         stop_flows: np.ndarray | None = None, reference: bool = False,
-        return_carry: bool = False):
+        return_carry: bool = False, until_tick: int | None = None,
+        resume: Checkpoint | None = None):
     """Run the simulation for up to ``spec.n_ticks`` virtual ticks on
     ``device`` (default ``"cuda"``; raises if there is no CUDA device).
 
@@ -731,15 +875,28 @@ def run(spec: SimSpec, seed: int = 0, *, device=None,
     ``stop_flows`` — completed.  ``reference=True`` selects the dense
     tick-by-tick stepper.  ``return_carry=True`` also returns the final
     carry as nested NumPy dicts (:func:`carry_state`).
+
+    ``until_tick`` stops the segment once the loop's tick reaches it;
+    ``resume`` continues from a :class:`Checkpoint` (or the reference's)
+    taken over the same spec.  Segmenting is bit-identical to one
+    unsegmented run::
+
+        res, st = run(spec, seed, until_tick=W, return_carry=True)
+        res = run(spec, resume=checkpoint(res, st))
     """
     dev = _device(device)
     watch = np.ones(spec.n_flows, bool)
     if stop_flows is not None:
         watch = np.zeros(spec.n_flows, bool)
         watch[np.asarray(stop_flows)] = True
-    carry = init_carry(spec, seed, dev)
+    if resume is not None:
+        carry = carry_from_state(spec, resume.state, dev)
+        t0, steps0 = int(resume.t), int(resume.steps)
+    else:
+        carry, t0, steps0 = init_carry(spec, seed, dev), -1, 0
     carry, t, steps = drive(spec, carry, torch.as_tensor(watch, device=dev),
-                            dense=reference)
+                            dense=reference, t=t0, steps=steps0,
+                            limit=until_tick)
     res = _result(carry, t, steps)
     if return_carry:
         return res, carry_state(carry)

@@ -72,7 +72,7 @@ class FailurePlan:
     them into the starting ``port_up``/``port_ivl`` state, so a plan
     whose down-events all fire at t=0 is bit-identical to a static
     ``failed_links`` build.  Usually produced by
-    a failure schedule, not by hand.
+    :class:`repro_torch.net.sim.failures.FailureSchedule`, not by hand.
     """
 
     event_tick: np.ndarray           # [E] i32, sorted ascending
@@ -107,6 +107,24 @@ class FailurePlan:
     @property
     def n_events(self) -> int:
         return len(self.event_tick)
+
+    @property
+    def has_rate_events(self) -> bool:
+        """True when any event sets a *degraded* (not binary) rate — the
+        engine runs the rate machinery only for such plans."""
+        return bool((self.event_ivl > 1).any())
+
+    def port_ivl_at(self, t: int, n_ports: int) -> np.ndarray:
+        """Host-side oracle: per-port service interval *during* tick
+        ``t`` (events at tick <= t applied, in order).  A down port
+        keeps its pre-outage interval."""
+        ivl = np.ones(n_ports, np.int32)
+        for i in range(self.n_events):
+            if self.event_tick[i] > t:
+                break
+            if self.event_ivl[i] > 0:
+                ivl[self.port_id[i]] = int(self.event_ivl[i])
+        return ivl
 
 
 @dataclasses.dataclass

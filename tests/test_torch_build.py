@@ -189,7 +189,9 @@ def test_port_imports_without_jax_or_reference():
     assert len(mods) >= 40                       # every module was imported
     for m in ("models.common", "models.lm", "models.ssm", "models.convert",
               "configs.phi3_medium_14b", "configs.rwkv6_7b", "train.step",
-              "launch.serve", "kernels.ops", "net.sim.engine"):
+              "launch.serve", "kernels.ops", "net.sim.engine",
+              "net.sim.failures", "net.policies.ugal", "net.policies.flicr",
+              "net.policies.ops", "net.policies.reps"):
         assert f"repro_torch.{m}" in mods, m
 
 

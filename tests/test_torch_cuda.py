@@ -5,8 +5,10 @@ The CPU port is held against the JAX reference by the other
 each CUDA kernel against its plain version at small and ragged shapes
 (the tick kernels bit for bit, attention and RWKV-6 within the
 tolerances of ``tests/test_kernels.py``), the whole engine on DF(4,2,2)
-on ``cuda`` against the same run on ``cpu``, for the kernels and for the
-engine's torch forms, and the reduced dense and RWKV models on ``cuda``
+on ``cuda`` against the same run on ``cpu`` for all 11 schemes, for the
+kernels and for the engine's torch forms, and under a mid-run failure
+plan and a degraded (capacity) plan with the launches of each phase-E
+form, and the reduced dense and RWKV models on ``cuda``
 against ``cpu`` within 1e-4.  They need a card and skip without one.  On
 a machine with an H100:
 
@@ -25,6 +27,7 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.net.sim import build as B  # noqa: E402
 from repro_torch.net.sim import engine as E  # noqa: E402
+from repro_torch.net.sim import failures as FF  # noqa: E402
 from repro_torch.models.lm import LM  # noqa: E402
 from repro_torch.net.topology.dragonfly import make_dragonfly  # noqa: E402
 
@@ -158,34 +161,76 @@ def test_spritz_select_kernel(cuda, F, P, u_kind):
 @pytest.mark.parametrize("use_kernels", [None, False],
                          ids=["kernels", "torch_forms"])
 @pytest.mark.parametrize("dense", [False, True], ids=["compressed", "dense"])
-@pytest.mark.parametrize("scheme", ["minimal", "ecmp", "valiant",
+@pytest.mark.parametrize("scheme", ["minimal", "valiant", "ugal_l", "ecmp",
+                                    "flicr_w", "ops_u", "ops_w",
                                     "spritz_scout", "spritz_spray_u",
-                                    "spritz_spray_w"])
+                                    "spritz_spray_w", "reps"])
 def test_engine_on_card_equals_cpu(cuda, scheme, dense, use_kernels):
     topo = make_dragonfly(4, 2, 2)
     flows = [B.Flow(s, d, n, start_tick=t) for s, d, n, t in FLOWS]
     spec = B.build_spec(topo, flows, scheme, n_ticks=1 << 12,
                         use_kernels=use_kernels)
-    ops.reset_launches()
-    got, gst = E.run(spec, device=cuda, reference=dense, return_carry=True)
-    launched = dict(ops.LAUNCHES)
-    want, wst = E.run(spec, device="cpu", reference=dense,
-                      return_carry=True)
-    for f in ("fct_ticks", "delivered", "trims", "timeouts", "ooo", "retx",
-              "done"):
-        np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
-    assert (got.ticks_simulated, got.steps_executed) == \
-        (want.ticks_simulated, want.steps_executed)
-    for k, v in wst.items():
-        if k not in ("policy", "spritz"):
-            np.testing.assert_array_equal(gst[k], v, err_msg=k)
-    for k, v in wst["policy"]["spritz"].items():
-        np.testing.assert_array_equal(gst["policy"]["spritz"][k], v)
+    launched, got = _card_equals_cpu(spec, cuda, reference=dense)
     if use_kernels is None:     # phase E: one fused launch, no other
         assert launched["flow_agg"] > 0 and launched["tick_rank_red_ecn"] > 0
         assert launched["tick_rank"] == launched["red_ecn"] == 0
     else:
         assert sum(launched.values()) == 0
+
+
+def _card_equals_cpu(spec, cuda, **kw):
+    """Runs ``spec`` on the card, then on the CPU; every result field,
+    counter and carry leaf (every policy substate) equal.  Returns the
+    card run's launches and result."""
+    ops.reset_launches()
+    got, gst = E.run(spec, device=cuda, return_carry=True, **kw)
+    launched = dict(ops.LAUNCHES)
+    want, wst = E.run(spec, device="cpu", return_carry=True, **kw)
+    for f in ("fct_ticks", "delivered", "trims", "timeouts", "ooo", "retx",
+              "done"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+    assert (got.ticks_simulated, got.steps_executed, got.down_violations,
+            got.rate_violations) == (want.ticks_simulated,
+                                     want.steps_executed,
+                                     want.down_violations,
+                                     want.rate_violations)
+    for k, v in wst.items():
+        if k not in ("policy", "spritz"):
+            np.testing.assert_array_equal(gst[k], v, err_msg=k)
+    for fam, sub in wst["policy"].items():
+        for k, v in sub.items():
+            np.testing.assert_array_equal(gst["policy"][fam][k], v,
+                                          err_msg=f"{fam}.{k}")
+    return launched, got
+
+
+@pytest.mark.parametrize("plan", ["midrun", "degraded"])
+@pytest.mark.parametrize("scheme", ["ugal_l", "reps", "spritz_spray_w"])
+def test_timeline_on_card_equals_cpu(cuda, plan, scheme):
+    """A mid-run failure plan (binary: phase E stays the fused launch) and
+    a degraded plan (a capacity plan: the standalone tick_rank once a
+    step), card against CPU, with the launches of each."""
+    topo = make_dragonfly(4, 2, 2)
+    flows = [B.Flow(e, 40 + (e % 3), 96, start_tick=8 * e)
+             for e in range(5)]
+    links = FF.sample_links(topo, 3, seed=3)
+    sched = FF.FailureSchedule(topo)
+    if plan == "midrun":
+        sched.fail_links(60, links).recover(2500)
+    else:
+        sched.degrade_links(60, links, 0.25, until=2500)
+    spec = B.build_spec(topo, flows, scheme, n_ticks=1 << 13,
+                        failure_plan=sched, block_ticks=1024)
+    launched, got = _card_equals_cpu(spec, cuda)
+    assert got.down_violations == got.rate_violations == 0
+    n = got.steps_executed
+    rank = "tick_rank" if plan == "degraded" else "tick_rank_red_ecn"
+    want = dict.fromkeys(launched, 0)
+    want.update({"flow_agg": 2 * n, rank: n})
+    if scheme.startswith("spritz"):
+        want["spritz_select"] = n
+    assert launched == want
+    assert ops.TICK_RANK_PATHS == {"smem": n, "pairwise": 0}
 
 
 def _close(got, want, tol):

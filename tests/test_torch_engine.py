@@ -2,8 +2,8 @@
 
 Same spec (carried across with ``spec_from_arrays``) and seed in; every
 ``SimResult`` field, ``ticks_simulated``, ``steps_executed`` and every
-final carry leaf, the Spritz policy state included, out.  Covered: six
-schemes (static and Spritz families) x the compressed and dense steppers
+final carry leaf, every policy family's substate included, out.
+Covered: all 11 registered schemes x the compressed and dense steppers
 x ``use_kernels`` False (the engine's torch forms) and True (the kernel
 wrappers, which run the plain versions on CPU tensors), the
 ``_ONEHOT_CELLS`` form switch, a static link failure, an incast whose
@@ -25,7 +25,6 @@ torch.set_num_threads(1)
 
 from repro.net.sim import build as B  # noqa: E402
 from repro.net.sim import engine as E  # noqa: E402
-from repro.net.sim.failures import FailureSchedule  # noqa: E402
 from repro.net.sim.types import enqueue_bound  # noqa: E402
 from repro.net.topology.dragonfly import make_dragonfly  # noqa: E402
 from repro_torch.net.sim import engine as TE  # noqa: E402
@@ -34,8 +33,9 @@ from repro_torch.net.sim import types as TT  # noqa: E402
 DF = make_dragonfly(4, 2, 2)
 FLOWS = [B.Flow(e, 40 + (e % 3), 40 + 8 * (e % 2), start_tick=16 * e)
          for e in range(6)]
-SCHEMES = ("minimal", "ecmp", "valiant", "spritz_scout", "spritz_spray_u",
-           "spritz_spray_w")
+SCHEMES = ("minimal", "valiant", "ugal_l", "ecmp", "flicr_w", "ops_u",
+           "ops_w", "spritz_scout", "spritz_spray_u", "spritz_spray_w",
+           "reps")
 RESULT_FIELDS = ("fct_ticks", "delivered", "trims", "timeouts", "ooo",
                  "retx", "done")
 
@@ -58,9 +58,13 @@ def _same_state(got: dict, want: dict, ctx):
         g = got[k]
         assert g.dtype == np.asarray(v).dtype, (ctx, k, g.dtype)
         np.testing.assert_array_equal(g, v, err_msg=f"{ctx} {k}")
-    for k, v in want["policy"]["spritz"].items():
-        np.testing.assert_array_equal(got["policy"]["spritz"][k], v,
-                                      err_msg=f"{ctx} spritz.{k}")
+    assert list(got["policy"]) == list(want["policy"]), ctx
+    for fam, sub in want["policy"].items():
+        assert list(got["policy"][fam]) == list(sub), (ctx, fam)
+        for k, v in sub.items():
+            g = got["policy"][fam][k]
+            assert g.dtype == v.dtype, (ctx, fam, k, g.dtype)
+            np.testing.assert_array_equal(g, v, err_msg=f"{ctx} {fam}.{k}")
 
 
 def _same_result(got, want, ctx):
@@ -96,7 +100,8 @@ def test_port_matches_reference(scheme, dense, use_kernels):
 # 71-to-1 incast under a low ECN threshold: marked DCTCP rounds from
 # about tick 500.  768 ticks is the shortest horizon at which the fma
 # form of alpha's update (the reference's standalone jit) leaves the
-# reference's loop in every scheme; the run stops there, unfinished.
+# reference's loop in each of the six static and Spritz schemes; the run
+# stops there, unfinished.
 INCAST = [B.Flow(e, 0, 48, start_tick=0) for e in range(1, 72)]
 
 
@@ -117,6 +122,9 @@ def test_marking_incast_matches_reference(scheme, seed, use_kernels):
     unfused."""
     spec, want, want_state = _marking_reference(scheme, seed)
     assert (want_state["alpha"] != 0).any(), "no DCTCP round saw a mark"
+    if scheme == "flicr_w":     # marks reached FLICR's counter: flows moved
+        assert (want_state["policy"]["flicr"]["cur"]
+                != spec.static_path).any()
     got, state = TE.run(_port(spec, use_kernels), device="cpu", seed=seed,
                         return_carry=True)
     ctx = ("incast", scheme, seed, use_kernels)
@@ -217,20 +225,10 @@ def test_dense_equals_compressed_in_the_port():
     assert a.steps_executed < b.steps_executed
 
 
-def test_timeline_plan_raises():
-    link = (0, int(DF.nbr[0, 0]))
-    plan = FailureSchedule(DF).fail_links(40, [link])
-    spec = _spec("ecmp", failure_plan=plan)
-    with pytest.raises(NotImplementedError, match="Failure and capacity timeline"):
-        TE.run(_port(spec, True), device="cpu")
-
-
-@pytest.mark.parametrize("scheme", ["ugal_l", "flicr_w", "ops_u", "ops_w",
-                                    "reps"])
-def test_unported_scheme_raises(scheme):
-    spec = _spec(scheme)
-    with pytest.raises(NotImplementedError, match="The rest of the policy layer"):
-        TE.run(_port(spec, True), device="cpu")
+def test_unknown_scheme_raises():
+    spec = dataclasses.replace(_port(_spec("ecmp"), True), scheme=11)
+    with pytest.raises(ValueError, match="unknown scheme"):
+        TE.run(spec, device="cpu")
 
 
 def test_default_device_needs_cuda():

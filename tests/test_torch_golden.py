@@ -2,7 +2,7 @@
 
 ``src/repro_torch/data/df1056_permutation_golden.json`` is what
 ``chip_smoke.py`` holds the port's run on the card against.  This test
-reruns the reference (one ``run_batch`` over the three schemes on the
+reruns the reference (one ``run_batch`` over the four schemes on the
 jnp path, JAX on the CPU) and requires every field to match, so the
 record cannot drift from the reference.  Regenerate it with
 
@@ -23,7 +23,7 @@ from repro_torch import data as GOLD  # noqa: E402
 
 
 def reference_run():
-    """The reference's three runs: their results and final carries."""
+    """The reference's runs of every scheme: results and final carries."""
     cfg = GOLD.CONFIG
     topo = make_dragonfly(8, 4, 4)
     flows = permutation(topo, size_pkts=32, seed=1)
@@ -53,6 +53,7 @@ def test_reference_reproduces_golden_record():
     for s in GOLD.SCHEMES:
         assert got["schemes"][s] == want["schemes"][s], s
         assert want["schemes"][s]["down_violations"] == 0
+        assert want["schemes"][s]["rate_violations"] == 0
     # every flow finished in every scheme
     for s in GOLD.SCHEMES:
         assert want["schemes"][s]["ticks_simulated"] < GOLD.CONFIG["n_ticks"]
