@@ -6,7 +6,7 @@
 Phases (any failure exits non-zero before the final line):
 
 1. card: name and power limit from nvidia-smi;
-2. build: compile the six CUDA kernels from ``src/repro_torch`` with
+2. build: compile the seven CUDA kernels from ``src/repro_torch`` with
    nvcc for sm_90a, one process per source;
 3. tick kernel checks: each tick kernel against its plain torch version
    on the card, at the packet engine's DF-1056 shapes plus ragged sizes
@@ -21,7 +21,11 @@ Phases (any failure exits non-zero before the final line):
    versions at the DF-1056 shapes (t 0 and 70,000), M 17, 1 and 0 (no
    launch), all sentinels, negative and out-of-range ports, every
    occupancy 0..qsize+M with u at the RED probability and one f32 step
-   below, and n_ports 70,000 (pairwise path); CUDA-event times of
+   below, and n_ports 70,000 (pairwise path); tick_draws (the tick's
+   keys and two uniform draws) at the DF-1056 (F, M), ragged sizes and
+   ticks and seeds up to 2**31 - 1; a CUDA graph that captured the fused
+   launch and tick_draws, replayed at three ticks written to the tick's
+   device tensor, equal to the plain versions at each; CUDA-event times of
    kernel, plain version and (flow_agg) ``index_add_``, and the device
    time of every tick kernel (the fused one beside tick_rank and red_ecn
    alone), of ``index_add_`` and of the engine's torch form of the rank
@@ -32,25 +36,36 @@ Phases (any failure exits non-zero before the final line):
    ugal_l, spritz_scout and spritz_spray_w (the scheme set of the
    registered cell engine.dragonfly1056.permutation.quick, and Scout)
    through ``engine.run`` on the card, kernels on, held against the
-   committed golden record of the JAX reference; flow_agg, the fused
-   tick_rank_red_ecn (on its shared-memory path only) and, for Spritz,
-   spritz_select must have launched, and the standalone tick_rank and
-   red_ecn never;
+   committed golden record of the JAX reference.  Each run is the
+   engine's loop: one gated step captured in a CUDA graph, replayed with
+   a read of the stop flag every ``STEPS_PER_READ`` steps; a run must
+   replay fewer than that many steps past its last, and each replay
+   launch flow_agg twice and the fused tick_rank_red_ecn (shared-memory
+   path), tick_draws and, for Spritz, spritz_select once, nothing else;
+4c. the same four schemes as one ``engine.run_batch`` call, every lane
+   equal to the golden record (which the reference's ``run_batch``
+   wrote), with the same launches per replay;
+4d. spritz_spray_w through the graph loop against the private eager loop
+   (the same step, its wrappers called and the stop flag read every
+   step): equal results and final carry; the warm steps/s of both in
+   turns (eager, graph, graph, eager);
 4b. failover path: the same run under two failure plans built with the
    port's ``failures.py``, held against the committed failover record:
    ``midrun`` (29 sampled links down at tick 16, up at 528; all 11
    schemes) and ``degraded`` (72 links at a quarter of line rate over the
    same window; ugal_l, flicr_w, ops_u, reps, spritz_spray_w).  Every run
    must report zero down and rate violations and finish every flow;
-   flow_agg launches twice a step, spritz_select once a step for the
-   Spritz schemes and never for the others; on ``midrun`` phase E is the
-   fused launch once a step (shared-memory path) and the standalone
-   tick_rank and red_ecn never launch; on ``degraded`` (a capacity plan)
-   the standalone tick_rank launches once a step on its shared-memory
-   path and the fused launch and red_ecn never.  spritz_spray_w on
-   ``midrun`` run as two segments (``until_tick`` 528, then ``resume``)
-   must equal the unsegmented run, final carry included.  Warm steps/s
-   for ugal_l, ops_u, reps and spritz_spray_w;
+   per replay of the captured step flow_agg launches twice, tick_draws
+   once, spritz_select once for the Spritz schemes and never for the
+   others; on ``midrun`` phase E is the fused launch once a replay
+   (shared-memory path) and the standalone tick_rank and red_ecn never
+   launch; on ``degraded`` (a capacity plan) the standalone tick_rank
+   launches once a replay on its shared-memory path and the fused launch
+   and red_ecn never.  spritz_spray_w on ``midrun`` run as two segments
+   (``until_tick`` 528, then ``resume``) must equal the unsegmented run,
+   final carry included.  Warm steps/s for ugal_l, ops_u, reps and
+   spritz_spray_w; then phase 4d's graph-against-eager check and timing
+   on midrun spritz_spray_w;
 5. model kernel checks: flash attention and chunked RWKV-6 against their
    plain versions at the serving path's shapes (prefill and decode, bf16
    and f32) and at ragged, sliding-window and strong-decay cases, within
@@ -78,8 +93,10 @@ Phases (any failure exits non-zero before the final line):
    JSON line.
 
 ``--profile`` adds ``torch.profiler`` breakdowns of one warm engine
-run, of the failover phase's spritz_spray_w runs (midrun and degraded),
-and, per served model, of one prefill and 8 decode steps.
+run (graph replays: the device's busy share of the warm wall time and
+the launches a step), of the failover phase's spritz_spray_w runs
+(midrun and degraded), and, per served model, of one prefill and 8
+decode steps.
 Imports torch and the port only, never jax nor the reference package.
 """
 from __future__ import annotations
@@ -112,6 +129,10 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
     # phase E (also carries tick_rank.py:75's work there)
     "tick_rank_red_ecn": ("src/repro_torch/kernels/csrc/tick_rank.cu",
                           "src/repro/kernels/red_ecn.py:90"),
+    # the tick's keys and two uniform draws (the reference computes them
+    # with jax.random in XLA, not in a Pallas kernel)
+    "tick_draws": ("src/repro_torch/kernels/csrc/tick_draws.cu",
+                   "src/repro/net/sim/engine.py:130"),
     "spritz_select": ("src/repro_torch/kernels/csrc/spritz_select.cu",
                       "src/repro/kernels/spritz_select.py:72"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -120,7 +141,7 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
                       "src/repro/kernels/rwkv6_chunked.py:90"),
 }
 TICK_KERNELS = ("flow_agg", "tick_rank", "red_ecn", "tick_rank_red_ecn",
-                "spritz_select")
+                "tick_draws", "spritz_select")
 SERVE_ARCHS = {"phi3_medium_14b": "flash_attention",
                "rwkv6_7b": "rwkv6_chunked"}
 
@@ -407,16 +428,19 @@ def check_kernels(ops, ref, sorted_rank, torch, np, shapes,
     enq = eport < NP_
     unif = cu(rng.random(M), f32)
     q_tail = cu(70000 + rng.integers(-40, 120, NP_), i32)
-    outs = ops.red_ecn(eport, rank, enq, unif, q_tail, 70000, **kw)
+    # timed with the tick in device memory, as the engine passes it (an
+    # int would add a host-to-device copy to each call)
+    t_dev = torch.tensor(70000, dtype=i32, device=dev)
+    outs = ops.red_ecn(eport, rank, enq, unif, q_tail, t_dev, **kw)
     out["red_ecn"] = dict(
         max_abs_err=err,
         ms=time_ms(lambda: ops.red_ecn(eport, rank, enq, unif, q_tail,
-                                       70000, **kw)),
+                                       t_dev, **kw)),
         plain_ms=time_ms(lambda: ref.red_ecn_reference(
-            eport, rank, enq, unif, q_tail, 70000, **kw)),
+            eport, rank, enq, unif, q_tail, t_dev, **kw)),
         library_ms=None,
         device_us=device_us(lambda: ops.red_ecn(eport, rank, enq, unif,
-                                                q_tail, 70000, **kw),
+                                                q_tail, t_dev, **kw),
                             torch, what="red_ecn"),
         bytes=nbytes(eport, rank, enq, unif, q_tail, *outs))
 
@@ -482,19 +506,65 @@ def check_kernels(ops, ref, sorted_rank, torch, np, shapes,
                               40, 70000))
     port = rank_inputs(M, 4200)
     enq, unif, q_tail = port < NP_, cu(rng.random(M), f32), tails(70000, NP_)
-    outs = ops.tick_rank_red_ecn(port, enq, unif, q_tail, 70000, **kw)
+    outs = ops.tick_rank_red_ecn(port, enq, unif, q_tail, t_dev, **kw)
     out["tick_rank_red_ecn"] = dict(
         max_abs_err=err,
         ms=time_ms(lambda: ops.tick_rank_red_ecn(port, enq, unif, q_tail,
-                                                 70000, **kw)),
+                                                 t_dev, **kw)),
         plain_ms=time_ms(lambda: rank_red_plain(port, enq, unif, q_tail,
-                                                70000, NP_)),
+                                                t_dev, NP_)),
         library_ms=None,
         device_us=device_us(lambda: ops.tick_rank_red_ecn(
-            port, enq, unif, q_tail, 70000, **kw), torch,
+            port, enq, unif, q_tail, t_dev, **kw), torch,
             what="tick_rank_red_ecn"),
         bytes=nbytes(port, enq, unif, q_tail, *outs),
         path=plan[0], segs=plan[1], dynamic_smem_bytes=plan[2])
+
+    # ---- the tick read from device memory: a graph that captured the fused
+    # launch and the draws gives each replay's tick's results
+    t_dev = torch.zeros((), dtype=i32, device=dev)
+    key = cu(np.array([0, 11]), torch.int64)
+    ops.tick_rank_red_ecn(port, enq, unif, q_tail, t_dev, **kw)   # warm
+    ops.tick_draws(key, t_dev, n_flows=F, n_cand=M)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        g_fused = ops.tick_rank_red_ecn(port, enq, unif, q_tail, t_dev, **kw)
+        g_draws = ops.tick_draws(key, t_dev, n_flows=F, n_cand=M)
+    for tt in (69990, 70000, 70100):
+        t_dev.fill_(tt)
+        graph.replay()
+        torch.cuda.synchronize()
+        same(f"tick_rank_red_ecn captured, t {tt}", g_fused,
+             rank_red_plain(port, enq, unif, q_tail, tt, NP_))
+        same(f"tick_draws captured, t {tt}", g_draws,
+             ref.tick_draws_reference(key, t_dev, n_flows=F, n_cand=M))
+    del graph
+
+    # ---- tick_draws: the tick's keys and both draws at the engine's
+    # (F, M), ragged sizes, ticks and seeds up to 2**31 - 1
+    err = 0.0
+    for seed, tt, f, m in ((0, 0, F, M), (0, 513, F, M), (7, 70000, F, M),
+                           (2**31 - 1, 2**31 - 1, F, M), (5, 3, 1, 0),
+                           (5, 3, 0, 7), (9, 11, 300, 1)):
+        key = cu(np.array([0, seed]), torch.int64)
+        t_dev = torch.tensor(tt, dtype=i32, device=dev)
+        err = max(err, same(f"tick_draws seed {seed} t {tt} F {f} M {m}",
+                            ops.tick_draws(key, t_dev, n_flows=f, n_cand=m),
+                            ref.tick_draws_reference(key, t_dev, n_flows=f,
+                                                     n_cand=m)))
+    key = cu(np.array([0, 0]), torch.int64)
+    t_dev = torch.tensor(70000, dtype=i32, device=dev)
+    outs = ops.tick_draws(key, t_dev, n_flows=F, n_cand=M)
+    out["tick_draws"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: ops.tick_draws(key, t_dev, n_flows=F, n_cand=M)),
+        plain_ms=time_ms(lambda: ref.tick_draws_reference(
+            key, t_dev, n_flows=F, n_cand=M)),
+        library_ms=None, bytes=nbytes(key, t_dev, *outs),
+        device_us=device_us(lambda: ops.tick_draws(key, t_dev, n_flows=F,
+                                                   n_cand=M),
+                            torch, what="tick_draws"))
 
     # ---- spritz_select: Eq.-1-like rows, zero rows, wide dynamic range
     thr = shapes["explore_threshold"]
@@ -1019,7 +1089,7 @@ def main() -> None:
           f"{agg['k2_device_us']:.2f} us; index_add_ (K 6 int32, its zero "
           f"fill included) {agg['library_device_us']:.2f} us a call",
           flush=True)
-    for name in ("spritz_select", "red_ecn"):
+    for name in ("spritz_select", "red_ecn", "tick_draws"):
         print(f"kernel {name} device time ({timed_by(name)}): "
               f"{nums[name]['device_us']:.2f} us a call", flush=True)
     tick_ptx = {}
@@ -1071,7 +1141,7 @@ def main() -> None:
           f"spills, shared memory {fu['static_smem_bytes']} B static + "
           f"{fu['dynamic_smem_bytes']} B dynamic", flush=True)
 
-    # 4. engine path
+    # 4. engine path: each run through the captured graph loop
     golden = GOLD.load()["schemes"]
     launches = dict.fromkeys(KERNELS, 0)
     specs = {s: B.respec_scheme(base, s) for s in GOLD.SCHEMES}
@@ -1086,30 +1156,14 @@ def main() -> None:
         rank_paths = dict(ops.TICK_RANK_PATHS)
         for k in launches:
             launches[k] += counts[k]
-        got = GOLD.summarize(res)
-        if got != golden[s]:
-            diff = [k for k in got if got[k] != golden[s][k]]
-            fail(f"{s}: result differs from the golden record in {diff}")
-        if res.down_violations != 0 or not bool(np.all(res.done)):
-            fail(f"{s}: down_violations {res.down_violations}, "
-                 f"done {int(np.sum(res.done))}/{len(res.done)}")
-        need = ["flow_agg", "tick_rank_red_ecn"]
-        if s.startswith("spritz"):
-            need.append("spritz_select")
-        if any(counts[k] == 0 for k in need):
-            fail(f"{s}: a kernel of the path never launched: {counts}")
-        if counts["tick_rank"] or counts["red_ecn"]:
-            fail(f"{s}: standalone tick_rank / red_ecn launched on the "
-                 f"engine path, whose phase E is one fused launch: {counts}")
-        if rank_paths["pairwise"] or \
-                rank_paths["smem"] != counts["tick_rank_red_ecn"]:
-            fail(f"{s}: tick_rank_red_ecn left its shared-memory path: "
-                 f"{rank_paths}")
+        check_golden(f"main {s}", res, golden[s], GOLD, np)
+        check_replays(f"main {s}", res, counts, rank_paths, E,
+                      s.startswith("spritz"), "tick_rank_red_ecn")
         print(f"main {s}: equal to golden; ticks {res.ticks_simulated} "
-              f"steps {res.steps_executed}; wall {wall:.3f} s "
-              f"({res.steps_executed / wall:.1f} steps/s, first run); "
-              f"launches {counts}; tick_rank paths {rank_paths}",
-              flush=True)
+              f"steps {res.steps_executed}, replays {res.replays}; wall "
+              f"{wall:.3f} s ({res.steps_executed / wall:.1f} steps/s, first "
+              f"run, the capture included); launches {counts}; tick_rank "
+              f"paths {rank_paths}", flush=True)
     # warm repeat, timed only (launches not counted)
     for s, spec in specs.items():
         torch.cuda.synchronize()
@@ -1123,6 +1177,46 @@ def main() -> None:
     if profile:
         run_profile(E, specs["spritz_spray_w"], cfg["seed"], torch, wall,
                     "main spritz_spray_w")
+    # 4c. the four schemes as one run_batch call (the golden record came
+    # from the reference's run_batch)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    batch = E.run_batch(base, schemes=list(GOLD.SCHEMES), seeds=[cfg["seed"]],
+                        device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(ops.LAUNCHES)
+    rank_paths = dict(ops.TICK_RANK_PATHS)
+    replays = {"all": 0, "spritz": 0}
+    for s, res in zip(GOLD.SCHEMES, batch):
+        check_golden(f"batch {s}", res, golden[s], GOLD, np)
+        if not 0 <= res.replays - res.steps_executed < E.STEPS_PER_READ:
+            fail(f"batch {s}: {res.replays} replays for "
+                 f"{res.steps_executed} steps")
+        replays["all"] += res.replays
+        if s.startswith("spritz"):
+            replays["spritz"] += res.replays
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(flow_agg=2 * replays["all"],
+                tick_rank_red_ecn=replays["all"],
+                tick_draws=replays["all"], spritz_select=replays["spritz"])
+    if counts != want or rank_paths != {"smem": replays["all"],
+                                        "pairwise": 0}:
+        fail(f"batch: launches {counts}, tick_rank paths {rank_paths}; want "
+             f"{want} on the smem path")
+    for k in launches:
+        launches[k] += counts[k]
+    print(f"batch {'/'.join(GOLD.SCHEMES)}: one run_batch call, every lane "
+          f"equal to golden; steps "
+          f"{[r.steps_executed for r in batch]}, replays "
+          f"{[r.replays for r in batch]}; wall {wall:.3f} s "
+          f"({sum(r.steps_executed for r in batch) / wall:.1f} steps/s, "
+          f"graphs warm); launches {counts}", flush=True)
+    # 4d. the graph loop against the eager loop (the same gated step, its
+    # wrappers called each step, the stop flag read after each)
+    graph_vs_eager(E, GOLD, specs["spritz_spray_w"], cfg["seed"],
+                   "main spritz_spray_w", torch)
     # 4b. failover path
     failover = failover_path(GOLD, B, E, FF, ops, topo, flows, torch, np,
                              profile)
@@ -1197,7 +1291,7 @@ def main() -> None:
         row.update(registers=ent["registers"],
                    stack_bytes=ent["stack_bytes"],
                    smem_bytes=ent["smem_bytes"])
-    for name in ("spritz_select", "red_ecn"):
+    for name in ("spritz_select", "red_ecn", "tick_draws"):
         next(r for r in rows if r["name"] == name)["device_us"] = \
             nums[name]["device_us"]
     next(r for r in rows if r["name"] == "tick_rank_red_ecn").update(
@@ -1227,6 +1321,63 @@ def main() -> None:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def check_golden(label, res, want, GOLD, np) -> None:
+    """A run equals its golden record, every flow done, no violation."""
+    got = GOLD.summarize(res)
+    if got != want:
+        fail(f"{label}: result differs from the record in "
+             f"{[k for k in got if got[k] != want[k]]}")
+    if res.down_violations or res.rate_violations or \
+            not bool(np.all(res.done)):
+        fail(f"{label}: down_violations {res.down_violations}, "
+             f"rate_violations {res.rate_violations}, done "
+             f"{int(np.sum(res.done))}/{len(res.done)}")
+
+
+def check_replays(label, res, counts, paths, E, spritz: bool,
+                  rank: str) -> None:
+    """The run replayed its captured step ``res.replays`` times, fewer
+    than one read's batch past its last step, and each replay launched
+    flow_agg twice and ``rank``, tick_draws and (Spritz) spritz_select
+    once, ``rank`` on its shared-memory path; nothing else."""
+    n, r = res.steps_executed, res.replays
+    if not 0 <= r - n < E.STEPS_PER_READ:
+        fail(f"{label}: {r} replays for {n} steps (reads every "
+             f"{E.STEPS_PER_READ})")
+    want = dict.fromkeys(counts, 0)
+    want.update({"flow_agg": 2 * r, rank: r, "tick_draws": r})
+    if spritz:
+        want["spritz_select"] = r
+    if counts != want or paths != {"smem": r, "pairwise": 0}:
+        fail(f"{label}: launches {counts}, tick_rank paths {paths}; want "
+             f"{want} on the smem path ({r} replays)")
+
+
+def graph_vs_eager(E, GOLD, spec, seed, label, torch) -> None:
+    """``engine.run`` (the captured step, replayed) against the private
+    eager loop on one spec: equal results and final carry; then the
+    warm steps/s of both in turns (eager, graph, graph, eager)."""
+    g, g_st = E.run(spec, seed=seed, device="cuda", return_carry=True)
+    e, e_st = E._eager_run(spec, seed, device="cuda", return_carry=True)
+    bad = same_state(g_st, e_st)
+    if GOLD.summarize(g) != GOLD.summarize(e) or bad:
+        fail(f"{label}: the graph loop differs from the eager loop (carry "
+             f"leaves {bad})")
+    runs = {"eager": lambda: E._eager_run(spec, seed, device="cuda"),
+            "graph": lambda: E.run(spec, seed=seed, device="cuda")}
+    rates = []
+    for name in ("eager", "graph", "graph", "eager"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = runs[name]()
+        torch.cuda.synchronize()
+        rates.append((name, res.steps_executed / (time.perf_counter() - t0)))
+    print(f"{label}: graph loop equal to the eager loop, final carry "
+          f"included ({g.steps_executed} steps, {g.replays} replays); warm "
+          f"steps/s " + ", ".join(f"{n} {r:.1f}" for n, r in rates),
+          flush=True)
 
 
 def same_state(a: dict, b: dict, path: str = "") -> list:
@@ -1279,31 +1430,17 @@ def failover_path(GOLD, B, E, FF, ops, topo, flows, torch, np,
             paths = dict(ops.TICK_RANK_PATHS)
             for k in totals:
                 totals[k] += counts[k]
-            got = GOLD.summarize(res)
-            if got != want["schemes"][s]:
-                diff = [k for k in got if got[k] != want["schemes"][s][k]]
-                fail(f"failover {plan} {s}: result differs from the record "
-                     f"in {diff}")
-            if res.down_violations or res.rate_violations or \
-                    not bool(np.all(res.done)):
-                fail(f"failover {plan} {s}: down_violations "
-                     f"{res.down_violations}, rate_violations "
-                     f"{res.rate_violations}, done "
-                     f"{int(np.sum(res.done))}/{len(res.done)}")
+            check_golden(f"failover {plan} {s}", res, want["schemes"][s],
+                         GOLD, np)
+            check_replays(f"failover {plan} {s}", res, counts, paths, E,
+                          s.startswith("spritz"),
+                          "tick_rank" if rate else "tick_rank_red_ecn")
             n = res.steps_executed
-            rank = "tick_rank" if rate else "tick_rank_red_ecn"
-            want_counts = dict.fromkeys(KERNELS, 0)
-            want_counts.update({"flow_agg": 2 * n, rank: n})
-            if s.startswith("spritz"):
-                want_counts["spritz_select"] = n
-            if counts != want_counts or paths != {"smem": n, "pairwise": 0}:
-                fail(f"failover {plan} {s}: launches {counts}, tick_rank "
-                     f"paths {paths}; want {want_counts} on the smem path "
-                     f"({n} steps)")
             print(f"failover {plan} {s}: equal to the record; ticks "
-                  f"{res.ticks_simulated} steps {n}; violations down 0 rate "
-                  f"0; wall {wall:.3f} s ({n / wall:.1f} steps/s, first "
-                  f"run); launches {counts}; tick_rank paths {paths}",
+                  f"{res.ticks_simulated} steps {n}, replays {res.replays}; "
+                  f"violations down 0 rate 0; wall {wall:.3f} s "
+                  f"({n / wall:.1f} steps/s, first run, the capture "
+                  f"included); launches {counts}; tick_rank paths {paths}",
                   flush=True)
 
     # segments: spritz_spray_w on midrun cut at the end of the outage
@@ -1340,6 +1477,8 @@ def failover_path(GOLD, B, E, FF, ops, topo, flows, torch, np,
         print(f"failover {key[0]} {key[1]} warm: wall {walls[key]:.3f} s, "
               f"{res.steps_executed / walls[key]:.1f} steps/s, "
               f"{res.ticks_simulated / walls[key]:.1f} ticks/s", flush=True)
+    graph_vs_eager(E, GOLD, specs["midrun", "spritz_spray_w"], cfg["seed"],
+                   "failover midrun spritz_spray_w", torch)
     if profile:
         for plan in GOLD.FAILOVER_PLANS:
             run_profile(E, specs[plan, "spritz_spray_w"], cfg["seed"], torch,
@@ -1387,12 +1526,14 @@ def run_profile(E, spec, seed, torch, warm_wall: float, label: str) -> None:
         label, lambda: E.run(spec, seed=seed, device="cuda"), warm_wall,
         torch, top=12)
     busy_us = sum(e.self_device_time_total for e in kern)
-    print(f"profile {label}: {res.steps_executed} steps, "
-          f"{n_launch / res.steps_executed:.0f} launches per step, "
-          f"{busy_us / 1e3 / res.steps_executed:.4f} ms of device time a "
-          f"step", flush=True)
+    print(f"profile {label}: {res.steps_executed} steps, {res.replays} "
+          f"replays of the captured step; "
+          f"{n_launch / res.replays:.1f} launches per replay, "
+          f"{busy_us / 1e3 / res.replays:.4f} ms of device time a "
+          f"replay", flush=True)
     tick = re.compile(r"(?:void )?((?:flow_agg|tick_rank_smem|"
-                      r"tick_rank_pairwise|red_ecn|spritz_select)_kernel"
+                      r"tick_rank_pairwise|red_ecn|tick_draws|"
+                      r"spritz_select)_kernel"
                       r"(?:<[^>]*>)?)\(")
     for e in kern:
         m = tick.match(e.key)

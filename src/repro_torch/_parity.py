@@ -7,9 +7,11 @@ the CPU and on the card alike (they only use elementwise torch ops):
 
 * ``prng_key`` / ``fold_in`` / ``split`` / ``uniform``: threefry2x32,
   bit-identical to ``jax.random`` with ``jax_threefry_partitionable``
-  (the default since jax 0.5).  Keys are pairs of Python ints (uint32
-  words), so deriving a per-tick key costs no device work; only the
-  draws run on tensors, several of them in one pass (``uniforms``).
+  (the default since jax 0.5).  A key is a pair of uint32 words, held
+  as Python ints on the host or as 0-d int64 tensors on a device, where
+  the engine derives each tick's keys from a tick held in a 0-d int32
+  tensor without reading it back; the draws run on tensors, several of
+  them in one pass (``uniforms``).
 * ``xla_cumsum_f32``: XLA's f32 prefix sum, which scans sequentially
   inside blocks of 16 and then adds the running block totals.
 * ``fma_f32``: one fused multiply-add rounded once, the form XLA's CPU
@@ -56,20 +58,34 @@ def prng_key(seed: int) -> tuple[int, int]:
     return (0, int(seed))
 
 
-def fold_in(key: tuple[int, int], data: int) -> tuple[int, int]:
-    """``jax.random.fold_in(key, data)`` for data in [0, 2**32)."""
-    return threefry2x32(key[0], key[1], 0, int(data) & _M32)
+def fold_in(key, data):
+    """``jax.random.fold_in(key, data)`` for data in [0, 2**32).  ``key``
+    is a pair of ints and ``data`` an int, or either is on a device: key
+    words as 0-d int64 tensors, ``data`` as a 0-d integer tensor (the
+    result is then a pair of 0-d int64 tensors)."""
+    if isinstance(data, torch.Tensor):
+        data = data.to(torch.int64) & _M32
+    else:
+        data = int(data) & _M32
+    return threefry2x32(key[0], key[1], 0, data)
 
 
-def split(key: tuple[int, int], num: int = 2) -> list[tuple[int, int]]:
-    """``jax.random.split(key, num)`` (partitionable threefry)."""
-    return [threefry2x32(key[0], key[1], 0, i) for i in range(num)]
+def split(key, num: int = 2) -> list:
+    """``jax.random.split(key, num)`` (partitionable threefry).  A key of
+    0-d tensors gives subkeys of 0-d tensors, all from one threefry
+    pass."""
+    if not isinstance(key[0], torch.Tensor):
+        return [threefry2x32(key[0], key[1], 0, i) for i in range(num)]
+    cnt = torch.arange(num, dtype=torch.int64, device=key[0].device)
+    w0, w1 = threefry2x32(key[0], key[1], torch.zeros_like(cnt), cnt)
+    return [(w0[i], w1[i]) for i in range(num)]
 
 
 def random_bits(draws, device) -> list[torch.Tensor]:
     """32 random bits per element (int64 holding uint32) for each
     ``(key, shape)`` in ``draws``, with row-major counters as
-    ``jax.random.bits`` draws them; all draws share one threefry pass."""
+    ``jax.random.bits`` draws them; all draws share one threefry pass.
+    Keys are pairs of ints or of 0-d int64 tensors on ``device``."""
     sizes = [int(np.prod(shape)) for _, shape in draws]
     if max(sizes) >= 1 << 32:
         raise ValueError("random_bits supports fewer than 2**32 elements")
@@ -77,6 +93,10 @@ def random_bits(draws, device) -> list[torch.Tensor]:
                      for n in sizes])
     if len(draws) == 1:
         (k0, k1), _ = draws[0]
+    elif isinstance(draws[0][0][0], torch.Tensor):
+        k0, k1 = (torch.cat([key[j].reshape(1).expand(n)
+                             for (key, _), n in zip(draws, sizes)])
+                  for j in (0, 1))
     else:
         k0, k1 = (torch.cat([torch.full((n,), key[j], dtype=torch.int64,
                                         device=device)
@@ -94,7 +114,7 @@ def uniforms(draws, device) -> list[torch.Tensor]:
              - 1.0) for b in random_bits(draws, device)]
 
 
-def uniform(key: tuple[int, int], shape, device) -> torch.Tensor:
+def uniform(key, shape, device) -> torch.Tensor:
     """``jax.random.uniform(key, shape)`` in [0, 1), float32."""
     return uniforms([(key, shape)], device)[0]
 

@@ -37,8 +37,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "flow_agg": ("flow_agg_launch", (_P, _P, _P, _I, _I, _I, _I, _P), EXACT),
     "tick_rank": ("tick_rank_launch", (_P, _P, _I, _I, _I, _P), EXACT),
-    "red_ecn": ("red_ecn_launch", (_P, _P, _P, _P, _P, _I, _I, _F, _F, _I,
+    "red_ecn": ("red_ecn_launch", (_P, _P, _P, _P, _P, _P, _I, _F, _F, _I,
                                    _I, _P, _P, _P, _P, _P), EXACT),
+    "tick_draws": ("tick_draws_launch", (_P, _P, _I, _I, _P, _P, _P), EXACT),
     "spritz_select": ("spritz_select_launch", (_P, _P, _P, _P, _I, _I, _I,
                                                _P, _P, _P, _P), EXACT),
     "flash_attention": ("flash_attention_launch",
@@ -52,7 +53,7 @@ SIGNATURES = {
 # point, argument types)
 EXTRA_ENTRIES = {
     "tick_rank_red_ecn": ("tick_rank", "tick_rank_red_ecn_launch",
-                          (_P, _P, _P, _P, _I, _I, _F, _F, _I, _I, _I, _P,
+                          (_P, _P, _P, _P, _P, _I, _F, _F, _I, _I, _I, _P,
                            _P, _P, _P)),
 }
 

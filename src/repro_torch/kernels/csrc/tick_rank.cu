@@ -59,6 +59,7 @@
 #define TR_SMEM_THREADS 512   // smem path: 16 warps
 #define TR_MAX_SEGS (TR_SMEM_THREADS / 32)
 #define TR_UNROLL 8           // entries a lane loads before it walks them
+#define TR_MAX_DEVICES 64     // devices whose shared-memory opt-in is kept
 
 __device__ __forceinline__ int bucket(int p, int n_ports) {
   return (p < 0 || p >= n_ports) ? n_ports : p;
@@ -70,7 +71,8 @@ struct RedEcnArgs {
   const bool* enq;
   const float* unif;
   const int* q_tail;
-  int t, qsize;
+  const int* t;          // the tick, in device memory
+  int qsize;
   float kmin, recip;
   bool* trim;
   bool* mark;
@@ -79,15 +81,15 @@ struct RedEcnArgs {
 
 // What an entry's epilogue reads besides its rank.
 struct RedEcnIn {
-  int tail;
+  int tail, t;
   bool enq;
   float unif;
 };
 
 __device__ __forceinline__ RedEcnIn load_red(const RedEcnArgs& red, int i,
                                              int p, int n_ports) {
-  return {__ldg(red.q_tail + red_ecn_port(p, n_ports)), red.enq[i],
-          __ldg(red.unif + i)};
+  return {__ldg(red.q_tail + red_ecn_port(p, n_ports)), __ldg(red.t),
+          red.enq[i], __ldg(red.unif + i)};
 }
 
 // Entry i's result: its rank, or (kRed) its trim, mark and slot.
@@ -96,7 +98,7 @@ __device__ __forceinline__ void put(int* __restrict__ rank,
                                     const RedEcnArgs& red, int i, int r,
                                     const RedEcnIn& in) {
   if constexpr (kRed) {
-    const RedEcnOut o = red_ecn_one(in.tail, r, in.enq, in.unif, red.t,
+    const RedEcnOut o = red_ecn_one(in.tail, r, in.enq, in.unif, in.t,
                                     red.qsize, red.kmin, red.recip);
     red.trim[i] = o.trim;
     red.mark[i] = o.mark;
@@ -241,11 +243,19 @@ static int launch(const int* port, int* rank, const RedEcnArgs& red, int M,
   const int stride = (n_ports + 1 + 3) / 4 * 4;
   const int seg_len = ((M + segs - 1) / segs + 31) / 32 * 32;
   const size_t smem = (size_t)segs * stride * sizeof(int);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        tick_rank_smem_kernel<kRed>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  // the opt-in is set once a device for each size it grows to (a launch
+  // that a CUDA graph captures after a warm-up makes no attribute call)
+  static size_t opted_in[TR_MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev >= TR_MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (smem > 48 * 1024 && smem > opted_in[dev]) {
+    e = cudaFuncSetAttribute(tick_rank_smem_kernel<kRed>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
     if (e != cudaSuccess) return (int)e;
+    opted_in[dev] = smem;
   }
   int bits = 1;                                  // buckets 0..n_ports
   while (bits < 31 && (1 << bits) <= n_ports) ++bits;
@@ -262,15 +272,16 @@ extern "C" int tick_rank_launch(const void* port, void* rank, int M,
 
 // The rank, then red_ecn's stage on it, in one launch: writes trim, mark
 // and slot [M] (no rank, no occupancy).  recip is the f32 reciprocal of
-// kmax - kmin, as red_ecn_launch takes it.
+// kmax - kmin, as red_ecn_launch takes it; t points to the tick in device
+// memory, as red_ecn_launch takes it.
 extern "C" int tick_rank_red_ecn_launch(const void* port, const void* enq,
                                         const void* unif, const void* q_tail,
-                                        int t, int qsize, float kmin,
+                                        const void* t, int qsize, float kmin,
                                         float recip, int n_ports, int M,
                                         int segs, void* trim, void* mark,
                                         void* slot, void* stream) {
   const RedEcnArgs red{(const bool*)enq, (const float*)unif,
-                       (const int*)q_tail, t, qsize, kmin, recip,
+                       (const int*)q_tail, (const int*)t, qsize, kmin, recip,
                        (bool*)trim, (bool*)mark, (int*)slot};
   return launch<true>((const int*)port, nullptr, red, M, n_ports, segs,
                       (cudaStream_t)stream);

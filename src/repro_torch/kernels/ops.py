@@ -1,6 +1,7 @@
-"""Wrappers of the six CUDA kernels (four tick kernels, attention and
-the chunked RWKV-6 time mix), and of the fused launch of two of them
-(``tick_rank_red_ecn``: the rank and the RED/ECN stage on it).
+"""Wrappers of the seven CUDA kernels (four tick kernels, the tick's
+random draws, attention and the chunked RWKV-6 time mix), and of the
+fused launch of two of them (``tick_rank_red_ecn``: the rank and the
+RED/ECN stage on it).
 
 Each wrapper checks its inputs, then either launches its kernel on the
 current CUDA stream (tensors on the card) or calls the kernel's plain
@@ -21,7 +22,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ref as R
 
 LAUNCHES = dict.fromkeys(("flow_agg", "tick_rank", "red_ecn",
-                          "tick_rank_red_ecn", "spritz_select",
+                          "tick_rank_red_ecn", "tick_draws", "spritz_select",
                           "flash_attention", "rwkv6_chunked"), 0)
 # flash_attention launches by the path the kernel took (see flash_plan)
 FLASH_PATHS = dict.fromkeys(("wgmma", "split", "simt"), 0)
@@ -40,10 +41,36 @@ TICK_RANK_BALANCE = 96   # segments ~ sqrt(this * M / buckets): walk vs passes
 _AGG_ROWS = {torch.int32: 4, torch.bool: 1, torch.uint8: 1}
 
 
+_COUNTERS = {"LAUNCHES": LAUNCHES, "FLASH_PATHS": FLASH_PATHS,
+             "TICK_RANK_PATHS": TICK_RANK_PATHS}
+
+
 def reset_launches() -> None:
-    for counts in (LAUNCHES, FLASH_PATHS, TICK_RANK_PATHS):
+    for counts in _COUNTERS.values():
         for k in counts:
             counts[k] = 0
+
+
+def launch_counts() -> dict:
+    """A copy of every launch and path count, by counter and key."""
+    return {name: dict(counts) for name, counts in _COUNTERS.items()}
+
+
+def set_launch_counts(saved: dict) -> None:
+    """Restore a :func:`launch_counts` copy.  A CUDA graph's capture
+    calls the wrappers without launching anything: the engine's loop
+    puts the counts back after it, and credits each replay with the
+    launches the capture recorded (:func:`add_launches`)."""
+    for name, counts in _COUNTERS.items():
+        counts.update(saved[name])
+
+
+def add_launches(per_replay: dict, replays: int) -> None:
+    """Count ``replays`` replays of a captured graph whose capture
+    recorded ``per_replay`` launches (a :func:`launch_counts` delta)."""
+    for name, counts in _COUNTERS.items():
+        for k, n in per_replay[name].items():
+            counts[k] += n * replays
 
 
 def _on_cpu(*ts: torch.Tensor) -> bool:
@@ -169,35 +196,53 @@ def _check_candidates(n_ports: int, q_tail=None, **cands) -> None:
                              f"(n_ports,) = ({n_ports},)")
 
 
-def red_ecn(eport, rank, enq, unif, q_tail, t: int, *, qsize: int,
+def _tick(t, device: torch.device):
+    """The tick of the RED/ECN wrappers as a 0-d int32 tensor on
+    ``device``: a tensor given is checked and passed on (the kernels read
+    it from device memory, so a captured graph reads the value of each
+    replay), an int is copied there."""
+    if not isinstance(t, torch.Tensor):
+        return torch.tensor(int(t), dtype=torch.int32, device=device)
+    if t.ndim != 0 or t.dtype != torch.int32 or t.device != device:
+        raise ValueError(f"t must be an int or a 0-d int32 tensor on "
+                         f"{device}, got {t.dtype} {tuple(t.shape)} on "
+                         f"{t.device}")
+    return t
+
+
+def red_ecn(eport, rank, enq, unif, q_tail, t, *, qsize: int,
             kmin: float, kmax: float, n_ports: int):
     """eport/rank: [M] int32; enq: [M] bool; unif: [M] f32; q_tail:
-    [n_ports] int32.  Returns (occ int32, trim bool, mark bool, slot
+    [n_ports] int32; t: the tick, an int or a 0-d int32 tensor on the
+    inputs' device.  Returns (occ int32, trim bool, mark bool, slot
     int32), each [M]."""
     _check_candidates(n_ports, q_tail, eport=eport, rank=rank, enq=enq,
                       unif=unif)
     kw = dict(qsize=qsize, kmin=kmin, kmax=kmax, n_ports=n_ports)
+    t = _tick(t, eport.device)
     if _on_cpu(eport, rank, enq, unif, q_tail):
         return R.red_ecn_reference(eport, rank, enq, unif, q_tail, t, **kw)
     M = eport.shape[0]
     occ, slot = torch.empty_like(eport), torch.empty_like(eport)
     trim, mark = torch.empty_like(enq), torch.empty_like(enq)
     _launch("red_ecn", eport.data_ptr(), rank.data_ptr(), enq.data_ptr(),
-            unif.data_ptr(), q_tail.data_ptr(), int(t), int(qsize),
+            unif.data_ptr(), q_tail.data_ptr(), t.data_ptr(), int(qsize),
             f32(kmin), red_recip(kmin, kmax), n_ports, M, occ.data_ptr(),
             trim.data_ptr(), mark.data_ptr(), slot.data_ptr())
     return occ, trim, mark, slot
 
 
-def tick_rank_red_ecn(port, enq, unif, q_tail, t: int, *, qsize: int,
+def tick_rank_red_ecn(port, enq, unif, q_tail, t, *, qsize: int,
                       kmin: float, kmax: float, n_ports: int):
     """:func:`tick_rank` of ``port``, then :func:`red_ecn` on that rank
     (``eport`` = ``port``), in one launch that keeps only what the
     engine reads.  port: [M] int32; enq: [M] bool; unif: [M] f32;
-    q_tail: [n_ports] int32.  Returns (trim bool, mark bool, slot int32),
-    each [M].  The launch takes :func:`tick_rank_plan`'s path."""
+    q_tail: [n_ports] int32; t: an int or a 0-d int32 tensor on the
+    inputs' device.  Returns (trim bool, mark bool, slot int32), each
+    [M].  The launch takes :func:`tick_rank_plan`'s path."""
     _check_candidates(n_ports, q_tail, port=port, enq=enq, unif=unif)
     kw = dict(qsize=qsize, kmin=kmin, kmax=kmax, n_ports=n_ports)
+    t = _tick(t, port.device)
     if _on_cpu(port, enq, unif, q_tail):
         rank = R.tick_rank_reference(port, n_ports=n_ports)
         return R.red_ecn_reference(port, rank, enq, unif, q_tail, t,
@@ -209,11 +254,37 @@ def tick_rank_red_ecn(port, enq, unif, q_tail, t: int, *, qsize: int,
     if path == "none":
         return trim, mark, slot
     _launch("tick_rank_red_ecn", port.data_ptr(), enq.data_ptr(),
-            unif.data_ptr(), q_tail.data_ptr(), int(t), int(qsize),
+            unif.data_ptr(), q_tail.data_ptr(), t.data_ptr(), int(qsize),
             f32(kmin), red_recip(kmin, kmax), n_ports, M, segs,
             trim.data_ptr(), mark.data_ptr(), slot.data_ptr())
     TICK_RANK_PATHS[path] += 1
     return trim, mark, slot
+
+
+def tick_draws(rng, t, *, n_flows: int, n_cand: int):
+    """The engine's random draws of tick ``t``: the keys ``(k_path,
+    k_mark) = split(fold_in(rng, t), 2)`` and ``u_path =
+    uniform(k_path, (n_flows, 1))``, ``unif = uniform(k_mark,
+    (n_cand,))``, as ``jax.random`` draws them.  rng: [2] int64 (the
+    carry's uint32 key words); t: an int or a 0-d int32 tensor on rng's
+    device.  Returns (u_path [n_flows, 1] f32, unif [n_cand] f32)."""
+    if tuple(rng.shape) != (2,):
+        raise ValueError(f"rng must be [2], got {tuple(rng.shape)}")
+    _dtype(rng, torch.int64, "rng")
+    if n_flows < 0 or n_cand < 0:
+        raise ValueError(f"need n_flows, n_cand >= 0, got {n_flows}, "
+                         f"{n_cand}")
+    t = _tick(t, rng.device)
+    if _on_cpu(rng, t):
+        return R.tick_draws_reference(rng, t, n_flows=n_flows,
+                                      n_cand=n_cand)
+    u_path = torch.empty((n_flows, 1), dtype=torch.float32,
+                         device=rng.device)
+    unif = torch.empty(n_cand, dtype=torch.float32, device=rng.device)
+    if n_flows + n_cand:
+        _launch("tick_draws", rng.data_ptr(), t.data_ptr(), n_flows, n_cand,
+                u_path.data_ptr(), unif.data_ptr())
+    return u_path, unif
 
 
 def spritz_select(w, u, buf_front, packet_count, *, explore_threshold: int):

@@ -1,4 +1,4 @@
-"""Plain torch versions of the six kernels.
+"""Plain torch versions of the seven kernels.
 
 Each tick kernel's version mirrors its oracle in ``repro.kernels.ref``
 operation for operation, so it is bit-identical to the reference on any
@@ -14,7 +14,8 @@ import math
 
 import torch
 
-from repro_torch._parity import f32, red_recip, xla_cumsum_f32
+from repro_torch._parity import (f32, fold_in, red_recip, split, uniforms,
+                                 xla_cumsum_f32)
 
 _TINY = f32(1e-30)
 
@@ -34,9 +35,20 @@ def spritz_select_reference(w, u, buf_front, packet_count, *,
     return ev, new_count.to(torch.int32), use_buffer
 
 
-def red_ecn_reference(eport, rank, enq, unif, q_tail, t: int, *, qsize,
+def tick_draws_reference(rng, t, *, n_flows: int, n_cand: int):
+    """The tick's keys ``split(fold_in(rng, t), 2)`` and the two draws on
+    them: ``u_path`` [n_flows, 1] and ``unif`` [n_cand], f32 uniforms as
+    ``jax.random.uniform`` draws them.  ``rng`` is [2] int64 (uint32
+    words) and ``t`` a 0-d integer tensor, both on the output device."""
+    k_path, k_mark = split(fold_in((rng[0], rng[1]), t), 2)
+    return tuple(uniforms([(k_path, (n_flows, 1)), (k_mark, (n_cand,))],
+                          rng.device))
+
+
+def red_ecn_reference(eport, rank, enq, unif, q_tail, t, *, qsize,
                       kmin, kmax, n_ports):
-    """Occupancy, trim, RED/ECN mark and service slot per candidate."""
+    """Occupancy, trim, RED/ECN mark and service slot per candidate; the
+    tick ``t`` is an int or a 0-d int32 tensor on the inputs' device."""
     tail = q_tail[eport.clamp_max(n_ports - 1)]
     occ = (tail - t).clamp_min(0) + rank
     trim = enq & (occ >= qsize)

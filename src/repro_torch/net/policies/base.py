@@ -38,7 +38,7 @@ class SendCtx(NamedTuple):
 
     u: torch.Tensor            # [F, 1] f32 the tick's one path draw,
     #                            uniform(fold_in(base, t) -> k_path, (F, 1))
-    t: int                     # current tick
+    t: torch.Tensor            # current tick, 0-d int32 on the device
     active: torch.Tensor       # [F] bool — flows that emit a packet this tick
     occ: torch.Tensor          # [n_ports] i32 analytic queue occupancy
     weights: torch.Tensor      # [F, P] lane sampling weights for this scheme
@@ -50,7 +50,7 @@ class FeedbackCtx(NamedTuple):
     event per flow (priority TO > NACK > ECN > clean ACK, DESIGN.md §9)
     plus the exact per-class counts of this tick."""
 
-    t: int
+    t: torch.Tensor            # current tick, 0-d int32 on the device
     ev: torch.Tensor           # [F] path index the feedback refers to
     fb_type: torch.Tensor      # [F] FB_* code (FB_NONE = no event this tick)
     ecn_rate: torch.Tensor     # [F] f32 running ECN rate over sampled packets

@@ -75,7 +75,7 @@ def init_state(weights: torch.Tensor) -> SpritzState:
     )
 
 
-def effective_weights(state: SpritzState, t: int) -> torch.Tensor:
+def effective_weights(state: SpritzState, t: torch.Tensor) -> torch.Tensor:
     """Blocked paths contribute 0; expired blocks are (lazily) restored
     to their original Eq.-1 weight."""
     blocked = t < state.blocked_until
@@ -90,7 +90,7 @@ def _take(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 # --------------------------------------------------------------------- send
 def send_logic(state: SpritzState, cfg: SpritzConfig, u: torch.Tensor,
-               t: int, active: torch.Tensor
+               t: torch.Tensor, active: torch.Tensor
                ) -> tuple[SpritzState, torch.Tensor, torch.Tensor]:
     """Algorithm 1 for every flow at once; ``u`` is the tick's [F, 1]
     path draw.  State only changes for ``active`` flows.  Returns
@@ -184,7 +184,7 @@ def _buffer_push_back(buffer: torch.Tensor, ev: torch.Tensor,
 
 def feedback_logic(state: SpritzState, cfg: SpritzConfig, ev: torch.Tensor,
                    fb_type: torch.Tensor, ecn_rate: torch.Tensor,
-                   path_lat: torch.Tensor, t: int) -> SpritzState:
+                   path_lat: torch.Tensor, t: torch.Tensor) -> SpritzState:
     """Algorithms 2 (Scout) / 3 (Spray), batched over flows."""
     P = state.w.shape[1]
     evc = ev.clamp(0, P - 1).to(torch.int32)

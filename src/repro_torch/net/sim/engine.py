@@ -1,11 +1,12 @@
 """Packet-level network simulator with event-horizon time compression,
 on torch tensors.
 
-Port of ``repro.net.sim.engine`` (solo runs: every registered scheme,
-static networks, failure and capacity timelines, segmented runs).  The
-model is the reference's (DESIGN.md §3-§4): the in-flight packet table
-is a fixed-shape structure of arrays, per-port FIFO order is kept
-analytically with one service-slot counter per port,
+Port of ``repro.net.sim.engine`` (every registered scheme, static
+networks, failure and capacity timelines, segmented runs, solo runs and
+scheme x seed sweeps).  The model is the reference's (DESIGN.md
+§3-§4): the in-flight packet table is a fixed-shape structure of
+arrays, per-port FIFO order is kept analytically with one service-slot
+counter per port,
 
     depart(pkt) = max(tail[port], t) + (rank_within_tick + 1) * ivl[port]
 
@@ -25,21 +26,33 @@ any order.  With ``use_kernels`` (the default) the tick's dense phases
 go through ``kernels.ops``: the CUDA kernels on the card, their plain
 versions on the CPU.
 
-The run loop is plain Python: it reads the next event tick and the stop
-flag back from the device once per step.  ``run(until_tick=...)`` stops
-a segment between steps and ``run(resume=checkpoint(res, state))``
+The run loop is the reference's device-side loop: one gated step
+(``_Loop``) keeps the loop tick, the next event tick and the stop flag on
+the device, so on the card it is captured once in a CUDA graph and
+replayed, with one host read of the stop flag per ``STEPS_PER_READ``
+steps; on the CPU the same step runs eagerly.  ``run(until_tick=...)``
+stops a segment between steps and ``run(resume=checkpoint(res, state))``
 continues it, bit-identical to one unsegmented run; a checkpoint's state
 is the nested-NumPy form both packages emit, so it resumes in either.
+``run_batch`` runs a scheme x seed sweep, each lane through the solo
+loop.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+import contextlib
+import dataclasses
+import hashlib
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from functools import partial
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch import _parity as PAR
 from repro_torch.kernels import ops as KOPS
+from repro_torch.kernels import ref as KREF
 from repro_torch.net.policies import base as PB
 from repro_torch.net.policies import registry as REG
 from repro_torch.net.sim.types import (FB_NACK, FB_NONE, FB_TIMEOUT,
@@ -59,7 +72,7 @@ _ONEHOT_CELLS = 1 << 22
 
 
 class Carry(NamedTuple):
-    rng: torch.Tensor          # [2] int64 on the CPU: base key (uint32 words)
+    rng: torch.Tensor          # [2] int64: base key (uint32 words)
     q_tail: torch.Tensor       # [n_ports] i32
     port_up: torch.Tensor      # [n_ports] bool
     port_ivl: torch.Tensor     # [n_ports] i32 live service interval
@@ -128,22 +141,17 @@ def _use_kernels(spec: SimSpec) -> bool:
     return spec.use_kernels is not False
 
 
-def _tick_keys(rng: torch.Tensor, t: int):
-    """Positional per-tick keys: skipping a tick leaves the stream intact."""
-    k0, k1 = rng.tolist()
-    return PAR.split(PAR.fold_in((k0, k1), t), 2)
-
-
 def _padded(a: torch.Tensor, fill) -> torch.Tensor:
     return torch.cat([a, torch.full((1,), fill, dtype=a.dtype,
                                     device=a.device)])
 
 
 def _scatter_at(base: torch.Tensor, idx: torch.Tensor, val) -> torch.Tensor:
-    """``base.at[idx].set(val)`` on a copy; ``idx`` is int64."""
+    """``base.at[idx].set(val)`` on a copy; ``idx`` is int64, ``val`` a
+    scalar or a tensor that broadcasts to it."""
     out = base.clone()
     if isinstance(val, torch.Tensor):
-        return out.scatter_(0, idx, val.to(base.dtype))
+        return out.scatter_(0, idx, val.to(base.dtype).expand(idx.shape))
     return out.scatter_(0, idx, val)
 
 
@@ -168,8 +176,10 @@ def sorted_rank(cport: torch.Tensor, ar_m: torch.Tensor) -> torch.Tensor:
 
 def build_tick(spec: SimSpec, device=None):
     """Returns the transition ``tick(carry, t) -> carry`` for ``spec``
-    (its scheme fixed) on ``device`` (default ``"cuda"``); ``t`` is a
-    Python int."""
+    (its scheme fixed) on ``device`` (default ``"cuda"``).  ``t`` is a
+    0-d int32 tensor on that device (or an int, copied there): nothing
+    in the tick reads a value back to the host, so a CUDA graph can
+    capture it."""
     dev = _device(device)
     F = spec.n_flows
     N = spec.n_pkt
@@ -221,7 +231,7 @@ def build_tick(spec: SimSpec, device=None):
     ar_f = torch.arange(F, dtype=_I32, device=dev)
     ar_n = torch.arange(N, dtype=_I32, device=dev)
     ar_m = torch.arange(M, dtype=_I32, device=dev)
-    prio_f = torch.arange(F, dtype=torch.int64, device=dev) * 9973
+    prio_f = torch.arange(F, dtype=_I32, device=dev) * 9973
     key_tie = F - 1 - ar_f
     ar_np = torch.arange(NP_, dtype=_I32, device=dev)
 
@@ -239,7 +249,7 @@ def build_tick(spec: SimSpec, device=None):
     cfg = pol.make_cfg(spec)
 
     # ------------------------------------------------------- tick phases --
-    def apply_failure_events(c: Carry, t: int):
+    def apply_failure_events(c: Carry, t: torch.Tensor):
         """A0 (DESIGN.md §10): apply every timeline event with tick <= t
         past the cursor; the last event per port wins (a scatter-max
         over the event index).  A port going down turns its queued
@@ -270,7 +280,8 @@ def build_tick(spec: SimSpec, device=None):
         trims0 = c.trims + _scatter_add(
             F + 1, torch.where(killq, c.pflow, F).long(),
             torch.ones(N, dtype=_I32, device=dev))[:F]
-        q_tail0 = torch.where(went_down, c.q_tail.clamp_max(t), c.q_tail)
+        q_tail0 = torch.where(went_down, torch.minimum(c.q_tail, t),
+                              c.q_tail)
         if not HAS_RATE:
             return (new_up, c.port_ivl, c.last_svc, fail_idx, q_tail0,
                     pstate0, pevent0, trims0)
@@ -400,12 +411,14 @@ def build_tick(spec: SimSpec, device=None):
         return (cwnd, alpha, r_acks.to(_I32), r_marks.to(_I32),
                 r_nacks.to(_I32), r_size.to(_I32))
 
-    def tick(c: Carry, t: int) -> Carry:
-        t = int(t)
-        k_path, k_mark = _tick_keys(c.rng, t)
+    def tick(c: Carry, t) -> Carry:
+        if not isinstance(t, torch.Tensor):
+            t = torch.tensor(int(t), dtype=_I32, device=dev)
         # the tick's two draws (the policies' path draw and the RED draw)
-        # in one threefry pass
-        u_path, unif = PAR.uniforms([(k_path, (F, 1)), (k_mark, (M,))], dev)
+        # from positional per-tick keys, so skipping a tick leaves the
+        # stream intact: one launch under use_kernels, else tensor threefry
+        draws = KOPS.tick_draws if use_kernels else KREF.tick_draws_reference
+        u_path, unif = draws(c.rng, t, n_flows=F, n_cand=M)
 
         # ------------- A0. failure timeline events (DESIGN.md §10) ----------
         (port_up, port_ivl, last_svc, fail_idx, q_tail0, pstate0,
@@ -473,8 +486,8 @@ def build_tick(spec: SimSpec, device=None):
             rviol = rviol + (svc & (t - last_svc[cur_s] < port_ivl[cur_s])
                              ).sum().to(_I32)
             last_svc = _padded(last_svc, _NEVER_SVC).scatter_reduce(
-                0, torch.where(svc, cur_port, NP_).long(),
-                torch.full((N,), t, dtype=_I32, device=dev), "amax")[:NP_]
+                0, torch.where(svc, cur_port, NP_).long(), t.expand(N),
+                "amax")[:NP_]
 
         ret = ret_ticks[c.pflow, c.ppath]
         pevent = torch.where(deliver, t + ret, pevent0)
@@ -494,10 +507,10 @@ def build_tick(spec: SimSpec, device=None):
             fct_x = _padded(fct, 0)
             dep_done = (dep < 0) | (fct_x[dep.clamp_min(-1)] >= 0)
             eligible = eligible & dep_done
-        # endpoint arbitration: one flow per source endpoint per tick.  The
-        # reference's int32 t * 40503 wraps; its low 16 bits are the same
-        # in int64.
-        prio = (((t * 40503 + prio_f) & 0xFFFF) + 1).to(_I32)
+        # endpoint arbitration: one flow per source endpoint per tick, from
+        # the low 16 bits of t * 40503 + f * 9973 wrapped in int32, as the
+        # reference computes it
+        prio = ((t * 40503 + prio_f) & 0xFFFF) + 1
         prio = torch.where(eligible, prio, 0)
         key = prio * F + key_tie                              # unique
         ep_best = torch.zeros(n_eps, dtype=_I32, device=dev).scatter_reduce(
@@ -594,9 +607,9 @@ def build_tick(spec: SimSpec, device=None):
             mark = valid & ~trim & (unif < pr)
             if HAS_RATE:
                 # rank-k accept departs at max(tail, t) + (k+1)*ivl
-                slot = tail_e.clamp_min(t) + (rank + 1) * ivl_e
+                slot = torch.maximum(tail_e, t) + (rank + 1) * ivl_e
             else:
-                slot = tail_e.clamp_min(t) + rank + 1
+                slot = torch.maximum(tail_e, t) + rank + 1
         accept = valid & ~trim
         pecn = pecn | _scatter_at(
             torch.zeros(N + 1, dtype=torch.bool, device=dev),
@@ -624,7 +637,8 @@ def build_tick(spec: SimSpec, device=None):
             NP_ + 1, torch.where(accept, cport, NP_).long(),
             torch.ones(M, dtype=_I32, device=dev) if ivl_e is None
             else ivl_e.to(_I32))[:NP_]
-        q_tail = torch.where(n_acc > 0, q_tail0.clamp_min(t) + n_acc, q_tail0)
+        q_tail = torch.where(n_acc > 0, torch.maximum(q_tail0, t) + n_acc,
+                             q_tail0)
 
         return Carry(
             rng=c.rng, q_tail=q_tail.to(_I32),
@@ -650,7 +664,8 @@ def build_horizon(spec: SimSpec, device=None):
     deadlines, injection eligibility (gated on a free table slot) and
     deferred CC round closure, and the next unapplied timeline event.
     Every tick strictly inside the jump is a no-op of the transition.
-    ``device`` defaults to ``"cuda"``."""
+    ``device`` defaults to ``"cuda"``; ``t`` is a 0-d int32 tensor there
+    (or an int)."""
     dev = _device(device)
     size_pkts = torch.as_tensor(spec.size_pkts, dtype=_I32, device=dev)
     start_tick = torch.as_tensor(spec.start_tick, dtype=_I32, device=dev)
@@ -663,7 +678,9 @@ def build_horizon(spec: SimSpec, device=None):
         np.append(np.asarray(spec.fail_event_tick, np.int32), INF_TICK)
         .astype(np.int32), device=dev)
 
-    def horizon(c: Carry, t: int) -> torch.Tensor:
+    def horizon(c: Carry, t) -> torch.Tensor:
+        if not isinstance(t, torch.Tensor):
+            t = torch.tensor(int(t), dtype=_I32, device=dev)
         live = ((c.pstate == P_QUEUED) | (c.pstate == P_PROP)
                 | (c.pstate == P_ACKWAIT) | (c.pstate == P_NACKWAIT))
         ev_pkt = torch.where(live, c.pevent, INF_TICK).min()
@@ -680,7 +697,8 @@ def build_horizon(spec: SimSpec, device=None):
         any_free = (c.pstate == P_FREE).any()
         ev_inj = torch.where(
             any_free,
-            torch.where(elig, start_tick.clamp_min(t + 1), INF_TICK).min(),
+            torch.where(elig, torch.maximum(start_tick, t + 1),
+                        INF_TICK).min(),
             INF_TICK)
         # deferred CC round closure
         round_thr = torch.minimum(c.round_size,
@@ -690,8 +708,11 @@ def build_horizon(spec: SimSpec, device=None):
         h = torch.minimum(torch.minimum(ev_pkt, ev_rto),
                           torch.minimum(ev_inj, ev_cc))
         if E_EV:
-            h = torch.minimum(h, fev_tick_x[c.fail_idx.clamp_max(E_EV)])
-        return h.clamp_min(t + 1).to(_I32)
+            # a gather: indexing by a 0-d tensor would read it to the host
+            nxt = fev_tick_x.index_select(
+                0, c.fail_idx.clamp_max(E_EV).reshape(1)).reshape(())
+            h = torch.minimum(h, nxt)
+        return torch.maximum(h, t + 1).to(_I32)
 
     return horizon
 
@@ -726,7 +747,7 @@ def init_carry(spec: SimSpec, seed: int = 0, device=None,
         return torch.tensor(v, dtype=_I32, device=dev)
 
     return Carry(
-        rng=torch.tensor(PAR.prng_key(seed), dtype=torch.int64),
+        rng=torch.tensor(PAR.prng_key(seed), dtype=torch.int64, device=dev),
         q_tail=zi(NP_),
         port_up=torch.as_tensor(port_up0, device=dev),
         port_ivl=torch.as_tensor(port_ivl0, device=dev),
@@ -783,7 +804,7 @@ def carry_state(carry: Carry) -> dict:
     as uint32 words); ``"spritz"`` aliases the Spritz substate as in the
     reference."""
     def arr(x):
-        a = x.detach().cpu().numpy()
+        a = _host(x)
         return a.astype(np.uint32) if x.dtype == torch.int64 else a
 
     state: dict = {}
@@ -798,15 +819,21 @@ def carry_state(carry: Carry) -> dict:
     return state
 
 
+def _host(x: torch.Tensor) -> np.ndarray:
+    """A NumPy copy of ``x`` (never a view: the loop's state buffers are
+    reused by the next run)."""
+    return x.detach().to("cpu", copy=True).numpy()
+
+
 def _result(carry: Carry, t: int, steps: int) -> SimResult:
-    fct = carry.fct.cpu().numpy()
+    fct = _host(carry.fct)
     return SimResult(
         fct_ticks=fct,
-        delivered=carry.delivered.cpu().numpy(),
-        trims=carry.trims.cpu().numpy(),
-        timeouts=carry.timeouts.cpu().numpy(),
-        ooo=carry.ooo.cpu().numpy(),
-        retx=carry.retx.cpu().numpy(),
+        delivered=_host(carry.delivered),
+        trims=_host(carry.trims),
+        timeouts=_host(carry.timeouts),
+        ooo=_host(carry.ooo),
+        retx=_host(carry.retx),
         done=fct >= 0,
         ticks_simulated=int(t),
         steps_executed=int(steps),
@@ -832,49 +859,288 @@ def checkpoint(res: SimResult, state: dict) -> Checkpoint:
                       steps=int(res.steps_executed))
 
 
-def drive(spec: SimSpec, carry: Carry, watch: torch.Tensor, *,
-          dense: bool = False, t: int = -1, steps: int = 0,
-          limit: int | None = None):
-    """Advance ``carry`` from loop tick ``t`` (``-1`` for a fresh carry)
-    while ``t < spec.n_ticks``, ``t < limit`` and some watched flow is
-    unfinished, tested before each step; a step may jump past ``limit``,
-    as in the reference's loop.  ``dense`` steps every tick (the exact
-    oracle for the event-horizon jump).  Returns (carry, t, steps)."""
-    dev = carry.fct.device
-    tick = build_tick(spec, dev)
-    hor = None if dense else build_horizon(spec, dev)
-    n_ticks = spec.n_ticks
-    limit = n_ticks if limit is None else int(limit)
-    while t < n_ticks and t < limit:
-        done = torch.where(watch, carry.fct >= 0, True).all()
-        if dense:
-            if bool(done):
-                break
-            h = t + 1
+def _flatten(c: Carry) -> list[torch.Tensor]:
+    """The carry's leaves in a fixed order (policy families in the dict's
+    order, each substate's fields in order)."""
+    out = []
+    for k in Carry._fields:
+        v = getattr(c, k)
+        if k == "policy":
+            for sub in v.values():
+                out.extend(sub)
         else:
-            # one host sync per step: the next event tick and the stop flag
-            h, stop = torch.stack([hor(carry, t), done.to(_I32)]).tolist()
-            if stop:
-                break
-        if h < n_ticks:
-            carry = tick(carry, h)
-            t, steps = h, steps + 1
-        else:
-            t = n_ticks
-    return carry, t, steps
+            out.append(v)
+    return out
 
 
-def run(spec: SimSpec, seed: int = 0, *, device=None,
+def _unflatten(tmpl: Carry, leaves) -> Carry:
+    """A carry of ``tmpl``'s structure over ``leaves`` (:func:`_flatten`'s
+    order)."""
+    it = iter(leaves)
+    vals = {}
+    for k in Carry._fields:
+        v = getattr(tmpl, k)
+        if k == "policy":
+            vals[k] = {fam: type(sub)(*(next(it) for _ in sub))
+                       for fam, sub in v.items()}
+        else:
+            vals[k] = next(it)
+    return Carry(**vals)
+
+
+def live_carry_bytes(carry: Carry) -> int:
+    """Bytes of live carry state (the sum over its leaves).  The carry is
+    occupancy-bounded (packet table + per-flow/per-port vectors, DESIGN.md
+    §14): no leaf scales with n_ports x n_flows.  The rng's two uint32
+    words are held in int64 here, 8 bytes more than the reference's."""
+    return int(sum(x.numel() * x.element_size() for x in _flatten(carry)))
+
+
+# Gated steps between two reads of the stop flag on the card; the CPU
+# reads it after every step (a read costs nothing there, and a step past
+# the stop costs a whole eager tick).
+STEPS_PER_READ = 32
+
+
+class _Loop:
+    """The reference's device-side while-loop (``_make_loop``) for one
+    spec on one device: one gated step over static state buffers,
+    captured in a CUDA graph on the card and run eagerly on the CPU.
+
+    The state is the carry's leaves, the loop tick ``t``, ``steps``, the
+    segment ``limit``, the ``watch`` mask, and two values the step keeps
+    for the next one: ``h``, the next tick (the event horizon, or ``t +
+    1`` when ``dense``) capped at ``n_ticks``, and ``run``, the loop
+    condition.  A step with ``run`` false changes nothing, so steps
+    replayed past the stop are harmless and ``steps`` stays exact.
+
+    The reference's last body, which jumps ``t`` to ``n_ticks`` without
+    a transition, is folded into the step before it: ``run`` is true
+    only when the next step applies a transition, so every step replayed
+    before the stop is one of ``steps_executed``."""
+
+    def __init__(self, spec: SimSpec, dev: torch.device, dense: bool):
+        self.dev = dev
+        self.n = spec.n_ticks
+        self.tick = build_tick(spec, dev)
+        self.hor = None if dense else build_horizon(spec, dev)
+        self.tmpl = init_carry(spec, 0, dev)
+        self.leaves = [x.clone() for x in _flatten(self.tmpl)]
+        self.carry = _unflatten(self.tmpl, self.leaves)
+
+        def i32(v):
+            return torch.tensor(v, dtype=_I32, device=dev)
+        self.t, self.steps, self.h = i32(-1), i32(0), i32(0)
+        self.limit, self.n_t, self.n1_t = i32(self.n), i32(self.n), \
+            i32(self.n - 1)
+        self.run = torch.zeros((), dtype=torch.bool, device=dev)
+        self.watch = torch.ones(spec.n_flows, dtype=torch.bool, device=dev)
+        self.graph = None
+        self.per_replay = None      # launch counts one replay makes
+
+    def _refresh(self) -> None:
+        """``h`` and ``run`` for the state as it stands; a state whose
+        next tick reaches ``n_ticks`` jumps there (the reference's body
+        without a transition) and stops."""
+        c, t = self.carry, self.t
+        h = t + 1 if self.hor is None else self.hor(c, t)
+        h = torch.minimum(h, self.n_t)
+        done = torch.where(self.watch, c.fct >= 0, True).all()
+        alive = (t < self.n_t) & (t < self.limit) & ~done
+        torch.where(alive & (h >= self.n_t), self.n_t, t, out=t)
+        torch.logical_and(alive, h < self.n_t, out=self.run)
+        self.h.copy_(h)
+
+    def _step(self) -> None:
+        """One gated step: the transition to ``h``, kept where ``run``."""
+        c2 = self.tick(self.carry, torch.minimum(self.h, self.n1_t))
+        for buf, new in zip(self.leaves, _flatten(c2)):
+            if new is not buf:
+                torch.where(self.run, new, buf, out=buf)
+        torch.where(self.run, self.h, self.t, out=self.t)
+        self.steps.add_(self.run.to(_I32))
+        self._refresh()
+
+    def load(self, carry: Carry, t: int, steps: int, watch: np.ndarray,
+             limit: int) -> None:
+        for buf, x in zip(self.leaves, _flatten(carry)):
+            buf.copy_(x)
+        self.t.fill_(t)
+        self.steps.fill_(steps)
+        self.limit.fill_(limit)
+        self.watch.copy_(torch.as_tensor(watch))
+        self._refresh()
+
+    def _capture(self) -> None:
+        """Warm the step up on a side stream (the kernels build, the
+        allocator and the sorts' scratch settle), put the state back, and
+        capture one step.  The wrappers' calls in both make no launch of
+        the run: their counts are put back, and each replay is credited
+        with what the capture recorded."""
+        state = self.leaves + [self.t, self.steps, self.h, self.run]
+        saved = [x.clone() for x in state]
+        counts = KOPS.launch_counts()
+        side = torch.cuda.Stream(self.dev)
+        side.wait_stream(torch.cuda.current_stream(self.dev))
+        # a host sync in the step raises here, naming its op (the mode is
+        # process-wide: only the main thread sets it)
+        debug = threading.current_thread() is threading.main_thread()
+        with torch.cuda.stream(side):
+            if debug:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                for _ in range(2):
+                    self._step()
+            except RuntimeError as e:
+                KOPS.set_launch_counts(counts)
+                raise RuntimeError(f"the engine's step cannot be captured in "
+                                   f"a CUDA graph: {e} (the traceback "
+                                   f"names the op)") from e
+            finally:
+                if debug:
+                    torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.current_stream(self.dev).wait_stream(side)
+        for x, v in zip(state, saved):
+            x.copy_(v)
+        KOPS.set_launch_counts(counts)
+        graph = torch.cuda.CUDAGraph()
+        try:
+            # the capture stream is this device's (torch's default one
+            # belongs to the device current when it was first made)
+            with torch.cuda.graph(graph, stream=side,
+                                  capture_error_mode="thread_local"):
+                self._step()
+        except Exception as e:
+            KOPS.set_launch_counts(counts)
+            raise RuntimeError(f"capturing the engine's step in a CUDA "
+                               f"graph failed: {e}") from e
+        after = KOPS.launch_counts()
+        self.per_replay = {name: {k: n - counts[name][k]
+                                  for k, n in table.items()}
+                           for name, table in after.items()}
+        KOPS.set_launch_counts(counts)
+        self.graph = graph
+
+    def drive(self, k: int | None = None, capture: bool | None = None
+              ) -> int:
+        """Step until ``run`` is false, reading it once per ``k`` steps.
+        ``capture`` (the default on the card) replays the captured step,
+        by default :data:`STEPS_PER_READ` of them a read; otherwise the
+        step runs eagerly, by default one a read.  Returns the number of
+        steps run."""
+        if capture is None:
+            capture = self.dev.type == "cuda"
+        if capture:
+            if self.graph is None:
+                with _COUNT_LOCK:
+                    self._capture()
+            k, advance = k or STEPS_PER_READ, self.graph.replay
+        else:
+            k, advance = k or 1, self._step
+        replays = 0
+        while bool(self.run):
+            for _ in range(k):
+                advance()
+            replays += k
+        if capture and replays:
+            with _COUNT_LOCK:
+                KOPS.add_launches(self.per_replay, replays)
+        return replays
+
+    def result(self, replays: int, return_carry: bool):
+        res = _result(self.carry, int(self.t), int(self.steps))._replace(
+            replays=replays)
+        return (res, carry_state(self.carry)) if return_carry else res
+
+
+_COUNT_LOCK = threading.RLock()
+_LOOPS: dict = {}
+_LOOPS_MAX = 32
+
+
+def _spec_key(spec: SimSpec) -> tuple:
+    """Content fingerprint of a spec: identical specs share one loop (and
+    its captured graph)."""
+    h = hashlib.blake2b(digest_size=16)
+    scalars = []
+    for f in dataclasses.fields(spec):
+        v = getattr(spec, f.name)
+        if isinstance(v, np.ndarray):
+            h.update(f.name.encode())
+            h.update(str(v.shape).encode() + str(v.dtype).encode())
+            h.update(np.ascontiguousarray(v).tobytes())
+        elif f.name != "name":
+            scalars.append((f.name, v))
+    return (tuple(scalars), h.hexdigest())
+
+
+def _loop(spec: SimSpec, dev: torch.device, dense: bool) -> _Loop:
+    # _ONEHOT_CELLS keys the cache too: tests patch the threshold to force
+    # the fallback forms without changing the spec
+    key = (_spec_key(spec), dense, str(dev), _ONEHOT_CELLS)
+    with _COUNT_LOCK:
+        loop = _LOOPS.get(key)
+        if loop is None:
+            if len(_LOOPS) >= _LOOPS_MAX:
+                _LOOPS.pop(next(iter(_LOOPS)))
+            loop = _LOOPS[key] = _Loop(spec, dev, dense)
+    return loop
+
+
+def _watch_mask(spec: SimSpec, stop_flows) -> np.ndarray:
+    if stop_flows is None:
+        return np.ones(spec.n_flows, bool)
+    m = np.zeros(spec.n_flows, bool)
+    m[np.asarray(stop_flows)] = True
+    return m
+
+
+def _run_lane(spec: SimSpec, dev: torch.device, dense: bool, carry: Carry,
+              t0: int, steps0: int, watch: np.ndarray, limit: int,
+              return_carry: bool):
+    loop = _loop(spec, dev, dense)
+    with _on(dev):
+        loop.load(carry, t0, steps0, watch, limit)
+        return loop.result(loop.drive(), return_carry)
+
+
+def _on(dev: torch.device):
+    """The device context of a card (kernels launch on the current
+    device's stream); nothing on the CPU."""
+    return torch.cuda.device(dev) if dev.type == "cuda" else \
+        contextlib.nullcontext()
+
+
+def _eager_run(spec: SimSpec, seed: int = 0, *, device=None,
+               dense: bool = False, k: int = 1, return_carry: bool = False):
+    """The gated loop run eagerly, without a graph: each step's wrappers
+    launch their kernels as they are called.  ``chip_smoke.py`` holds the
+    graph loop against it on the card; ``k`` is the steps between two
+    reads of the stop flag."""
+    dev = _device(device)
+    loop = _Loop(spec, dev, dense)
+    with _on(dev):
+        loop.load(init_carry(spec, seed, dev), -1, 0,
+                  _watch_mask(spec, None), spec.n_ticks)
+        return loop.result(loop.drive(k, capture=False), return_carry)
+
+
+def run(spec: SimSpec, seed: int = 0, chunk: int | None = None,
         stop_flows: np.ndarray | None = None, reference: bool = False,
         return_carry: bool = False, until_tick: int | None = None,
-        resume: Checkpoint | None = None):
+        resume: Checkpoint | None = None, *, device=None):
     """Run the simulation for up to ``spec.n_ticks`` virtual ticks on
     ``device`` (default ``"cuda"``; raises if there is no CUDA device).
 
-    The run stops as soon as every flow — or every flow in
-    ``stop_flows`` — completed.  ``reference=True`` selects the dense
-    tick-by-tick stepper.  ``return_carry=True`` also returns the final
-    carry as nested NumPy dicts (:func:`carry_state`).
+    The driver is the reference's device-side loop: one gated step,
+    captured in a CUDA graph on the card and replayed with one read of
+    the stop flag per :data:`STEPS_PER_READ` steps.  It stops as soon
+    as every flow — or every flow in ``stop_flows`` — completed.
+    ``reference=True`` selects the dense tick-by-tick stepper.
+    ``chunk`` is accepted for compatibility with the reference and
+    ignored.  ``return_carry=True`` also returns the final carry as
+    nested NumPy dicts (:func:`carry_state`).  The result's ``replays``
+    counts the steps the loop ran, those past the stop included.
 
     ``until_tick`` stops the segment once the loop's tick reaches it;
     ``resume`` continues from a :class:`Checkpoint` (or the reference's)
@@ -884,20 +1150,132 @@ def run(spec: SimSpec, seed: int = 0, *, device=None,
         res, st = run(spec, seed, until_tick=W, return_carry=True)
         res = run(spec, resume=checkpoint(res, st))
     """
+    del chunk
     dev = _device(device)
-    watch = np.ones(spec.n_flows, bool)
-    if stop_flows is not None:
-        watch = np.zeros(spec.n_flows, bool)
-        watch[np.asarray(stop_flows)] = True
     if resume is not None:
         carry = carry_from_state(spec, resume.state, dev)
         t0, steps0 = int(resume.t), int(resume.steps)
     else:
         carry, t0, steps0 = init_carry(spec, seed, dev), -1, 0
-    carry, t, steps = drive(spec, carry, torch.as_tensor(watch, device=dev),
-                            dense=reference, t=t0, steps=steps0,
-                            limit=until_tick)
-    res = _result(carry, t, steps)
+    limit = spec.n_ticks if until_tick is None else int(until_tick)
+    return _run_lane(spec, dev, reference, carry, t0, steps0,
+                     _watch_mask(spec, stop_flows), limit, return_carry)
+
+
+run_reference = partial(run, reference=True)
+
+
+def lane_arrays(spec: SimSpec, scheme) -> tuple[np.ndarray, np.ndarray]:
+    """A scheme lane's (weights, static_path) derived from a base spec,
+    by the registry's host lane rules (DESIGN.md §5/§11):
+    ``uniform_weights`` schemes sample uniformly over each flow's paths,
+    ``pin_minimal`` schemes pin foreground flows to the minimal route,
+    every other scheme reuses the base spec's weights and ECMP draw.  The
+    base spec must therefore be built with a weighted scheme."""
+    return REG.lane_arrays(spec, scheme)
+
+
+def run_batch(spec: SimSpec | Sequence[SimSpec],
+              schemes: Sequence[int | str] | None = None,
+              seeds: Sequence[int] = (0,),
+              stop_flows: np.ndarray | None = None,
+              reference: bool = False,
+              return_carry: bool = False,
+              shard: bool | None = None,
+              until_tick: int | None = None,
+              resume: Sequence[Checkpoint] | None = None, *, device=None):
+    """A scheme x seed sweep, as the reference's ``run_batch``.
+
+    Either pass one base ``spec`` plus ``schemes`` (registry names or
+    integer codes; lane weights/static paths from :func:`lane_arrays`),
+    or a sequence of per-scheme specs that share every static field
+    except scheme/weights/static_path.  Results come back as a flat list
+    of ``SimResult`` of length ``len(schemes) * len(seeds)``, in
+    scheme-major, seed-minor order (:func:`batch_lanes`);
+    ``return_carry=True`` returns ``(results, states)`` with one
+    nested-NumPy carry dict per lane.
+
+    A lane computes what a solo :func:`run` of its spec computes, so each
+    lane runs through the solo loop; the lanes of one spec share its
+    captured graph.  ``shard=None`` spreads the lanes round-robin over
+    the visible cards when there are more than one card and more than one
+    lane, ``False`` keeps them on ``device``; results are the same either
+    way.  ``until_tick`` bounds the segment for every lane; ``resume``
+    takes one :class:`Checkpoint` per lane, in the same order, from a
+    previous segmented call with the identical spec/schemes/seeds.
+    """
+    if isinstance(spec, SimSpec):
+        if schemes is None:
+            schemes = [spec.scheme]
+        codes = [REG.as_code(s) for s in schemes]
+        base = spec
+        lane_specs = []
+        for s in codes:
+            if s == base.scheme:
+                lane_specs.append((s, np.asarray(base.weights, np.float32),
+                                   np.asarray(base.static_path, np.int32)))
+            else:
+                w, sp = lane_arrays(base, s)
+                lane_specs.append((s, w, sp))
+    else:
+        specs = list(spec)
+        if schemes is not None:
+            raise ValueError("pass schemes only with a single base spec")
+        base = specs[0]
+        for s in specs[1:]:
+            if (s.n_pkt, s.n_ports, s.n_flows, s.n_ticks) != \
+               (base.n_pkt, base.n_ports, base.n_flows, base.n_ticks):
+                raise ValueError("lane specs must share static shapes")
+        lane_specs = [(s.scheme, np.asarray(s.weights, np.float32),
+                       np.asarray(s.static_path, np.int32)) for s in specs]
+
+    lanes = [(dataclasses.replace(base, scheme=s, weights=w,
+                                  static_path=p), seed)
+             for (s, w, p) in lane_specs for seed in seeds]
+    n_lanes = len(lanes)
+    if resume is not None and len(resume) != n_lanes:
+        raise ValueError(f"resume needs one Checkpoint per lane: got "
+                         f"{len(resume)} for {n_lanes} lanes")
+    dev = _device(device)
+    devices = [dev]
+    if dev.type == "cuda":
+        ndev = torch.cuda.device_count()
+        if shard is None:
+            shard = ndev > 1 and n_lanes > 1
+        if shard and ndev > 1:
+            devices = [torch.device("cuda", i) for i in range(ndev)]
+    watch = _watch_mask(base, stop_flows)
+    limit = base.n_ticks if until_tick is None else int(until_tick)
+
+    def lane(i: int):
+        lspec, seed = lanes[i]
+        d = devices[i % len(devices)]
+        if resume is not None:
+            carry = carry_from_state(base, resume[i].state, d)
+            t0, steps0 = int(resume[i].t), int(resume[i].steps)
+        else:
+            carry, t0, steps0 = init_carry(lspec, seed, d), -1, 0
+        return _run_lane(lspec, d, reference, carry, t0, steps0, watch,
+                         limit, return_carry)
+
+    if len(devices) > 1:
+        # one thread a card, each running its lanes in order: lanes never
+        # exchange data
+        def shard_lanes(j: int):
+            return [(i, lane(i)) for i in range(j, n_lanes, len(devices))]
+        with ThreadPoolExecutor(len(devices)) as pool:
+            done = dict(kv for part in pool.map(shard_lanes,
+                                                range(len(devices)))
+                        for kv in part)
+        outs = [done[i] for i in range(n_lanes)]
+    else:
+        outs = [lane(i) for i in range(n_lanes)]
     if return_carry:
-        return res, carry_state(carry)
-    return res
+        return [r for r, _ in outs], [st for _, st in outs]
+    return outs
+
+
+def batch_lanes(schemes: Sequence[int | str], seeds: Sequence[int]
+                ) -> list[tuple[int | str, int]]:
+    """The (scheme, seed) order ``run_batch`` returns results in."""
+    return [(s, seed) for s in schemes for seed in seeds]

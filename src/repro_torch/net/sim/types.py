@@ -231,6 +231,9 @@ class SimResult(NamedTuple):
     # rate).  The analytic slot math must keep this at exactly 0; the
     # capacity-schedule property suite asserts it.
     rate_violations: int = 0
+    # the port's loop (not in the reference): gated steps it ran, those
+    # past the stop included (>= steps_executed; see engine.run)
+    replays: int = -1
 
     @property
     def compression(self) -> float:

@@ -223,14 +223,142 @@ def test_timeline_on_card_equals_cpu(cuda, plan, scheme):
                         failure_plan=sched, block_ticks=1024)
     launched, got = _card_equals_cpu(spec, cuda)
     assert got.down_violations == got.rate_violations == 0
-    n = got.steps_executed
+    # the graph loop replays one gated step; each replay launches the
+    # step's kernels, the replays past the stop (fewer than a read's
+    # batch) included
+    n = got.replays
+    assert 0 <= n - got.steps_executed < E.STEPS_PER_READ
     rank = "tick_rank" if plan == "degraded" else "tick_rank_red_ecn"
     want = dict.fromkeys(launched, 0)
-    want.update({"flow_agg": 2 * n, rank: n})
+    want.update({"flow_agg": 2 * n, rank: n, "tick_draws": n})
     if scheme.startswith("spritz"):
         want["spritz_select"] = n
     assert launched == want
     assert ops.TICK_RANK_PATHS == {"smem": n, "pairwise": 0}
+
+
+@pytest.mark.parametrize("F,M", [(1056, 5024), (6, 329), (1, 0), (0, 7),
+                                 (300, 1)])
+@pytest.mark.parametrize("seed,t", [(0, 0), (7, 513), (12345, 70000),
+                                    (2**31 - 1, 2**31 - 1)])
+def test_tick_draws_kernel(cuda, F, M, seed, t):
+    rng = torch.tensor([0, seed], dtype=torch.int64)
+    tt = torch.tensor(t, dtype=torch.int32)
+    got = ops.tick_draws(rng.to(cuda), tt.to(cuda), n_flows=F, n_cand=M)
+    _equal(got, ref.tick_draws_reference(rng, tt, n_flows=F, n_cand=M))
+
+
+def test_captured_kernels_read_each_replays_tick(cuda):
+    """The tick is read from device memory: a graph that captured the
+    fused rank + RED/ECN launch and the draws launch gives, at each
+    replay, the plain versions' results at the tick it holds then."""
+    M, P = 5024, 3960
+    port = torch.as_tensor(RNG.integers(0, P + 1, M), dtype=torch.int32)
+    enq = torch.as_tensor(RNG.random(M) < 0.7)
+    unif = torch.as_tensor(RNG.random(M), dtype=torch.float32)
+    tails = torch.as_tensor(RNG.integers(0, 90, P), dtype=torch.int32)
+    rng = torch.tensor([0, 5], dtype=torch.int64)
+    kw = dict(qsize=88, kmin=17.6, kmax=70.4, n_ports=P)
+    ins = [x.to(cuda) for x in (port, enq, unif, tails, rng)]
+    t = torch.zeros((), dtype=torch.int32, device=cuda)
+    ops.tick_rank_red_ecn(*ins[:4], t, **kw)          # build and warm up
+    ops.tick_draws(ins[4], t, n_flows=1056, n_cand=M)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ops.tick_rank_red_ecn(*ins[:4], t, **kw)
+        draws = ops.tick_draws(ins[4], t, n_flows=1056, n_cand=M)
+    for tick in (0, 40, 70000):
+        t.fill_(tick)
+        graph.replay()
+        torch.cuda.synchronize()
+        tc = torch.tensor(tick, dtype=torch.int32)
+        rank = ref.tick_rank_reference(port, n_ports=P)
+        _equal(out, ref.red_ecn_reference(port, rank, enq, unif, tails, tc,
+                                          **kw)[1:])
+        _equal(draws, ref.tick_draws_reference(rng, tc, n_flows=1056,
+                                               n_cand=M))
+
+
+def _same_runs(a, ast, b, bst):
+    for f in ("fct_ticks", "delivered", "trims", "timeouts", "ooo", "retx",
+              "done"):
+        np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+    assert (a.ticks_simulated, a.steps_executed) == \
+        (b.ticks_simulated, b.steps_executed)
+    for k, v in bst.items():
+        if k not in ("policy", "spritz"):
+            np.testing.assert_array_equal(ast[k], v, err_msg=k)
+    for fam, sub in bst["policy"].items():
+        for k, v in sub.items():
+            np.testing.assert_array_equal(ast["policy"][fam][k], v,
+                                          err_msg=f"{fam}.{k}")
+
+
+@pytest.mark.parametrize("use_kernels", [None, False],
+                         ids=["kernels", "torch_forms"])
+@pytest.mark.parametrize("scheme", ["ecmp", "ugal_l", "spritz_scout",
+                                    "spritz_spray_w", "reps"])
+def test_graph_loop_equals_eager_loop(cuda, scheme, use_kernels):
+    """``run`` replays a captured step; the private eager loop calls the
+    same step's wrappers: equal results and final carry, and a replay
+    launches what one eager step launches."""
+    topo = make_dragonfly(4, 2, 2)
+    flows = [B.Flow(s, d, n, start_tick=t) for s, d, n, t in FLOWS]
+    spec = B.build_spec(topo, flows, scheme, n_ticks=1 << 12,
+                        use_kernels=use_kernels)
+    ops.reset_launches()
+    got, gst = E.run(spec, device=cuda, return_carry=True)
+    graph_launches = dict(ops.LAUNCHES)
+    ops.reset_launches()
+    want, wst = E._eager_run(spec, device=cuda, return_carry=True)
+    eager_launches = dict(ops.LAUNCHES)
+    _same_runs(got, gst, want, wst)
+    assert want.replays == want.steps_executed
+    assert 0 <= got.replays - got.steps_executed < E.STEPS_PER_READ
+    for k, n in eager_launches.items():
+        assert graph_launches[k] * want.replays == n * got.replays, k
+
+
+def test_run_batch_on_card_equals_cpu(cuda):
+    """A sweep on the card, one captured graph a lane spec, equal to the
+    same sweep on the CPU; then segmented, lane by lane."""
+    topo = make_dragonfly(4, 2, 2)
+    flows = [B.Flow(s, d, n, start_tick=t) for s, d, n, t in FLOWS]
+    base = B.build_spec(topo, flows, "spritz_spray_w", n_ticks=1 << 12)
+    kw = dict(schemes=["ecmp", "spritz_spray_w", "reps"], seeds=[0, 1],
+              return_carry=True, shard=False)
+    got = E.run_batch(base, device=cuda, **kw)
+    want = E.run_batch(base, device="cpu", **kw)
+    for a, ast, b, bst in zip(*got, *want):
+        _same_runs(a, ast, b, bst)
+    res, st = E.run_batch(base, device=cuda, until_tick=100, **kw)
+    cps = [E.checkpoint(r, s) for r, s in zip(res, st)]
+    again = E.run_batch(base, device=cuda, resume=cps, **kw)
+    for a, ast, b, bst in zip(*again, *want):
+        _same_runs(a, ast, b, bst)
+
+
+def test_run_batch_sharded_equals_one_card(cuda):
+    """``shard=None`` with several cards runs the lanes round-robin, one
+    thread a card; each lane equals the same lane on one card."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA devices")
+    topo = make_dragonfly(4, 2, 2)
+    flows = [B.Flow(s, d, n, start_tick=t) for s, d, n, t in FLOWS]
+    base = B.build_spec(topo, flows, "spritz_spray_w", n_ticks=1 << 12)
+    kw = dict(schemes=["ecmp", "spritz_spray_w", "ugal_l", "reps",
+                       "spritz_scout"], seeds=[0, 1], return_carry=True)
+    E._LOOPS.clear()
+    ops.reset_launches()
+    got = E.run_batch(base, device=cuda, **kw)
+    sharded = dict(ops.LAUNCHES)
+    assert {k[2] for k in E._LOOPS} == {f"cuda:{i}" for i in
+                                        range(torch.cuda.device_count())}
+    ops.reset_launches()
+    want = E.run_batch(base, device=cuda, shard=False, **kw)
+    assert sharded == dict(ops.LAUNCHES)
+    for a, ast, b, bst in zip(*got, *want):
+        _same_runs(a, ast, b, bst)
 
 
 def _close(got, want, tol):
