@@ -66,6 +66,20 @@ Phases (any failure exits non-zero before the final line):
    final carry included.  Warm steps/s for ugal_l, ops_u, reps and
    spritz_spray_w; then phase 4d's graph-against-eager check and timing
    on midrun spritz_spray_w;
+4e. experiment matrix: the smoke tier's seven cells that run the packet
+   engine (``data.SMOKE_CELLS``: micro adversarial, mid-run failure,
+   Slim Fly all-to-all, the compression probe, seeded chaos with its
+   healthy sweep, DF-1056 permutation, and the packet-fidelity open-loop
+   web-search sweep, segmented at every window), each at its registered
+   size through the port's runner (``repro_torch.exp.runner.run_cell``,
+   ``force=True``, a temporary directory) on the card: every guard must
+   pass (the probe's ``BENCH_engine.json`` baseline included) and every
+   row must equal the reference's record ``smoke_cells_golden.json``
+   field by field, the wall-time fields excluded; per replay flow_agg
+   launches twice, tick_draws and one rank launch (fused, or standalone
+   under a capacity plan) once, spritz_select only on Spritz lanes.  One
+   line a cell: rows, guards, steps, replays, graph captures, wall s,
+   steps/s and the card's name and power limit;
 5. model kernel checks: flash attention and chunked RWKV-6 against their
    plain versions at the serving path's shapes (prefill and decode, bf16
    and f32) and at ragged, sliding-window and strong-decay cases, within
@@ -1220,11 +1234,15 @@ def main() -> None:
     # 4b. failover path
     failover = failover_path(GOLD, B, E, FF, ops, topo, flows, torch, np,
                              profile)
-    launches_by_path = {k: {"permutation": launches[k],
-                            "failover": failover[k]} for k in TICK_KERNELS}
-    for k in TICK_KERNELS:
-        launches[k] += failover[k]
     card = card_line()
+    # 4e. the experiment matrix's packet-engine smoke cells, through the
+    # port's runner
+    cells = matrix_path(GOLD, E, ops, torch, card)
+    launches_by_path = {k: {"permutation": launches[k],
+                            "failover": failover[k], "matrix": cells[k]}
+                        for k in TICK_KERNELS}
+    for k in TICK_KERNELS:
+        launches[k] += failover[k] + cells[k]
 
     # 5. model kernel checks
     rwkv_lib = ctypes.CDLL(str(_build.build()["rwkv6_chunked"]))
@@ -1484,6 +1502,99 @@ def failover_path(GOLD, B, E, FF, ops, topo, flows, torch, np,
             run_profile(E, specs[plan, "spritz_spray_w"], cfg["seed"], torch,
                         walls[plan, "spritz_spray_w"],
                         f"failover {plan} spritz_spray_w")
+    return totals
+
+
+def matrix_path(GOLD, E, ops, torch, card: str) -> dict:
+    """Phase 4e: every registered smoke cell that runs the packet engine
+    (``data.SMOKE_CELLS``), at its registered size, through the port's
+    runner (``run_cell``, ``force=True``, a temporary directory) on the
+    card.  Every guard must pass and every row must equal the
+    reference's record (``smoke_cells_golden.json``), wall-time fields
+    excluded.  Launches are counted per cell from just before it to just
+    after; ``run_batch`` and the loop's capture are wrapped to count the
+    steps, replays and graph captures each cell made.  Returns the
+    launches' sums by kernel."""
+    import tempfile
+
+    from repro_torch.exp import matrix, runner
+    record = GOLD.load(GOLD.SMOKE_GOLDEN)["cells"]
+    if tuple(record) != GOLD.SMOKE_CELLS:
+        fail(f"smoke record: cells {list(record)}, want "
+             f"{list(GOLD.SMOKE_CELLS)}")
+    tally = dict.fromkeys(("steps", "replays", "calls", "captures"), 0)
+    inner_batch, inner_capture = E.run_batch, E._Loop._capture
+
+    def run_batch(*a, **kw):
+        out = inner_batch(*a, **kw)
+        results = out[0] if kw.get("return_carry") else out
+        resume = kw.get("resume") or [None] * len(results)
+        for res, ck in zip(results, resume):
+            # a resumed lane's steps count on from its checkpoint's
+            tally["steps"] += res.steps_executed - (
+                0 if ck is None else int(ck.steps))
+            tally["replays"] += res.replays
+        tally["calls"] += 1
+        return out
+
+    def capture(loop):
+        tally["captures"] += 1
+        return inner_capture(loop)
+
+    totals = dict.fromkeys(KERNELS, 0)
+    t_phase = time.perf_counter()
+    E.run_batch, E._Loop._capture = run_batch, capture
+    try:
+        with tempfile.TemporaryDirectory() as out:
+            for cid in GOLD.SMOKE_CELLS:
+                cell, want = matrix.CELLS[cid], record[cid]
+                if want["spec"] != json.loads(json.dumps(cell.to_json())):
+                    fail(f"{cid}: the record's spec differs from the "
+                         f"matrix's")
+                tally.update(dict.fromkeys(tally, 0))
+                torch.cuda.synchronize()
+                ops.reset_launches()
+                t0 = time.perf_counter()
+                res = runner.run_cell(cell, out=Path(out), force=True,
+                                      verbose=False, device="cuda")
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                counts = dict(ops.LAUNCHES)
+                for k in totals:
+                    totals[k] += counts[k]
+                bad = [g["desc"] for g in res.guards if not g["ok"]]
+                if bad:
+                    fail(f"{cid}: guards breached: {bad}")
+                rows = GOLD.comparable(res.rows)
+                if len(rows) != len(want["rows"]):
+                    fail(f"{cid}: {len(rows)} rows, record "
+                         f"{len(want['rows'])}")
+                for i, (got, ref) in enumerate(zip(rows, want["rows"])):
+                    diff = sorted(k for k in set(got) | set(ref)
+                                  if got.get(k) != ref.get(k))
+                    if diff:
+                        fail(f"{cid}: row {i} ({got.get('scheme')}) differs"
+                             f" from the record in {diff}")
+                r = tally["replays"]
+                spritz = any(s.startswith("spritz") for s in cell.schemes)
+                if counts["tick_draws"] != r or counts["flow_agg"] != 2 * r \
+                        or counts["tick_rank"] + \
+                        counts["tick_rank_red_ecn"] != r \
+                        or counts["red_ecn"] or not r \
+                        or bool(counts["spritz_select"]) != spritz \
+                        or counts["spritz_select"] > r:
+                    fail(f"{cid}: launches {counts} for {r} replays")
+                n = tally["steps"]
+                print(f"matrix {cid}: {len(rows)} rows equal to the record;"
+                      f" guards {len(res.guards)} passed; steps {n}, "
+                      f"replays {r} in {tally['calls']} run_batch calls, "
+                      f"{tally['captures']} graph captures; wall "
+                      f"{wall:.3f} s ({n / wall:.1f} steps/s, captures "
+                      f"included); launches {counts}; {card}", flush=True)
+    finally:
+        E.run_batch, E._Loop._capture = inner_batch, inner_capture
+    print(f"matrix: {len(GOLD.SMOKE_CELLS)} cells in "
+          f"{time.perf_counter() - t_phase:.1f} s; {card}", flush=True)
     return totals
 
 

@@ -14,7 +14,14 @@ links at a quarter of line rate over the same window.  The reference's
 solo ``engine.run`` produced it on the CPU
 (``tests/test_torch_golden_failover_{midrun,degraded}.py --write``).
 
-``chip_smoke.py`` holds the port's runs on the card against both.
+``smoke_cells_golden.json`` holds, per cell of :data:`SMOKE_CELLS` (the
+smoke tier's packet and packet-fidelity open-loop cells, at their
+registered sizes), the cell's spec (``Cell.to_json()``) and the rows the
+reference's ``repro.exp.runner.run_cell`` emitted on the CPU, without
+the wall-time fields (:data:`WALL_FIELDS`).  Regenerate it with
+``tests/test_torch_exp_packet.py --write``.
+
+``chip_smoke.py`` holds the port's runs on the card against all three.
 """
 from __future__ import annotations
 
@@ -25,6 +32,7 @@ from pathlib import Path
 GOLDEN = Path(__file__).resolve().parent / "df1056_permutation_golden.json"
 FAILOVER_GOLDEN = (Path(__file__).resolve().parent
                    / "df1056_failover_golden.json")
+SMOKE_GOLDEN = Path(__file__).resolve().parent / "smoke_cells_golden.json"
 CONFIG = {
     "topology": "make_dragonfly(8, 4, 4)",
     "workload": "permutation(size_pkts=32, seed=1)",
@@ -93,3 +101,22 @@ def summarize(res) -> dict:
 
 def load(path: Path = GOLDEN) -> dict:
     return json.loads(path.read_text())
+
+
+# the smoke tier's cells that run the packet engine, in matrix order
+SMOKE_CELLS = ("micro.dragonfly.adversarial.smoke",
+               "failures.dragonfly.midrun.smoke",
+               "collectives.slimfly.alltoall.smoke",
+               "engine.dragonfly.probe.smoke",
+               "chaos.dragonfly.s7.smoke",
+               "engine.dragonfly1056.permutation.quick",
+               "serve.dragonfly.websearch.smoke")
+# row fields timed on the host's clock: the only ones that may differ
+WALL_FIELDS = ("wall_s", "wall_s_dense_warm", "dense_speedup")
+
+
+def comparable(rows: list) -> list:
+    """Cell rows as the record keeps them: through JSON (tuples become
+    lists, as in a result file) and without :data:`WALL_FIELDS`."""
+    return [{k: v for k, v in r.items() if k not in WALL_FIELDS}
+            for r in json.loads(json.dumps(rows))]

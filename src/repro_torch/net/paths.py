@@ -45,6 +45,11 @@ def path_class(topo: Topology, hops: list[int], src: int) -> tuple[int, int]:
     return nl, ng
 
 
+def path_latency_ns(topo: Topology, hops: list[int], src: int) -> float:
+    nl, ng = path_class(topo, hops, src)
+    return nl * hop_latency_ns(LOCAL) + ng * hop_latency_ns(GLOBAL)
+
+
 def within_bounds(topo: Topology, nl: int, ng: int) -> bool:
     if topo.name.startswith("dragonfly"):
         return nl <= 3 and ng <= 2
@@ -179,3 +184,8 @@ def max_path_latency_ns(topo: Topology) -> float:
         nl, ng = 0, 4
     return nl * hop_latency_ns(LOCAL) + ng * hop_latency_ns(GLOBAL)
 
+
+def endpoint_table_bytes(topo: Topology, max_paths_seen: int) -> float:
+    """Fig. 3 memory model: (16+8 bits)=3 B per EV entry, one list per dest
+    switch, per endpoint."""
+    return topo.n_switches * max_paths_seen * 3.0

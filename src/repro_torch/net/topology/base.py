@@ -156,6 +156,10 @@ class Topology:
         return d
 
     @cached_property
+    def diameter(self) -> int:
+        return int(self.dist.max())
+
+    @cached_property
     def static_next(self) -> np.ndarray:
         """Deterministic default-forwarding next-slot: [n_sw, n_sw] -> slot.
 
@@ -175,6 +179,22 @@ class Topology:
                         nxt[s, t] = r
                         break
         return nxt
+
+    @cached_property
+    def min_next_slots(self) -> list:
+        """All equal-cost minimal next slots: list[s][t] -> list of slots."""
+        n = self.n_switches
+        d = self.dist
+        out = [[[] for _ in range(n)] for _ in range(n)]
+        for s in range(n):
+            for t in range(n):
+                if s == t:
+                    continue
+                for r in range(self.radix):
+                    v = int(self.nbr[s, r])
+                    if v >= 0 and d[v, t] == d[s, t] - 1:
+                        out[s][t].append(r)
+        return out
 
     def static_route(self, s: int, t: int) -> list:
         """Hop list (switch ids after s, ending at t) via default forwarding."""

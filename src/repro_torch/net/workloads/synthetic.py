@@ -114,3 +114,104 @@ def adversarial(topo: Topology, size_pkts: int, seed: int = 0) -> list[Flow]:
     rng.shuffle(flows)
     return flows
 
+
+def motivational(topo: Topology, monitored_pkts: int, bg_pkts: int,
+                 n_free_groups: int = 2, seed: int = 0,
+                 bg_flows_per_ep: int = 5,
+                 solo: bool = False, warmup_ticks: int = 512
+                 ) -> tuple[list[Flow], int]:
+    """Fig. 5 scenario: one monitored flow; nearly all groups *heavily*
+    congested by many background flows crossing each group's global link
+    toward the destination group; a few groups stay free.
+
+    The background is the scenario's environment, not a scheme under test:
+    it is pinned to static ECMP paths (``Flow.bg``), mirroring §V-B's
+    background-permutation methodology.  ``bg_flows_per_ep`` flows per
+    source endpoint keep each congested gateway queue pegged even at
+    DCTCP's per-flow cwnd floor — the paper's "significant queue buildup"
+    regime, in which congested-path ACKs are ECN-marked ~always and only
+    free-group paths return clean feedback.
+
+    Returns (flows, monitored_flow_index).
+    """
+    rng = np.random.default_rng(seed)
+    g = topo.n_groups
+    sw_per_g = topo.n_switches // g
+    p = topo.eps_per_switch
+
+    dst_group = g - 1
+    src_group = 0
+    src_ep = src_group * sw_per_g * p
+    dst_ep = dst_group * sw_per_g * p + 1
+    flows = [Flow(src_ep, dst_ep, monitored_pkts,
+                  start_tick=0 if solo else warmup_ticks)]
+    if solo:
+        return flows, 0
+
+    free = set(int(x) for x in rng.choice(
+        [x for x in range(g) if x not in (dst_group, src_group)],
+        size=n_free_groups, replace=False))
+
+    def gateway_entry(gc: int):
+        """(gateway, entry): gateway = switch in gc owning a global link into
+        dst_group; entry = the dst_group-side switch of that link."""
+        for si in range(sw_per_g):
+            s = gc * sw_per_g + si
+            for r in range(topo.radix):
+                t = int(topo.nbr[s, r])
+                if (t >= 0 and topo.sw_group[t] == dst_group
+                        and topo.nbr_type[s, r]):  # global link
+                    return s, t
+        return None
+
+    # Background flows cross the single gc -> dst_group global link and
+    # deliver to endpoints behind its entry switch: the global link (not the
+    # receivers) is the bottleneck, so its queue stays built up — exactly the
+    # transit congestion the monitored flow runs into (Fig. 5 ②).
+    for gc in range(g):
+        if gc in free or gc == dst_group:
+            continue
+        ge = gateway_entry(gc)
+        if ge is None:
+            continue
+        gw, entry = ge
+        cands = [e for e in range(gc * sw_per_g * p, (gc + 1) * sw_per_g * p)
+                 if e != src_ep]
+        rng.shuffle(cands)
+        for rep in range(bg_flows_per_ep):
+            for i, s in enumerate(cands):
+                dst_bg = entry * p + (i + rep) % p
+                if dst_bg == dst_ep:
+                    dst_bg = entry * p + (i + rep + 1) % p
+                flows.append(Flow(int(s), int(dst_bg), bg_pkts, bg=True,
+                                  pin_minimal=True))
+    return flows, 0
+
+
+def incast_bystanders(topo: Topology, n_senders: int, size_pkts: int,
+                      seed: int = 0) -> tuple[list[Flow], np.ndarray]:
+    """Fig. 8: synchronized incast hotspot + disjoint one-to-one permutation
+    bystanders, all starting at t=0.  Returns (flows, bystander_mask).
+
+    The hotspot receiver is excluded from the sender set (the pre-fix
+    ``range(n_senders)`` could include it once ``n_senders`` passed the
+    receiver's endpoint id, producing a self-flow whose 'sender' was
+    also the hotspot) and from the bystander pairing."""
+    rng = np.random.default_rng(seed)
+    n = topo.n_endpoints
+    if not 0 < n_senders <= n - 1:
+        raise ValueError(f"n_senders must be in [1, {n - 1}], got {n_senders}")
+    receiver = min(160, n - 1)
+    senders = [e for e in range(n) if e != receiver][:n_senders]
+    flows = [Flow(s, receiver, size_pkts) for s in senders]
+    sender_set = set(senders)
+    rest = [e for e in range(n) if e not in sender_set and e != receiver]
+    perm = rng.permutation(rest)
+    for s, d in zip(rest, perm):
+        if s != d:
+            flows.append(Flow(int(s), int(d), size_pkts))
+    assert all(fl.src_ep != fl.dst_ep for fl in flows)
+    assert receiver not in sender_set
+    mask = np.zeros(len(flows), bool)
+    mask[n_senders:] = True
+    return flows, mask

@@ -191,7 +191,12 @@ def test_port_imports_without_jax_or_reference():
               "configs.phi3_medium_14b", "configs.rwkv6_7b", "train.step",
               "launch.serve", "kernels.ops", "net.sim.engine",
               "net.sim.failures", "net.policies.ugal", "net.policies.flicr",
-              "net.policies.ops", "net.policies.reps"):
+              "net.policies.ops", "net.policies.reps", "net.topology.gf",
+              "net.topology.slimfly", "net.workloads.collectives",
+              "net.workloads.trace", "net.arrivals", "net.steady", "exp",
+              "exp.spec", "exp.matrix", "exp.guards", "exp.hashing",
+              "exp.workloads", "exp.packet", "exp.openloop", "exp.host",
+              "exp.runner", "exp.__main__"):
         assert f"repro_torch.{m}" in mods, m
 
 
@@ -200,7 +205,7 @@ def test_port_sources_name_no_jax_or_reference():
                      re.M)
     # a module name in a string (importlib) escapes the import pattern
     named = re.compile(r"[\"']repro\.(configs|models|kernels|net|train|"
-                       r"launch)")
+                       r"launch|exp|fabric)")
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 40

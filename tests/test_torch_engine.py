@@ -236,3 +236,25 @@ def test_default_device_needs_cuda():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TE.run(_port(_spec("ecmp"), True))
+
+
+def test_slimfly_spec_built_by_the_port_matches_reference():
+    """An all-to-all on the reduced Slim Fly, its topology, flows and spec
+    built by the port's own host layer, equals the reference's run."""
+    from repro.net.topology.slimfly import make_slimfly
+    from repro.net.workloads.collectives import alltoall
+    from repro_torch.net.sim import build as TB
+    from repro_torch.net.topology.slimfly import make_slimfly as t_slimfly
+    from repro_torch.net.workloads.collectives import alltoall as t_alltoall
+    jf, _ = alltoall(make_slimfly(5, p=2), 8, 128, seed=1, bg_pkts=16)
+    tf, _ = t_alltoall(t_slimfly(5, p=2), 8, 128, seed=1, bg_pkts=16)
+    spec = B.build_spec(make_slimfly(5, p=2), jf, "spritz_spray_w",
+                        n_ticks=1 << 13)
+    tspec = TB.build_spec(t_slimfly(5, p=2), tf, "spritz_spray_w",
+                          n_ticks=1 << 13)
+    assert tspec.use_kernels is None       # the kernels' plain versions
+    want, want_state = E.run(spec, seed=2, return_carry=True)
+    got, state = TE.run(tspec, seed=2, device="cpu", return_carry=True)
+    _same_result(got, want, "slimfly")
+    _same_state(state, want_state, "slimfly")
+    assert all(want.done)
