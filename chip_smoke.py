@@ -80,6 +80,21 @@ Phases (any failure exits non-zero before the final line):
    under a capacity plan) once, spritz_select only on Spritz lanes.  One
    line a cell: rows, guards, steps, replays, graph captures, wall s,
    steps/s and the card's name and power limit;
+4f. flow-level engine: the smoke tier's three flow cells
+   (``data.FABRIC_CELLS``: DF-1056 ring all-reduce, SF-1134 all-to-all,
+   DF-1056 under a mid-run outage of its 8 most loaded global links), each
+   at its registered size through the port's runner on the card
+   (``force=True``, a temporary directory): every guard must pass (the
+   ``BENCH_fabric.json`` baselines and spritz_spray_w's ``forced >= 1``
+   included), every row must equal the reference's record
+   ``fabric_cells_golden.json`` field by field, the wall-time fields
+   excluded, every lane's ``fct`` must have its sha256 there (that of
+   the bytes the reference's ``simulate`` returned), and every lane's
+   state tensors (``choice``, ``remaining``) must have lived on ``cuda``
+   (``FlowResult.stats.device``).  The flow
+   engine launches none of the port's kernels, so every count stays 0.
+   One line a cell and scheme: epochs, water-fill levels, host reads,
+   wall s (the table build apart) and the card's name and power limit;
 5. model kernel checks: flash attention and chunked RWKV-6 against their
    plain versions at the serving path's shapes (prefill and decode, bf16
    and f32) and at ragged, sliding-window and strong-decay cases, within
@@ -109,8 +124,10 @@ Phases (any failure exits non-zero before the final line):
 ``--profile`` adds ``torch.profiler`` breakdowns of one warm engine
 run (graph replays: the device's busy share of the warm wall time and
 the launches a step), of the failover phase's spritz_spray_w runs
-(midrun and degraded), and, per served model, of one prefill and 8
-decode steps.
+(midrun and degraded), of one flow-engine lane (phase 4f's DF-1056
+train cell, spritz_spray_w: busy share, launches and device time a
+water-fill level, the host ops with the most CPU time), and, per served
+model, of one prefill and 8 decode steps.
 Imports torch and the port only, never jax nor the reference package.
 """
 from __future__ import annotations
@@ -1243,6 +1260,8 @@ def main() -> None:
                         for k in TICK_KERNELS}
     for k in TICK_KERNELS:
         launches[k] += failover[k] + cells[k]
+    # 4f. the smoke tier's flow-level cells, through the port's runner
+    fabric_path(GOLD, ops, torch, card, profile)
 
     # 5. model kernel checks
     rwkv_lib = ctypes.CDLL(str(_build.build()["rwkv6_chunked"]))
@@ -1596,6 +1615,157 @@ def matrix_path(GOLD, E, ops, torch, card: str) -> dict:
     print(f"matrix: {len(GOLD.SMOKE_CELLS)} cells in "
           f"{time.perf_counter() - t_phase:.1f} s; {card}", flush=True)
     return totals
+
+
+def fabric_path(GOLD, ops, torch, card: str, profile: bool = False) -> None:
+    """Phase 4f: every registered smoke cell of the flow-level engine
+    (``data.FABRIC_CELLS``), at its registered size, through the port's
+    runner on the card.  Every guard must pass, every row must equal the
+    reference's record (``fabric_cells_golden.json``), wall-time fields
+    excluded, each lane's ``fct`` bytes must have the record's sha256,
+    and each lane's state must have lived on the card.
+    ``flowsim.simulate_batch`` is wrapped to collect each lane's
+    ``FlowResult`` and time each call (the table build is apart: the
+    executor builds the table first)."""
+    import tempfile
+
+    from repro_torch.exp import matrix, runner
+    from repro_torch.fabric import flowsim as FS
+    record = GOLD.load(GOLD.FABRIC_GOLDEN)["cells"]
+    if tuple(record) != GOLD.FABRIC_CELLS:
+        fail(f"fabric record: cells {list(record)}, want "
+             f"{list(GOLD.FABRIC_CELLS)}")
+    lanes = []          # (scheme, FlowResult, wall s) of each call's lanes
+    inner = FS.simulate_batch
+
+    def simulate_batch(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(*a, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for name, results in out.items():
+            for res in results:
+                lanes.append((name, res, wall / len(results)))
+        return out
+
+    t_phase = time.perf_counter()
+    totals = dict.fromkeys(("epochs", "levels", "reads"), 0)
+    lane_wall = 0.0
+    FS.simulate_batch = simulate_batch
+    try:
+        with tempfile.TemporaryDirectory() as out:
+            for cid in GOLD.FABRIC_CELLS:
+                cell, want = matrix.CELLS[cid], record[cid]
+                if want["spec"] != json.loads(json.dumps(cell.to_json())):
+                    fail(f"{cid}: the record's spec differs from the "
+                         f"matrix's")
+                lanes.clear()
+                ops.reset_launches()
+                t0 = time.perf_counter()
+                res = runner.run_cell(cell, out=Path(out), force=True,
+                                      verbose=False, device="cuda")
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                if any(ops.LAUNCHES.values()):
+                    fail(f"{cid}: the flow engine launched kernels "
+                         f"{dict(ops.LAUNCHES)}")
+                bad = [g["desc"] for g in res.guards if not g["ok"]]
+                if bad:
+                    fail(f"{cid}: guards breached: {bad}")
+                rows = GOLD.comparable(res.rows)
+                if len(rows) != len(want["rows"]):
+                    fail(f"{cid}: {len(rows)} rows, record "
+                         f"{len(want['rows'])}")
+                for i, (got, ref) in enumerate(zip(rows, want["rows"])):
+                    diff = sorted(k for k in set(got) | set(ref)
+                                  if got.get(k) != ref.get(k))
+                    if diff:
+                        fail(f"{cid}: row {i} ({got.get('scheme')}) differs"
+                             f" from the record in {diff}")
+                if len(lanes) != len(rows):
+                    fail(f"{cid}: {len(lanes)} lanes for {len(rows)} rows")
+                digests = [GOLD.fct_digest(fres.fct) for _, fres, _ in lanes]
+                bad = [name for (name, _, _), got, ref in zip(
+                    lanes, digests, want["fct_sha256"]) if got != ref]
+                if bad or len(digests) != len(want["fct_sha256"]):
+                    fail(f"{cid}: the fct bytes of {bad or 'the lanes'} "
+                         f"differ from the record's")
+                for (name, fres, lwall), row in zip(lanes, res.rows):
+                    st = fres.stats
+                    if st is None or st.device != "cuda/cuda":
+                        fail(f"{cid} {name}: the flow engine's state was on "
+                             f"{None if st is None else st.device}, not "
+                             f"cuda")
+                    totals["epochs"] += st.epochs
+                    totals["levels"] += st.levels
+                    totals["reads"] += st.host_reads
+                    lane_wall += lwall
+                    print(f"fabric {cid} {name}: epochs {st.epochs}, "
+                          f"water-fill levels {st.levels}, host reads "
+                          f"{st.host_reads} ({st.reads_level} in the fill, "
+                          f"{st.reads_epoch} outside it); wall "
+                          f"{lwall:.3f} s ({lwall / max(st.levels, 1) * 1e6:.1f}"
+                          f" us a level), table {row['table_wall_s']} s; "
+                          f"{card}", flush=True)
+                print(f"fabric {cid}: {len(rows)} rows and every lane's "
+                      f"fct bytes equal to the record; "
+                      f"guards {len(res.guards)} passed; state on cuda; "
+                      f"wall {wall:.3f} s; {card}", flush=True)
+    finally:
+        FS.simulate_batch = inner
+    print(f"fabric: {len(GOLD.FABRIC_CELLS)} cells in "
+          f"{time.perf_counter() - t_phase:.1f} s; {totals['epochs']} epochs,"
+          f" {totals['levels']} levels, {totals['reads']} host reads, "
+          f"{lane_wall:.3f} s in the lanes "
+          f"({lane_wall / max(totals['levels'], 1) * 1e6:.1f} us a level); "
+          f"{card}", flush=True)
+    if profile:
+        fabric_profile(torch)
+
+
+def fabric_profile(torch) -> None:
+    """Where one flow-engine lane spends its time: spritz_spray_w on the
+    DF-1056 train smoke cell, warm, then under torch.profiler: the
+    device's busy share of the warm wall, kernel launches and device time
+    a water-fill level, and the host ops with the most self CPU time."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as trace
+
+    from repro_torch.exp import flow as XF
+    from repro_torch.exp import matrix
+    from repro_torch.exp.workloads import make_topology
+    from repro_torch.fabric import flowsim as FS
+    cell = matrix.CELLS["fabric.dragonfly1056.train.smoke"]
+    topo = make_topology(cell.topology, cell.scale)
+    flows, table, _ = XF._flow_set(cell, topo)
+
+    def lane():
+        return FS.simulate(topo, flows, "spritz_spray_w", table=table,
+                           max_paths=XF.MAX_PATHS, device="cuda")
+
+    lane()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = lane()
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    kern, n_launch, _ = profile_block("flow spritz_spray_w", lane, warm,
+                                      torch, top=6)
+    busy_us = sum(e.self_device_time_total for e in kern)
+    st = res.stats
+    print(f"profile flow spritz_spray_w: {st.epochs} epochs, {st.levels} "
+          f"levels, {st.host_reads} host reads; warm {warm * 1e6 / st.levels:.1f}"
+          f" us a level; {n_launch / st.levels:.1f} launches and "
+          f"{busy_us / st.levels:.2f} us of device time a level (epoch work "
+          f"included)", flush=True)
+    with trace(activities=[ProfilerActivity.CPU]) as prof:
+        lane()
+    for e in sorted(prof.key_averages(),
+                    key=lambda e: -e.self_cpu_time_total)[:8]:
+        print(f"profile flow host: {e.key[:40]:40s} "
+              f"{e.self_cpu_time_total / 1e3:9.3f} ms self CPU "
+              f"{e.count:7d} calls", flush=True)
 
 
 def profile_block(label, fn, warm_wall: float, torch, top: int = 8):

@@ -21,7 +21,13 @@ reference's ``repro.exp.runner.run_cell`` emitted on the CPU, without
 the wall-time fields (:data:`WALL_FIELDS`).  Regenerate it with
 ``tests/test_torch_exp_packet.py --write``.
 
-``chip_smoke.py`` holds the port's runs on the card against all three.
+``fabric_cells_golden.json`` holds the same form for the smoke tier's
+flow-level cells (:data:`FABRIC_CELLS`), and beside each cell's rows the
+sha256 of each lane's ``FlowResult.fct`` bytes (:func:`fct_digest`, row
+order), written by the reference's runner on the CPU
+(``tests/test_torch_exp_flow.py --write``).
+
+``chip_smoke.py`` holds the port's runs on the card against all four.
 """
 from __future__ import annotations
 
@@ -33,6 +39,7 @@ GOLDEN = Path(__file__).resolve().parent / "df1056_permutation_golden.json"
 FAILOVER_GOLDEN = (Path(__file__).resolve().parent
                    / "df1056_failover_golden.json")
 SMOKE_GOLDEN = Path(__file__).resolve().parent / "smoke_cells_golden.json"
+FABRIC_GOLDEN = Path(__file__).resolve().parent / "fabric_cells_golden.json"
 CONFIG = {
     "topology": "make_dragonfly(8, 4, 4)",
     "workload": "permutation(size_pkts=32, seed=1)",
@@ -99,6 +106,14 @@ def summarize(res) -> dict:
     return out
 
 
+def fct_digest(fct) -> str:
+    """The sha256 of a flow-level lane's ``fct`` as float64 bytes."""
+    import numpy as np
+
+    a = np.ascontiguousarray(np.asarray(fct, np.float64))
+    return hashlib.sha256(a.tobytes()).hexdigest()
+
+
 def load(path: Path = GOLDEN) -> dict:
     return json.loads(path.read_text())
 
@@ -111,8 +126,13 @@ SMOKE_CELLS = ("micro.dragonfly.adversarial.smoke",
                "chaos.dragonfly.s7.smoke",
                "engine.dragonfly1056.permutation.quick",
                "serve.dragonfly.websearch.smoke")
+# the smoke tier's cells that run the flow-level engine, in matrix order
+FABRIC_CELLS = ("fabric.dragonfly1056.train.smoke",
+                "fabric.slimfly1134.alltoall.smoke",
+                "fabric.dragonfly1056.midrun.smoke")
 # row fields timed on the host's clock: the only ones that may differ
-WALL_FIELDS = ("wall_s", "wall_s_dense_warm", "dense_speedup")
+WALL_FIELDS = ("wall_s", "wall_s_dense_warm", "dense_speedup",
+               "table_wall_s", "wall_s_flow", "wall_s_packet")
 
 
 def comparable(rows: list) -> list:

@@ -3,11 +3,10 @@
 
 The same matrix (:mod:`repro_torch.exp.matrix`, all 82 cells) and one
 runner (``python -m repro_torch.exp run --tier smoke``) that dispatches
-the packet, host and packet-fidelity open-loop cells through the port's
-packet engine on the card, caches per-cell JSON results by content hash
-under ``results/exp_torch/``, and gates the reference's ratio and
-counter guards.  The flow-level cells wait for the port's flow engine
-(ROADMAP.md queue 1, item 5).
+every cell (packet, flow, cross-engine, open-loop and host) through the
+port's packet and flow engines on the card, caches per-cell JSON results
+by content hash under ``results/exp_torch/``, and gates the reference's
+ratio and counter guards.
 """
 from repro_torch.exp.spec import ENGINES, TIERS, Cell, validate_result
 

@@ -8,11 +8,13 @@
     python -m repro_torch.exp run --cells micro.dragonfly.adversarial.smoke \
         --schemes ecmp,spritz_spray_w --force
     python -m repro_torch.exp list --tier smoke
+    python -m repro_torch.exp tables   # results/exp_torch/EXPERIMENTS_tables.md
 
 Exit code is non-zero on any ratio/counter guard breach.  Unchanged
-cells (same spec + same git-tracked port sources) are cache hits.  A
-tier selection lists the cells the port cannot run yet ("not ported
-yet: …") and runs the rest; naming one with ``--cells`` raises.
+cells (same spec + same git-tracked port sources) are cache hits.  A run
+renders its report to ``<out>/RESULTS.md`` (``results/exp_torch/`` by
+default); the reference's root ``RESULTS.md`` and ``EXPERIMENTS.md`` are
+never written.
 """
 from __future__ import annotations
 
@@ -37,7 +39,7 @@ def main(argv=None) -> int:
     rp.add_argument("--cells", default=None,
                     help="comma-separated cell ids (see `list`)")
     rp.add_argument("--bench", default=None,
-                    help="select by owning bench module (micro, engine, …)")
+                    help="select by owning bench module (micro, fabric, …)")
     rp.add_argument("--schemes", default=None,
                     help="comma-separated registry scheme names override")
     rp.add_argument("--seeds", default=None,
@@ -52,6 +54,11 @@ def main(argv=None) -> int:
     rp.add_argument("--out", default=str(runner.DEFAULT_OUT))
     rp.add_argument("--force", action="store_true",
                     help="ignore cached results")
+    rp.add_argument("--no-results-md", action="store_true",
+                    help="skip rendering the report")
+    rp.add_argument("--results-md", default=None,
+                    help="path for the rendered report "
+                         "(default: <out>/RESULTS.md)")
     rp.add_argument("--device", default=None,
                     help="torch device (default: the card; `cpu` runs "
                          "the kernels' plain versions)")
@@ -61,6 +68,12 @@ def main(argv=None) -> int:
     lp.add_argument("--tier", choices=TIERS, default=None)
     lp.add_argument("--bench", default=None)
 
+    tp = sub.add_parser("tables", help="generate the matrix's scheme, tier "
+                                       "and cell tables")
+    tp.add_argument("--print", action="store_true",
+                    help="print the block instead of writing "
+                         "results/exp_torch/EXPERIMENTS_tables.md")
+
     args = ap.parse_args(argv)
 
     if args.cmd == "list":
@@ -68,10 +81,23 @@ def main(argv=None) -> int:
             schemes = "all" if not c.schemes else len(c.schemes)
             print(f"{c.cell_id:48s} {c.engine:8s} {c.topology:14s} "
                   f"tiers={','.join(c.tiers):12s} schemes={schemes} "
-                  f"guards={len(c.guards)} "
-                  f"{'ported' if runner.ported(c) else 'not ported'}")
+                  f"guards={len(c.guards)}")
         return 0
 
+    if args.cmd == "tables":
+        from repro_torch.exp import report
+        if args.print:
+            print(report.tables_block())
+            return 0
+        changed = report.write_tables()
+        print(f"{report.DEFAULT_TABLES}: "
+              f"{'updated' if changed else 'unchanged'}")
+        return 0
+
+    results_md = None
+    if not args.no_results_md:
+        results_md = Path(args.results_md) if args.results_md \
+            else runner.default_results_md(Path(args.out))
     seeds = [int(s) for s in _csv(args.seeds)] if args.seeds else None
     chaos_seeds = [int(s) for s in _csv(args.chaos_seeds)] \
         if args.chaos_seeds else None
@@ -79,7 +105,7 @@ def main(argv=None) -> int:
         tier=args.tier, cells=_csv(args.cells), bench=args.bench,
         schemes=_csv(args.schemes), seeds=seeds, scale=args.scale,
         chaos_seeds=chaos_seeds, out=Path(args.out), force=args.force,
-        verbose=not args.quiet, device=args.device)
+        results_md=results_md, verbose=not args.quiet, device=args.device)
     return 1 if summary.breaches else 0
 
 

@@ -1,18 +1,24 @@
 """Open-loop serving cell executor (DESIGN.md §15).  Port of
-``repro.exp.openloop`` at packet fidelity.
+``repro.exp.openloop``.
 
 Runs an offered-load sweep cell: per load point a Poisson arrival
 stream (``repro_torch.net.arrivals``) is compiled once and every
 registry scheme serves it, with windowed steady-state measurement
-(``repro_torch.net.steady``) replacing run-to-drain accounting.  At
-``fidelity="packet"`` the stream rides the port's packet engine,
-**segmented at every window boundary via checkpoint/resume**
-(``engine.run_batch(…, until_tick, resume)``, bit-identical to one
-unsegmented run), harvesting a per-port queue-depth snapshot from each
-checkpoint's carry.  Each lane's spec keeps its loop between segments,
-so the card captures its step once and replays the same graph in every
-segment.  ``fidelity="flow"`` needs the flow-level engine, which the
-port does not have yet (ROADMAP.md queue 1, item 5), and raises.
+(``repro_torch.net.steady``) replacing run-to-drain accounting.  Two
+fidelities share one row schema, and both run on ``device``:
+
+* ``fidelity="flow"`` — the paper-scale path: the stream's
+  :class:`~repro_torch.fabric.flowsim.FlowSpec` set through the
+  water-filling engine, stopped at the serving horizon via ``t_end``
+  (plus a drain allowance so steady percentiles are not
+  censoring-biased).
+* ``fidelity="packet"`` — the exact-engine path: the stream rides the
+  port's packet engine, **segmented at every window boundary via
+  checkpoint/resume** (``engine.run_batch(…, until_tick, resume)``,
+  bit-identical to one unsegmented run), harvesting a per-port
+  queue-depth snapshot from each checkpoint's carry.  Each lane's spec
+  keeps its loop between segments, so the card captures its step once
+  and replays the same graph in every segment.
 
 Rows are per ``(scheme, seed, load)``; FCT stats are microseconds with
 :data:`repro_torch.net.steady.EMPTY` (-1.0) for empty samples — never
@@ -32,9 +38,7 @@ from repro_torch.net.sim import build as B
 from repro_torch.net.sim import engine as E
 from repro_torch.net.sim.types import SPRAY_W
 from repro_torch.net.steady import queue_depth_ticks, window_stats
-
-FLOW_NOT_PORTED = ("the flow-level engine is not ported yet (ROADMAP.md "
-                   "queue 1, item 5)")
+from repro_torch.net.topology.base import BYTES_PER_TICK, BYTES_PER_US
 
 
 def _kw(cell) -> dict:
@@ -57,6 +61,7 @@ def _kw(cell) -> dict:
                       if kw.get("max_flows") is not None else None),
         "warmup_frac": float(kw.get("warmup_frac", 0.25)),
         "window_frac": float(kw.get("window_frac", 0.25)),
+        "max_paths": int(kw.get("max_paths", 32)),
     }
     drain = kw.get("drain_ticks")
     if drain is None:
@@ -102,6 +107,67 @@ def _steady_fields(ws, n_eps, to_us, goodput_unit) -> dict:
             for w in ws["windows"]],
     }
     return row
+
+
+# per-process memo of (specs, FlowTable, wall) per (topology workload
+# stream) key — path enumeration dominates flow-level setup at paper
+# scale and every scheme lane of a load point shares the table
+_TABLE_MEMO: dict = {}
+
+
+def _run_flow(cell, schemes, seeds, kw, topo, verbose,
+              device=None) -> list[dict]:
+    from repro_torch.fabric import flowsim as FS
+    rows = []
+    n_eps = topo.n_endpoints
+    for load in kw["loads"]:
+        stream = _stream_for(topo, kw, load)
+        key = (cell.topology, cell.scale,
+               tuple(sorted(dict(cell.workload_kw).items())), load)
+        if key not in _TABLE_MEMO:
+            specs = stream.to_flowspecs()
+            t0 = time.time()
+            table = FS.build_flow_table(topo, specs,
+                                        max_paths=kw["max_paths"])
+            _TABLE_MEMO[key] = (specs, table, round(time.time() - t0, 2))
+        specs, table, table_wall = _TABLE_MEMO[key]
+        hz = stream.horizon_ticks
+        t_end = float(hz + kw["drain_ticks"]) * BYTES_PER_TICK
+        start = np.asarray([f.start for f in specs])
+        size = np.asarray([f.size_bytes for f in specs])
+        if verbose:
+            print(f"[exp/{cell.cell_id}] load={load}: {stream.n_flows} "
+                  f"flows over {hz} ticks "
+                  f"(offered {stream.offered_load(n_eps):.3f})",
+                  flush=True)
+        for name in schemes:
+            for seed in seeds:
+                t0 = time.time()
+                res = FS.simulate(topo, specs, name, seed=int(seed),
+                                  table=table, max_paths=kw["max_paths"],
+                                  t_end=t_end, device=device)
+                wall = round(time.time() - t0, 2)
+                ws = window_stats(
+                    start, np.asarray(res.fct), size,
+                    warmup=kw["warmup_frac"] * hz * BYTES_PER_TICK,
+                    window=kw["window_frac"] * hz * BYTES_PER_TICK,
+                    horizon=float(hz) * BYTES_PER_TICK)
+                row = {"topology": cell.topology, "workload": cell.workload,
+                       "scheme": name, "seed": int(seed),
+                       "load": float(load),
+                       "offered_load": round(stream.offered_load(n_eps), 4),
+                       "n_flows": stream.n_flows,
+                       "epochs": int(res.epochs),
+                       "reselections": int(res.reselections),
+                       "rate_violations": int(res.rate_violations),
+                       "wall_s": wall, "table_wall_s": table_wall}
+                row.update(_steady_fields(ws, n_eps, 1.0 / BYTES_PER_US,
+                                          goodput_unit=1.0))
+                rows.append(row)
+                if verbose:
+                    print("   ", {k: v for k, v in row.items()
+                                  if k != "windows"}, flush=True)
+    return rows
 
 
 def _run_packet(cell, schemes, seeds, kw, topo, verbose,
@@ -178,10 +244,10 @@ def run_openloop_cell(cell, schemes, seeds, verbose=True,
                       device=None) -> list[dict]:
     """Materialize + execute one open-loop serving cell; flat rows."""
     kw = _kw(cell)
-    if kw["fidelity"] == "flow":
-        raise NotImplementedError(f"{cell.cell_id}: {FLOW_NOT_PORTED}")
-    if kw["fidelity"] != "packet":
+    topo = make_topology(cell.topology, cell.scale)
+    if kw["fidelity"] == "packet":
+        return _run_packet(cell, schemes, seeds, kw, topo, verbose, device)
+    if kw["fidelity"] != "flow":
         raise ValueError(f"{cell.cell_id}: unknown openloop fidelity "
                          f"{kw['fidelity']!r}")
-    topo = make_topology(cell.topology, cell.scale)
-    return _run_packet(cell, schemes, seeds, kw, topo, verbose, device)
+    return _run_flow(cell, schemes, seeds, kw, topo, verbose, device)

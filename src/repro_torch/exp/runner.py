@@ -1,20 +1,16 @@
 """Experiment-matrix runner (DESIGN.md §13).  Port of ``repro.exp.runner``.
 
-Dispatches selected cells through the port's executors (``packet``,
-``openloop`` at packet fidelity, ``host``), emits one normalized JSON per
-cell under ``results/exp_torch/`` keyed by the content hash of ``(cell
-spec, git-tracked port sources)`` — unchanged cells are skipped on
-re-run — and evaluates ratio/counter guards.  Any guard breach makes
-:func:`run` report failure (the CLI exits non-zero).
+Dispatches selected cells through the port's packet / flow / cross /
+open-loop / host executors, emits one normalized JSON per cell under
+``results/exp_torch/`` keyed by the content hash of ``(cell spec,
+git-tracked port sources)`` — unchanged cells are skipped on re-run —
+and evaluates ratio/counter guards.  Any guard breach makes :func:`run`
+report failure (the CLI exits non-zero).
 
-Cells that need the flow-level engine (``flow``, ``cross`` and
-flow-fidelity ``openloop``) are not ported yet (ROADMAP.md queue 1, item
-5).  Named one by one they raise ``NotImplementedError``; a selection by
-tier or bench lists them in :attr:`RunSummary.not_ported` and runs the
-rest.
-
-Packet cells run on ``device``: the card by default (raising, as
-``engine.run`` does, when there is none), ``"cpu"`` on request.
+Both engines run on ``device``: the card by default (raising, as
+``engine.run`` does, when there is none), ``"cpu"`` on request.  The
+rendered report goes to ``results/exp_torch/RESULTS.md``, never to the
+reference's root ``RESULTS.md``.
 """
 from __future__ import annotations
 
@@ -23,13 +19,12 @@ import json
 import time
 from pathlib import Path
 
+from repro_torch.device import resolve_device
 from repro_torch.exp import guards as G
 from repro_torch.exp import matrix
 from repro_torch.exp.hashing import cell_hash
-from repro_torch.exp.openloop import FLOW_NOT_PORTED
 from repro_torch.exp.spec import (RESULT_SCHEMA_VERSION, SCALES_BY_ENGINE,
                                   validate_result)
-from repro_torch.net.sim import engine as E
 
 DEFAULT_OUT = Path("results/exp_torch")
 
@@ -52,8 +47,6 @@ class CellResult:
 class RunSummary:
     results: list[CellResult]
     tier: str | None = None
-    # selected cells the port cannot run yet (never counted as passed)
-    not_ported: list[str] = dataclasses.field(default_factory=list)
 
     @property
     def breaches(self) -> list[str]:
@@ -75,13 +68,6 @@ class RunSummary:
         return not self.breaches
 
 
-def ported(cell) -> bool:
-    """Whether the port has the executor ``cell`` needs."""
-    if cell.engine == "openloop":
-        return dict(cell.workload_kw).get("fidelity", "flow") == "packet"
-    return cell.engine in ("packet", "host")
-
-
 def _resolve_schemes(cell):
     """() == every registered scheme, in registry order."""
     from repro_torch.net.policies import registry as REG
@@ -95,6 +81,14 @@ def _execute(cell, schemes, verbose, device):
         from repro_torch.exp.packet import run_packet_cell
         return run_packet_cell(cell, schemes, list(cell.seeds),
                                verbose=verbose, device=device)
+    if cell.engine == "flow":
+        from repro_torch.exp.flow import run_flow_cell
+        return run_flow_cell(cell, schemes, list(cell.seeds),
+                             verbose=verbose, device=device)
+    if cell.engine == "cross":
+        from repro_torch.exp.cross import run_cross_cell
+        return run_cross_cell(cell, schemes, list(cell.seeds),
+                              verbose=verbose, device=device)
     if cell.engine == "openloop":
         from repro_torch.exp.openloop import run_openloop_cell
         return run_openloop_cell(cell, schemes, list(cell.seeds),
@@ -108,9 +102,7 @@ def run_cell(cell, out: Path = DEFAULT_OUT, force: bool = False,
     """Run (or cache-skip) one cell on ``device``; always (re-)evaluates
     guards so a guard edit is enforced even on a cached result — the hash
     covers the matrix source anyway, this is defense in depth."""
-    if not ported(cell):
-        raise NotImplementedError(f"{cell.cell_id}: {FLOW_NOT_PORTED}")
-    device = E._device(device)     # raises without a card unless asked
+    device = resolve_device(device)  # raises without a card unless asked
     out = Path(out)
     out.mkdir(parents=True, exist_ok=True)
     path = out / f"{cell.cell_id}.json"
@@ -182,28 +174,20 @@ def chaos_seed_cells(selected, chaos_seeds):
 def run(tier: str | None = None, cells=None, bench: str | None = None,
         schemes=None, seeds=None, scale: str | None = None,
         chaos_seeds=None, out: Path = DEFAULT_OUT, force: bool = False,
-        check: bool = False, verbose: bool = True,
-        device=None) -> RunSummary:
+        results_md: Path | None = None, check: bool = False,
+        verbose: bool = True, device=None) -> RunSummary:
     """Run a cell selection on ``device``.  ``schemes``/``seeds``/``scale``
     derive overridden cells (rewritten ids — they never pollute the
     registered cells' cache entries); ``chaos_seeds`` additionally
-    re-rolls chaos cells over extra schedule seeds.  ``check=True``
-    raises ``SystemExit`` on any guard breach; the CLI instead exits via
-    the returned summary.  A cell named in ``cells`` that the port cannot
-    run raises ``NotImplementedError``; one selected by ``tier`` or
-    ``bench`` alone goes to ``RunSummary.not_ported``."""
-    device = E._device(device)
+    re-rolls chaos cells over extra schedule seeds.  ``results_md``
+    renders the run's report there.  ``check=True`` raises
+    ``SystemExit`` on any guard breach; the CLI instead exits via the
+    returned summary."""
+    device = resolve_device(device)
     selected = matrix.cells(tier=tier, ids=cells, bench=bench)
     if not selected:
         raise SystemExit(f"no cells selected (tier={tier}, cells={cells}, "
                          f"bench={bench})")
-    not_ported = [c.cell_id for c in selected if not ported(c)]
-    if not_ported and cells is not None:
-        raise NotImplementedError(f"{', '.join(not_ported)}: "
-                                  f"{FLOW_NOT_PORTED}")
-    selected = [c for c in selected if ported(c)]
-    if verbose and not_ported:
-        print(f"[exp] not ported yet: {', '.join(not_ported)}", flush=True)
     if chaos_seeds:
         selected = chaos_seed_cells(selected, chaos_seeds)
     if schemes is not None or seeds is not None or scale is not None:
@@ -219,14 +203,24 @@ def run(tier: str | None = None, cells=None, bench: str | None = None,
     results = [run_cell(c, out=out, force=force, verbose=verbose,
                         device=device)
                for c in selected]
-    summary = RunSummary(results, tier=tier, not_ported=not_ported)
+    summary = RunSummary(results, tier=tier)
     if verbose:
         print(f"[exp] {len(results)} cells, {summary.cache_hits} cached, "
-              f"{len(summary.breaches)} guard breaches, "
-              f"{len(not_ported)} not ported", flush=True)
+              f"{len(summary.breaches)} guard breaches", flush=True)
         for b in summary.breaches:
             print(f"[exp] BREACH {b}", flush=True)
+    if results_md is not None:
+        from repro_torch.exp.report import render_results
+        render_results(summary, Path(results_md), out=Path(out))
+        if verbose:
+            print(f"[exp] wrote {results_md}", flush=True)
     if check and summary.breaches:
         raise SystemExit("experiment-matrix guard breach: "
                          + "; ".join(summary.breaches))
     return summary
+
+
+def default_results_md(out: Path = DEFAULT_OUT) -> Path:
+    """Where the CLI renders a run's report: beside the cell results,
+    never the reference's root ``RESULTS.md``."""
+    return Path(out) / "RESULTS.md"

@@ -14,7 +14,8 @@ import numpy as np
 import torch
 
 from repro_torch import configs as C
-from repro_torch.models.lm import LM, resolve_device
+from repro_torch.device import resolve_device
+from repro_torch.models.lm import LM
 from repro_torch.train.step import make_serve_step
 
 

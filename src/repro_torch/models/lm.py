@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch.device import resolve_device
 from repro_torch.models import ssm
 from repro_torch.models.common import (MLP, UNPORTED, Attention, ModelCfg,
                                        init_rope, param, rms_norm)
@@ -46,16 +47,6 @@ def scan_unit(cfg: ModelCfg) -> tuple[int, int]:
         raise ValueError(f"n_layers {cfg.n_layers} is not a multiple of "
                          f"the unit {u}")
     return cfg.n_layers // u, u
-
-
-def resolve_device(device) -> torch.device:
-    """The card unless the caller names another device; raises without
-    one."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass device='cpu' to run the "
-                           "kernels' plain versions on the CPU")
-    return dev
 
 
 class Block(nn.Module):

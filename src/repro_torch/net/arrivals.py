@@ -4,13 +4,14 @@ same arrivals.
 
 Every closed-loop workload materializes a fixed flow set; this module
 instead compiles a sustained **arrival process** — Poisson or
-trace-driven per-endpoint flow arrivals — into the event-stream form the
-packet engine already treats as first-class: its injection phase gates
-on ``start_tick`` and its horizon treats pending starts as events
-(DESIGN.md §4), so a compiled arrival stream rides the engine's loop
-without host round-trips, and dense == compressed stays bit-exact.  (The
-flow-level form, :meth:`ArrivalStream.to_flowspecs`, waits for the
-port's flow engine.)
+trace-driven per-endpoint flow arrivals — into the event-stream form
+both engines already treat as first-class: the packet engine's injection
+phase gates on ``start_tick`` and its horizon treats pending starts as
+events (DESIGN.md §4), so a compiled arrival stream rides the engine's
+loop without host round-trips, and dense == compressed stays bit-exact;
+the flow engine admits flows whose ``start`` has passed at each
+water-filling epoch, so the same stream converts to
+:class:`repro_torch.fabric.flowsim.FlowSpec` byte-times.
 
 **Folded-PRNG discipline.**  Each endpoint draws its arrival times,
 destinations and sizes from an independent substream seeded
@@ -76,10 +77,14 @@ class ArrivalStream:
                                       self.size_pkts, self.start_tick)]
 
     def to_flowspecs(self) -> list:
-        """Flow-engine specs in wire byte-times: not ported yet."""
-        raise NotImplementedError(
-            "ArrivalStream.to_flowspecs needs the flow-level engine, which "
-            "the port does not have yet (ROADMAP.md queue 1, item 5)")
+        """Materialize as flow-engine specs in wire byte-times (the
+        exact unit ``bridge.to_packet_flows`` round-trips)."""
+        from repro_torch.fabric import flowsim as FS
+        return [FS.FlowSpec(int(s), int(d),
+                            float(z) * BYTES_PER_TICK,
+                            start=float(t) * BYTES_PER_TICK)
+                for s, d, z, t in zip(self.src_ep, self.dst_ep,
+                                      self.size_pkts, self.start_tick)]
 
 
 def _capped_websearch_mean_wire_bytes(cap_pkts: int) -> float:

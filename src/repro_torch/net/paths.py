@@ -142,6 +142,9 @@ class EVTable:
             w = np.ones_like(self.latency_ns)
         return (w - 1.0) * w_scale + 1.0
 
+    def minimal_mask(self) -> np.ndarray:
+        d = self.n_local + self.n_global
+        return d == d.min()
 
 
 def build_ev_table(topo: Topology, src_sw: int, dst_sw: int,

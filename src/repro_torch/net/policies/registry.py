@@ -84,6 +84,13 @@ def names() -> list[str]:
     return [p.name for p in _POLICIES]
 
 
+def flow_rule(scheme) -> PB.FlowLevelRule:
+    """A scheme's flow-level re-selection rule (DESIGN.md §12): the host
+    lane the flow engine (``repro_torch.fabric.flowsim``) dispatches path
+    init and per-epoch re-selection through."""
+    return resolve(scheme).flow_level
+
+
 def device_policy(scheme) -> PB.PolicyDef:
     """The policy with its device functions; raises ``ValueError`` for an
     unknown scheme."""

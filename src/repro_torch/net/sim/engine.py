@@ -51,6 +51,7 @@ import numpy as np
 import torch
 
 from repro_torch import _parity as PAR
+from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as KOPS
 from repro_torch.kernels import ref as KREF
 from repro_torch.net.policies import base as PB
@@ -114,14 +115,6 @@ class Carry(NamedTuple):
     retx: torch.Tensor
 
 
-def _device(device) -> torch.device:
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass device='cpu' to run on "
-                           "the CPU")
-    return dev
-
-
 def _event_ivls(spec: SimSpec) -> np.ndarray:
     """Per-event service intervals (ticks/packet, 0 = down).  A spec with
     an empty ``fail_event_ivl`` gets the binary encoding (up -> 1, down
@@ -180,7 +173,7 @@ def build_tick(spec: SimSpec, device=None):
     0-d int32 tensor on that device (or an int, copied there): nothing
     in the tick reads a value back to the host, so a CUDA graph can
     capture it."""
-    dev = _device(device)
+    dev = resolve_device(device)
     F = spec.n_flows
     N = spec.n_pkt
     NP_ = spec.n_ports
@@ -666,7 +659,7 @@ def build_horizon(spec: SimSpec, device=None):
     Every tick strictly inside the jump is a no-op of the transition.
     ``device`` defaults to ``"cuda"``; ``t`` is a 0-d int32 tensor there
     (or an int)."""
-    dev = _device(device)
+    dev = resolve_device(device)
     size_pkts = torch.as_tensor(spec.size_pkts, dtype=_I32, device=dev)
     start_tick = torch.as_tensor(spec.start_tick, dtype=_I32, device=dev)
     dep = torch.as_tensor(spec.dep, dtype=torch.int64, device=dev)
@@ -724,7 +717,7 @@ def init_carry(spec: SimSpec, seed: int = 0, device=None,
     Timeline events at tick <= 0 are initial conditions: they are folded
     into ``port_up`` / ``port_ivl`` here, so a plan whose events all fire
     at t = 0 runs like the static ``failed_links`` build."""
-    dev = _device(device)
+    dev = resolve_device(device)
     F, N, NP_ = spec.n_flows, spec.n_pkt, spec.n_ports
     w = spec.weights if weights is None else weights
     sp = spec.static_path if static_path is None else static_path
@@ -1117,7 +1110,7 @@ def _eager_run(spec: SimSpec, seed: int = 0, *, device=None,
     launch their kernels as they are called.  ``chip_smoke.py`` holds the
     graph loop against it on the card; ``k`` is the steps between two
     reads of the stop flag."""
-    dev = _device(device)
+    dev = resolve_device(device)
     loop = _Loop(spec, dev, dense)
     with _on(dev):
         loop.load(init_carry(spec, seed, dev), -1, 0,
@@ -1151,7 +1144,7 @@ def run(spec: SimSpec, seed: int = 0, chunk: int | None = None,
         res = run(spec, resume=checkpoint(res, st))
     """
     del chunk
-    dev = _device(device)
+    dev = resolve_device(device)
     if resume is not None:
         carry = carry_from_state(spec, resume.state, dev)
         t0, steps0 = int(resume.t), int(resume.steps)
@@ -1236,7 +1229,7 @@ def run_batch(spec: SimSpec | Sequence[SimSpec],
     if resume is not None and len(resume) != n_lanes:
         raise ValueError(f"resume needs one Checkpoint per lane: got "
                          f"{len(resume)} for {n_lanes} lanes")
-    dev = _device(device)
+    dev = resolve_device(device)
     devices = [dev]
     if dev.type == "cuda":
         ndev = torch.cuda.device_count()

@@ -196,7 +196,9 @@ def test_port_imports_without_jax_or_reference():
               "net.workloads.trace", "net.arrivals", "net.steady", "exp",
               "exp.spec", "exp.matrix", "exp.guards", "exp.hashing",
               "exp.workloads", "exp.packet", "exp.openloop", "exp.host",
-              "exp.runner", "exp.__main__"):
+              "exp.runner", "exp.__main__", "exp.flow", "exp.cross",
+              "exp.report", "fabric", "fabric.flowsim", "fabric.bridge",
+              "device"):
         assert f"repro_torch.{m}" in mods, m
 
 

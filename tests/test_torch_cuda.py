@@ -8,9 +8,11 @@ tolerances of ``tests/test_kernels.py``), the whole engine on DF(4,2,2)
 on ``cuda`` against the same run on ``cpu`` for all 11 schemes, for the
 kernels and for the engine's torch forms, and under a mid-run failure
 plan and a degraded (capacity) plan with the launches of each phase-E
-form, and the reduced dense and RWKV models on ``cuda``
-against ``cpu`` within 1e-4.  They need a card and skip without one.  On
-a machine with an H100:
+form, the flow-level engine on ``cuda`` against ``cpu`` for all 11
+schemes (plain, under a capacity plan, stopped at ``t_end``) with a
+cut-down cross-engine cell, and the reduced dense and RWKV models on
+``cuda`` against ``cpu`` within 1e-4.  They need a card and skip without
+one.  On a machine with an H100:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -23,6 +25,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch import configs as C  # noqa: E402
+from repro_torch.fabric import flowsim as FS  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.net.sim import build as B  # noqa: E402
@@ -359,6 +362,92 @@ def test_run_batch_sharded_equals_one_card(cuda):
     assert sharded == dict(ops.LAUNCHES)
     for a, ast, b, bst in zip(*got, *want):
         _same_runs(a, ast, b, bst)
+
+
+# ------------------------------------------------------ flow-level engine
+
+def _flow_pair(seed=7, pkts=24, start_step=0.0):
+    rng = np.random.default_rng(seed)
+    n = 72
+    return [FS.FlowSpec(int(s), int(d), 4096.0 * pkts, i * start_step)
+            for i, (s, d) in enumerate(zip(rng.permutation(n),
+                                           rng.permutation(n))) if s != d]
+
+
+def _same_flow_result(a, b):
+    assert a.fct.tobytes() == b.fct.tobytes()
+    for k in ("reselections", "epochs", "forced", "rate_violations"):
+        assert getattr(a, k) == getattr(b, k), k
+
+
+@pytest.mark.parametrize("case", ["plain", "capacity", "t_end"])
+@pytest.mark.parametrize("scheme", ["minimal", "valiant", "ugal_l", "ecmp",
+                                    "flicr_w", "ops_u", "ops_w",
+                                    "spritz_scout", "spritz_spray_u",
+                                    "spritz_spray_w", "reps"])
+def test_flow_engine_on_card_equals_cpu(cuda, scheme, case):
+    """``flowsim.simulate`` with its state on the card equals the CPU
+    port bit for bit (the CPU port equals the reference): plain, under a
+    capacity plan (a brownout, then an outage with recovery) and stopped
+    at a ``t_end`` horizon.  The state lived on the card."""
+    topo = make_dragonfly(4, 2, 2)
+    kw = {}
+    flows = _flow_pair()
+    if case == "capacity":
+        links = FF.sample_links(topo, 4, seed=2)
+        kw["failure_plan"] = (FF.FailureSchedule(topo)
+                              .degrade_links(32, links[:2], 0.25, until=900)
+                              .fail_links(64, links[2:]).recover(4000))
+    if case == "t_end":
+        flows = _flow_pair(seed=5, pkts=16, start_step=6000.0)
+        kw["t_end"] = 2.5e5
+    got = FS.simulate(topo, flows, scheme, seed=3, device=cuda, **kw)
+    want = FS.simulate(topo, flows, scheme, seed=3, device="cpu", **kw)
+    _same_flow_result(got, want)
+    assert got.stats.device == "cuda/cuda" and want.stats.device == "cpu/cpu"
+    assert (got.stats.levels, got.stats.reads_level,
+            got.stats.reads_epoch) == (want.stats.levels,
+                                       want.stats.reads_level,
+                                       want.stats.reads_epoch)
+
+
+def test_argmin_ties_take_the_first_index(cuda):
+    """Hot-link eviction picks ``argmin`` over candidate loads that tie
+    often (integer counts): on the card, as numpy, the first index."""
+    rng = np.random.default_rng(0)
+    key = rng.integers(0, 3, (4096, 4)).astype(np.float64)
+    key[rng.random((4096, 4)) < 0.2] = np.inf
+    got = torch.as_tensor(key, device=cuda).argmin(dim=1, keepdim=True)
+    np.testing.assert_array_equal(got.cpu().numpy()[:, 0],
+                                  np.argmin(key, axis=1))
+
+
+def test_flow_batch_and_cross_cell_on_card_equal_cpu(cuda, tmp_path):
+    """``simulate_batch`` on the card equals the CPU port lane for lane,
+    and a cut-down cross-engine cell (both engines on the card) gives the
+    CPU port's rows, wall fields excluded."""
+    from repro_torch import data as GOLD
+    from repro_torch.exp import matrix, runner
+
+    topo = make_dragonfly(4, 2, 2)
+    flows = _flow_pair(seed=4, pkts=12)
+    names = ["ecmp", "ugal_l", "spritz_spray_w", "reps"]
+    got = FS.simulate_batch(topo, flows, names, seeds=[0, 5], device=cuda)
+    want = FS.simulate_batch(topo, flows, names, seeds=[0, 5], device="cpu")
+    for name in names:
+        for a, b in zip(got[name], want[name]):
+            _same_flow_result(a, b)
+    cell = dataclasses.replace(
+        matrix.CELLS["fabric.dragonfly1056.cross.full"],
+        cell_id="fabric.dragonfly1056.cross.cut",
+        workload_kw={"n_chips": 32, "tp": 16, "shard": 4e4},
+        n_ticks=1 << 10)
+    a = runner.run_cell(cell, out=tmp_path / "cuda", force=True,
+                        verbose=False, device=cuda)
+    b = runner.run_cell(cell, out=tmp_path / "cpu", force=True,
+                        verbose=False, device="cpu")
+    assert GOLD.comparable(a.rows) == GOLD.comparable(b.rows)
+    assert a.guards == b.guards
 
 
 def _close(got, want, tol):

@@ -6,10 +6,11 @@ failure builders of every packet cell equal to the reference's, the
 content hash (port sources only), the emitted JSON against the
 reference's ``validate_result``, cache hit and invalidation, guard
 evaluation (the reference's guard tests, mirrored and compared verdict
-for verdict), the host memory cell's rows, and the port's refusals: the
-flow-level cells that need the unported flow engine, and the card
-default without a card.  Packet rows against the reference are in
-``test_torch_exp_{packet,failover,openloop}.py``.
+for verdict), the host memory cell's rows, the dispatch of every engine
+(the smoke tier runs all 10 cells; flow, cross and flow-fidelity
+open-loop cells reach their executors) and the card default without a
+card.  Rows against the reference are in
+``test_torch_exp_{packet,failover,openloop,flow,cross}.py``.
 """
 from __future__ import annotations
 
@@ -89,15 +90,18 @@ def test_schemes_resolve_against_registry():
 
 
 def test_smoke_tier_split_by_engine():
-    """The smoke tier is the 7 cells the port runs and the 3 flow-level
-    cells it cannot run yet."""
+    """The smoke tier is 7 cells of the packet engine (one of them an
+    open-loop cell at packet fidelity) and 3 of the flow engine, the
+    records of ``data.SMOKE_CELLS`` and ``data.FABRIC_CELLS``."""
     smoke = matrix.cells("smoke")
     assert len(smoke) == 10
-    assert [c.cell_id for c in smoke if not runner.ported(c)] == FLOW_SMOKE
+    assert [c.cell_id for c in smoke if c.engine == "flow"] == FLOW_SMOKE
+    assert tuple(FLOW_SMOKE) == GOLD.FABRIC_CELLS
+    assert tuple(c.cell_id for c in smoke if c.engine != "flow") == \
+        GOLD.SMOKE_CELLS
     assert all(c.guards for c in smoke)
-    assert not runner.ported(matrix.CELLS["serve.dragonfly1056."
-                                          "websearch.quick"])
-    assert runner.ported(matrix.CELLS["serve.dragonfly.websearch.smoke"])
+    assert dict(matrix.CELLS["serve.dragonfly1056.websearch.quick"]
+                .workload_kw)["fidelity"] == "flow"
 
 
 _TOPOS: dict = {}
@@ -215,7 +219,6 @@ def probe_run(tmp_path_factory):
 def test_packet_cell_roundtrip_and_guards(probe_run):
     out, summary = probe_run
     assert summary.ok and len(summary.results) == 1
-    assert summary.not_ported == []
     (res,) = summary.results
     assert not res.cached
     obj = json.loads(res.path.read_text())
@@ -307,7 +310,7 @@ def test_dense_ref_pseudo_key(tmp_path):
         {k: v for k, v in a.items() if k not in GOLD.WALL_FIELDS}
 
 
-# ------------------------------------------- what the port cannot run
+# ------------------------------------------- dispatch of every engine
 
 class _Fake:
     """``runner.run_cell`` without a run: the rows of a clean cell."""
@@ -320,32 +323,54 @@ class _Fake:
         return runner.CellResult(cell.cell_id, False, [], [], 0.0, Path(out))
 
 
-def test_smoke_tier_lists_flow_cells_not_ported(monkeypatch, capsys):
+def test_smoke_tier_lists_flow_cells_not_ported(monkeypatch, capsys,
+                                                tmp_path):
+    """(The name is from before the flow engine was ported.)  The smoke
+    tier runs all 10 cells, the 3 flow cells among them, and prints no
+    "not ported" line, through ``run`` and the CLI."""
     fake = _Fake()
     monkeypatch.setattr(runner, "run_cell", fake)
     summary = runner.run(tier="smoke", device="cpu")
-    assert summary.not_ported == FLOW_SMOKE
-    assert len(fake.ran) == 7 and not set(fake.ran) & set(FLOW_SMOKE)
-    assert f"[exp] not ported yet: {', '.join(FLOW_SMOKE)}" in \
-        capsys.readouterr().out.splitlines()
-    assert summary.ok and len(summary.results) == 7
-    # the CLI: exit 0, the same line
+    assert fake.ran == [c.cell_id for c in matrix.cells("smoke")]
+    assert set(FLOW_SMOKE) <= set(fake.ran)
+    assert "not ported" not in capsys.readouterr().out
+    assert summary.ok and len(summary.results) == 10
+    assert not hasattr(summary, "not_ported")
     fake.ran.clear()
-    assert CLI.main(["run", "--tier", "smoke", "--device", "cpu"]) == 0
-    assert f"[exp] not ported yet: {', '.join(FLOW_SMOKE)}" in \
-        capsys.readouterr().out
-    assert len(fake.ran) == 7
+    assert CLI.main(["run", "--tier", "smoke", "--device", "cpu",
+                     "--out", str(tmp_path)]) == 0
+    out = capsys.readouterr().out
+    assert "not ported" not in out and "[exp] 10 cells" in out
+    assert len(fake.ran) == 10
 
 
-@pytest.mark.parametrize("cid", FLOW_SMOKE[:1] + [
-    "serve.dragonfly1056.websearch.quick", "fabric.dragonfly1056.cross.full"])
-def test_named_flow_cell_raises(cid):
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        runner.run(cells=[cid], device="cpu", verbose=False)
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        runner.run_cell(matrix.CELLS[cid], device="cpu", verbose=False)
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        CLI.main(["run", "--cells", cid, "--device", "cpu"])
+@pytest.mark.parametrize("cid,executor", [
+    (FLOW_SMOKE[0], "repro_torch.exp.flow.run_flow_cell"),
+    ("serve.dragonfly1056.websearch.quick",
+     "repro_torch.exp.openloop.run_openloop_cell"),
+    ("fabric.dragonfly1056.cross.full", "repro_torch.exp.cross.run_cross_cell"),
+])
+def test_named_flow_cell_raises(cid, executor, monkeypatch, tmp_path):
+    """(The name is from before the flow engine was ported.)  A named
+    flow, flow-fidelity open-loop or cross cell reaches its executor with
+    the cell's schemes and seeds and ``device``, through ``run``,
+    ``run_cell`` and the CLI."""
+    calls = []
+
+    def fake(cell, schemes, seeds, verbose=True, device=None):
+        calls.append((cell.cell_id, tuple(schemes), tuple(seeds), device))
+        return [{"scheme": s, "seed": seeds[0]} for s in schemes]
+
+    monkeypatch.setattr(executor, fake)
+    cell = matrix.CELLS[cid]
+    want = (cid, tuple(runner._resolve_schemes(cell)), tuple(cell.seeds),
+            torch.device("cpu"))
+    runner.run(cells=[cid], device="cpu", verbose=False, out=tmp_path)
+    runner.run_cell(cell, device="cpu", verbose=False, out=tmp_path,
+                    force=True)
+    CLI.main(["run", "--cells", cid, "--device", "cpu", "--force",
+              "--out", str(tmp_path), "--quiet"])
+    assert calls == [want] * 3
 
 
 def test_default_device_needs_cuda(tmp_path):
@@ -361,8 +386,7 @@ def test_cli_list(capsys):
     assert CLI.main(["list"]) == 0
     lines = capsys.readouterr().out.splitlines()
     assert len(lines) == 82
-    assert sum(line.endswith("not ported") for line in lines) == \
-        sum(not runner.ported(c) for c in matrix.cells())
+    assert not [line for line in lines if "ported" in line]
     assert CLI.main(["list", "--tier", "smoke"]) == 0
     assert len(capsys.readouterr().out.splitlines()) == 10
 

@@ -197,8 +197,9 @@ def test_arrival_streams_equal(kw):
     _same_flows(x.to_packet_flows(), y.to_packet_flows())
     for f, g in zip(x.to_packet_flows(), y.to_packet_flows()):
         assert type(g) is TB.Flow
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        y.to_flowspecs()
+    _same_flows(x.to_flowspecs(), y.to_flowspecs())
+    for f in y.to_flowspecs():
+        assert type(f).__module__ == "repro_torch.fabric.flowsim"
 
 
 def test_trace_stream_equal():
