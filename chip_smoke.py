@@ -97,7 +97,10 @@ Phases (any failure exits non-zero before the final line):
    wall s (the table build apart) and the card's name and power limit;
 5. model kernel checks: flash attention and chunked RWKV-6 against their
    plain versions at the serving path's shapes (prefill and decode, bf16
-   and f32) and at ragged, sliding-window and strong-decay cases, within
+   and f32; bf16 also at LLaVA's 56 / 8 heads over 1,600 positions,
+   DeepSeek-MoE's 16 / 16 and Mixtral's 32 / 8 with its 4,096 window
+   over 1 x 4,608, each on the path phase 8 takes) and at ragged,
+   sliding-window and strong-decay cases, within
    the tolerances of ``tests/test_kernels.py``, each bf16 attention case
    also within 2x of SDPA's max and mean error against the f32 reference,
    each attention case printing the path it took (wgmma, split or simt);
@@ -106,18 +109,31 @@ Phases (any failure exits non-zero before the final line):
    SDPA (at decode also SDPA over the visible keys alone) and RWKV-6 from
    torch.profiler; each RWKV-6 case prints its dynamic shared memory and
    the kernel's ptxas registers and spills;
-6. card against CPU: the reduced Phi-3 and RWKV-6 configs in f32 on
-   ``cuda`` (kernels) and on ``cpu`` (plain versions) from the same
-   weights, prefill and 16 decode steps, logits within 1e-4;
+6. card against CPU: the reduced Phi-3, RWKV-6, DeepSeek-MoE, Mixtral
+   and LLaVA (with seeded patch embeddings) configs in f32 on ``cuda``
+   (kernels) and on ``cpu`` (plain versions) from the same weights,
+   prefill and 16 decode steps, logits within 1e-4; every MoE layer's
+   integer dispatch (top-k experts, ``keep``, ``dst``, ``counts``) on the
+   card equal to the CPU's for the CPU layer's input, in the prefill and
+   in each decode step;
 7. prefill against decode at full width, 2 layers, f32: the prefill
-   logits equal the step-by-step decode logits at every position;
-8. serving path: Phi-3-medium-14B (40 layers) and RWKV-6-7B (32 layers)
-   at their published sizes in bf16, random weights from a seeded
-   generator on the card: ``make_prefill_step`` on 4 x 1,024 tokens, then
-   a 4-slot ``Server`` answering 8 requests of 64 generated tokens; every
-   request must complete, the model kernel of each path must launch, and
-   Phi-3's attention must take the wgmma path in the prefill and the
-   split path in the decode;
+   logits equal the step-by-step decode logits at every position (the
+   MoE archs with a dropless capacity factor, since capacity drops differ
+   between T tokens and one; LLaVA with its 576 patch embeddings put
+   through the cache by ``decode_embeds``);
+8. serving path: Phi-3-medium-14B (40 layers), RWKV-6-7B (32 layers),
+   DeepSeek-MoE-16B (28 layers), Mixtral-8x7B (its width, 16 of its 32
+   layers: whole it is ~93 GB of bf16) and LLaVA-NeXT-34B (60 layers)
+   in bf16, random weights from a seeded generator on the card:
+   ``make_prefill_step`` on 4 x 1,024 tokens (LLaVA after 4 x 576 seeded
+   patch embeddings), then a 4-slot ``Server`` answering 8 requests of 64
+   generated tokens; every request must complete, the model kernel of
+   each path must launch, and attention must take the wgmma path in the
+   prefill and the split path in the decode; the MoE archs print the
+   (token, expert) assignments the prefill dropped for capacity and the
+   per-expert demand behind the drops (each layer's input taken by a
+   forward pre-hook, its dispatch recomputed); Mixtral
+   also runs one 1 x 4,608-token prefill, past its 4,096-token window;
 9. the script's wall time, a JSON line of kernel numbers, then the final
    JSON line.
 
@@ -127,7 +143,9 @@ the launches a step), of the failover phase's spritz_spray_w runs
 (midrun and degraded), of one flow-engine lane (phase 4f's DF-1056
 train cell, spritz_spray_w: busy share, launches and device time a
 water-fill level, the host ops with the most CPU time), and, per served
-model, of one prefill and 8 decode steps.
+model, of one prefill and 8 decode steps (busy share, launches, the
+kernels and host ops with the most time, and the synchronizing CUDA
+calls of one prefill and of one decode step).
 Imports torch and the port only, never jax nor the reference package.
 """
 from __future__ import annotations
@@ -174,7 +192,13 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
 TICK_KERNELS = ("flow_agg", "tick_rank", "red_ecn", "tick_rank_red_ecn",
                 "tick_draws", "spritz_select")
 SERVE_ARCHS = {"phi3_medium_14b": "flash_attention",
-               "rwkv6_7b": "rwkv6_chunked"}
+               "rwkv6_7b": "rwkv6_chunked",
+               "deepseek_moe_16b": "flash_attention",
+               "mixtral_8x7b": "flash_attention",
+               "llava_next_34b": "flash_attention"}
+# phase 8's depth cuts (widths stay published): Mixtral-8x7B's 32 layers
+# are ~93 GB of bf16, over the card's 80 GB
+SERVE_LAYERS = {"mixtral_8x7b": 16}
 
 
 def fail(msg: str) -> None:
@@ -758,6 +782,17 @@ def check_model_kernels(ops, ref, torch, np, rwkv_smem,
         ("Sq=1 Sk=1 f32", 1, 1, 3, 4, 4, 32, torch.float32, 0, 0),
         ("window 4096 f32", 8192, 8192, 1, 8, 2, 128, torch.float32, 4096,
          0),
+        # phase 8's other serving shapes: LLaVA-NeXT-34B's 56 / 8 heads
+        # (G = 7, so a 64-row tile splits a position's heads) over 576
+        # patches + 1,024 tokens; DeepSeek-MoE-16B's 16 / 16 (G = 1);
+        # Mixtral-8x7B's 32 / 8 with its 4,096 window cutting 1 x 4,608
+        ("prefill bf16 56/8", 1600, 1600, 4, 56, 8, D, torch.bfloat16, 0,
+         0),
+        ("decode bf16 56/8", 1, S, B, 56, 8, D, torch.bfloat16, 0, 700),
+        ("prefill bf16 16/16", S, S, B, 16, 16, D, torch.bfloat16, 0, 0),
+        ("decode bf16 16/16", 1, S, B, 16, 16, D, torch.bfloat16, 0, 700),
+        ("window 4096 bf16 32/8", 4608, 4608, 1, 32, 8, D, torch.bfloat16,
+         4096, 0),
     ]
     worst = 0.0
     for label, sq, sk, b, hq, hkv, d, dt, win, off in cases:
@@ -767,6 +802,12 @@ def check_model_kernels(ops, ref, torch, np, rwkv_smem,
         ops.reset_launches()
         got = ops.flash_attention(q, k, v, **kw)
         path = next(p for p, n in ops.FLASH_PATHS.items() if n)
+        # the serving path's: split for a decode row, wgmma for bf16
+        # prefill
+        want_path = ("split" if sq == 1 else
+                     "wgmma" if dt == torch.bfloat16 else path)
+        if path != want_path:
+            fail(f"flash_attention {label}: path {path}, want {want_path}")
         want = ref.mha_reference(q, k, v, **kw)
         torch.cuda.synchronize()
         tol = 5e-2 if dt == torch.bfloat16 else 2e-5
@@ -871,35 +912,148 @@ def check_model_kernels(ops, ref, torch, np, rwkv_smem,
     return out
 
 
+def moe_layers(model) -> list:
+    return [blk.moe for blk in model.blocks
+            if getattr(blk, "moe", None) is not None]
+
+
+def prefix_of(cfg, B, torch, np, seed=4, device="cpu") -> dict:
+    """{} or, for the VLM, seeded patch embeddings [B, Np, d] under
+    ``prefix_embed``."""
+    if cfg.family != "vlm":
+        return {}
+    pe = np.random.default_rng(seed).normal(0, 1, (B, cfg.n_patches,
+                                                    cfg.d_model))
+    return {"prefix_embed": torch.as_tensor(pe, dtype=cfg.dtype,
+                                            device=device)}
+
+
+def moe_inputs(model) -> tuple[dict, list]:
+    """Forward pre-hooks on the model's MoE layers: the dict holds, by
+    layer, each one's input of its latest call.  Returns it and the hook
+    handles (``remove`` them when done)."""
+    seen, handles = {}, []
+    for i, m in enumerate(moe_layers(model)):
+        handles.append(m.register_forward_pre_hook(
+            lambda mod, args, i=i: seen.__setitem__(i, args[0])))
+    return seen, handles
+
+
+def dispatch_of(m, x) -> dict:
+    """MoE layer ``m``'s integer dispatch of input ``x`` [B, S, d], as its
+    forward computes it: capacity, top-k experts, ``dst``, ``keep`` and
+    the kept rows an expert."""
+    from repro_torch.models import moe as MOE
+    me = m.me
+    xt = x.reshape(-1, x.shape[-1])
+    cap = MOE.capacity(me.capacity_factor, me.top_k, xt.shape[0],
+                       me.n_experts)
+    _, dst, keep, _, counts, topi = MOE.local_dispatch(
+        xt, MOE.route(xt, m.router), me.top_k, cap, me.n_experts)
+    return dict(cap=cap, topi=topi, dst=dst, keep=keep, counts=counts)
+
+
+def same_dispatch(cpu, gpu, seen, label, torch) -> int:
+    """Each MoE layer's dispatch on the card of the input its ``cpu`` twin
+    saw in the last call (``seen``, from ``moe_inputs``) must equal the
+    CPU's.  Returns the number of (token, expert) assignments compared."""
+    n = 0
+    pairs = list(zip(moe_layers(cpu), moe_layers(gpu)))
+    for i, x in seen.items():
+        want = dispatch_of(pairs[i][0], x)
+        got = dispatch_of(pairs[i][1], x.cuda())
+        if got["cap"] != want["cap"]:
+            fail(f"{label}: capacity {got['cap']} != {want['cap']}")
+        for key in ("topi", "keep", "dst", "counts"):
+            if not torch.equal(got[key].cpu(), want[key]):
+                fail(f"{label}: MoE dispatch {key} on the card differs "
+                     f"from the CPU's")
+        n += want["keep"].numel()
+    return n
+
+
+def drop_stats(moes, seen, torch) -> dict:
+    """The capacity drops of the MoE layers' latest call (inputs in
+    ``seen``), and the per-expert demand behind them: the (token,
+    expert) assignments each expert was asked for, against the
+    capacity."""
+    dropped = slots = over = 0
+    ratios, worst = [], 0
+    for i, x in seen.items():
+        d = dispatch_of(moes[i], x)
+        keep, E = d["keep"], moes[i].me.n_experts
+        demand = torch.bincount(d["topi"].reshape(-1), minlength=E)
+        dropped += int((~keep).sum())
+        slots += keep.numel()
+        over += int((demand > d["cap"]).sum())
+        ratios.append(float(demand.max()) / float(demand.float().mean()))
+        worst = max(worst, int(demand.max()))
+        cap = d["cap"]
+    ratios.sort()
+    return dict(dropped=dropped, slots=slots, cap=cap, over=over,
+                pairs=len(seen) * E, demand_mean=slots / len(seen) / E,
+                demand_max=worst, ratio_median=ratios[len(ratios) // 2],
+                ratio_max=ratios[-1])
+
+
+def drop_text(st) -> str:
+    return (f"capacity dropped {st['dropped']} of {st['slots']} (token, "
+            f"expert) assignments ({100 * st['dropped'] / st['slots']:.3f} "
+            f"%, capacity {st['cap']} an expert); per-expert demand mean "
+            f"{st['demand_mean']:.1f}, max {st['demand_max']}, max/mean a "
+            f"layer median {st['ratio_median']:.2f} max "
+            f"{st['ratio_max']:.2f}; {st['over']} of {st['pairs']} (layer, "
+            f"expert) pairs over capacity")
+
+
 def card_vs_cpu(C, LM, step, torch, np) -> None:
     """Phase 6: the reduced configs in f32 on the card (kernels) and on
     the CPU (plain versions), same weights; prefill and 16 decode steps.
-    Tolerance 1e-4: only summation orders differ (TF32 is off)."""
+    Tolerance 1e-4: only summation orders differ (TF32 is off).  The MoE
+    layers' dispatch must be equal on both for the same input."""
     for arch in SERVE_ARCHS:
         cfg = dataclasses.replace(C.get_reduced(arch), dtype=torch.float32)
         cpu = LM(cfg, device="cpu",
                  generator=torch.Generator().manual_seed(0))
         gpu = copy.deepcopy(cpu).to("cuda")
+        seen, hooks = moe_inputs(cpu)
         toks = torch.as_tensor(np.random.default_rng(2).integers(
             0, cfg.vocab, (2, 80)))
         prompt, gen = toks[:, :64], toks[:, 64:]
+        pe = prefix_of(cfg, 2, torch, np)
+        pe_gpu = {k: v.cuda() for k, v in pe.items()}
         errs = [float((step.make_prefill_step(gpu, 80)(
-            {"tokens": prompt.cuda()}).cpu()
-            - step.make_prefill_step(cpu, 80)({"tokens": prompt})
+            {"tokens": prompt.cuda(), **pe_gpu}).cpu()
+            - step.make_prefill_step(cpu, 80)({"tokens": prompt, **pe})
         ).abs().max())]
-        errs.append(float((gpu(prompt.cuda()).cpu() - cpu(prompt))
-                          .abs().max()))
+        lg, ag = gpu(prompt.cuda(), with_aux=True, **pe_gpu)
+        lc, ac = cpu(prompt, with_aux=True, **pe)
+        errs.append(float((lg.cpu() - lc).abs().max()))
+        n_disp = same_dispatch(cpu, gpu, seen, f"{arch} reduced prefill",
+                               torch)
+        aux_err = abs(float(ag) - float(ac))
         cg, cc = gpu.init_cache(2, 80), cpu.init_cache(2, 80)
         sg, sc = step.make_serve_step(gpu), step.make_serve_step(cpu)
         for i in range(16):
             lg, cg = sg(cg, {"tokens": gen[:, i:i + 1].cuda()})
             lc, cc = sc(cc, {"tokens": gen[:, i:i + 1]})
             errs.append(float((lg.cpu() - lc).abs().max()))
+            n_disp += same_dispatch(cpu, gpu, seen,
+                                    f"{arch} reduced decode {i}", torch)
         e = max(errs)
-        if not e <= 1e-4:
-            fail(f"{arch} reduced: card and CPU differ by {e:.3g} > 1e-4")
+        if not (e <= 1e-4 and aux_err <= 1e-5 * max(abs(float(ac)), 1.0)):
+            fail(f"{arch} reduced: card and CPU differ by {e:.3g} > 1e-4 "
+                 f"(aux by {aux_err:.3g})")
+        extra = (f"; MoE dispatch equal on {n_disp} (token, expert) "
+                 f"assignments over {len(moe_layers(cpu))} layers, aux "
+                 f"error {aux_err:.3g}" if moe_layers(cpu) else "")
+        extra += (f"; prefix {tuple(pe['prefix_embed'].shape)}"
+                  if pe else "")
         print(f"card vs cpu {arch} reduced f32: prefill [2, 64] + 16 decode "
-              f"steps, max logit error {e:.3g} (tol 1e-4)", flush=True)
+              f"steps, max logit error {e:.3g} (tol 1e-4){extra}",
+              flush=True)
+        for h in hooks:
+            h.remove()
         del cpu, gpu, cg, cc
 
 
@@ -913,27 +1067,43 @@ FULL_WIDTH_TOL = 2e-4
 
 
 def prefill_vs_decode(C, LM, torch, np) -> None:
-    """Phase 7: full published widths, depth cut to 2 layers, f32."""
+    """Phase 7: full published widths, depth cut to 2 layers, f32.  The
+    MoE archs run dropless (capacity factor = n_experts); LLaVA's patch
+    embeddings go through the cache one row a step (``decode_embeds``)
+    before the tokens."""
     for arch in SERVE_ARCHS:
         cfg = dataclasses.replace(C.get_config(arch), n_layers=2,
                                   dtype=torch.float32)
+        if cfg.moe is not None:
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=float(cfg.moe.n_experts)))
         model = LM(cfg, device="cuda",
                    generator=torch.Generator(device="cuda").manual_seed(0))
         B, S = 2, 64
         toks = torch.as_tensor(np.random.default_rng(3).integers(
             0, cfg.vocab, (B, S)), device="cuda")
-        full = model(toks)
-        cache = model.init_cache(B, S)
+        pe = prefix_of(cfg, B, torch, np, device="cuda")
+        full = model(toks, **pe)
+        Np = cfg.n_patches if pe else 0
+        cache = model.init_cache(B, Np + S)
         e = 0.0
-        for i in range(S):
-            lg, cache = model.decode_step(toks[:, i:i + 1], cache)
+        for i in range(Np + S):
+            if i < Np:
+                lg, cache = model.decode_embeds(
+                    pe["prefix_embed"][:, i:i + 1], cache)
+            else:
+                lg, cache = model.decode_step(toks[:, i - Np:i - Np + 1],
+                                              cache)
             e = max(e, float((lg[:, 0] - full[:, i]).abs().max()))
         scale = float(full.abs().max())
         if not e <= FULL_WIDTH_TOL:
             fail(f"{arch} full width: prefill and decode differ by {e:.3g}")
-        print(f"prefill vs decode {arch} full width 2 layers f32: [{B}, {S}],"
-              f" max logit error {e:.3g} (tol {FULL_WIDTH_TOL}; max |logit| "
-              f"{scale:.3g})", flush=True)
+        how = ((f", dropless (capacity factor {cfg.moe.capacity_factor})"
+                if cfg.moe is not None else "")
+               + (f", {Np} patch embeddings first" if Np else ""))
+        print(f"prefill vs decode {arch} full width 2 layers f32: [{B}, {S}]"
+              f"{how}, max logit error {e:.3g} (tol {FULL_WIDTH_TOL}; max "
+              f"|logit| {scale:.3g})", flush=True)
         del model, full, cache
         gc.collect()
         torch.cuda.empty_cache()
@@ -941,21 +1111,26 @@ def prefill_vs_decode(C, LM, torch, np) -> None:
 
 def serve_path(arch, C, Server, step, ops, torch, np, card,
                profile=False) -> dict:
-    """Phase 8: one published config at full size in bf16 on the card:
-    prefill 4 x 1,024 tokens, then 8 requests through a 4-slot Server.
-    Launches are counted from just before the prefill to just after the
-    last request.  ``profile`` then traces one prefill and 8 decode
-    steps."""
+    """Phase 8: one published config in bf16 on the card (its depth cut
+    only where ``SERVE_LAYERS`` says): prefill 4 x 1,024 tokens (after
+    4 x Np patch embeddings for the VLM), then 8 requests through a
+    4-slot Server.  Launches are counted from just before the prefill to
+    just after the last request.  ``profile`` then traces one prefill and
+    8 decode steps."""
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
+    cut = SERVE_LAYERS.get(arch)
     srv = Server(arch, device="cuda", slots=4, max_len=1024, reduced=False,
-                 seed=0)
+                 seed=0, n_layers=cut)
     torch.cuda.synchronize()
     cfg = srv.cfg
     n_params = sum(p.numel() for p in srv.model.parameters())
-    print(f"serve {arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+    depth = (f"{cfg.n_layers} of its {C.get_config(arch).n_layers} layers "
+             f"(depth cut, widths published)" if cut else
+             f"{cfg.n_layers} layers (whole)")
+    print(f"serve {arch}: {depth}, d_model {cfg.d_model}, "
           f"{n_params} parameters ({cfg.param_count():.4g} by "
           f"ModelCfg.param_count), {cfg.dtype}, initialised on the card in "
           f"{time.perf_counter() - t0:.1f} s; memory "
@@ -963,20 +1138,36 @@ def serve_path(arch, C, Server, step, ops, torch, np, card,
     rng = np.random.default_rng(0)
     prompts = torch.as_tensor(rng.integers(0, cfg.vocab, (4, 1024)),
                               device="cuda")
+    batch = {"tokens": prompts}
+    if cfg.family == "vlm":
+        gen_pe = torch.Generator(device="cuda").manual_seed(1)
+        batch["prefix_embed"] = torch.randn(
+            (4, cfg.n_patches, cfg.d_model), generator=gen_pe,
+            dtype=cfg.dtype, device="cuda")
+    positions = 4 * (1024 + cfg.n_patches)
     prefill = step.make_prefill_step(srv.model, 1024)
     kernel = SERVE_ARCHS[arch]
+    moes = moe_layers(srv.model)
 
     torch.cuda.synchronize()
     ops.reset_launches()
     walls = []
-    for _ in range(2):          # cold, then warm
+    seen, hooks = moe_inputs(srv.model)
+    for i in range(2):          # cold (its MoE inputs kept), then warm
         t0 = time.perf_counter()
-        logits = prefill({"tokens": prompts})
+        logits = prefill(batch)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
+        for h in hooks:
+            h.remove()
+        hooks = []
     if logits.shape != (4, 1, cfg.vocab_padded) or \
             not bool(torch.isfinite(logits).all()):
         fail(f"{arch}: prefill logits {tuple(logits.shape)} not finite")
+    drops = ""
+    if moes:
+        drops = "; prefill " + drop_text(drop_stats(moes, seen, torch))
+    seen.clear()
     prefill_paths = dict(ops.FLASH_PATHS)
     inner = srv.step
 
@@ -1012,28 +1203,94 @@ def serve_path(arch, C, Server, step, ops, torch, np, card,
              f"the decode")
     tokens = sum(done.values())
     peak = torch.cuda.max_memory_allocated()
-    print(f"serve {arch}: prefill 4 x 1024 tokens in {walls[0]:.3f} s cold, "
-          f"{walls[1]:.3f} s warm = {4096 / walls[1]:.1f} tokens/s; decode "
-          f"{stats['steps']} steps, {stats['ms_per_step']:.2f} ms/step, "
-          f"{tokens} tokens in {stats['wall_s']:.3f} s = "
-          f"{tokens / stats['wall_s']:.1f} tokens/s; peak memory "
-          f"{peak / 1e9:.2f} GB; launches {counts}; attention paths "
-          f"prefill {prefill_paths} decode {decode_paths}; card {card}",
-          flush=True)
+    prefix = (f" after 4 x {cfg.n_patches} patch embeddings"
+              if cfg.n_patches else "")
+    print(f"serve {arch}: prefill 4 x 1024 tokens{prefix} in "
+          f"{walls[0]:.3f} s cold, {walls[1]:.3f} s warm = "
+          f"{4096 / walls[1]:.1f} tokens/s ({positions / walls[1]:.1f} "
+          f"positions/s); decode {stats['steps']} steps, "
+          f"{stats['ms_per_step']:.2f} ms/step, {tokens} tokens in "
+          f"{stats['wall_s']:.3f} s = {tokens / stats['wall_s']:.1f} "
+          f"tokens/s; peak memory {peak / 1e9:.2f} GB; launches {counts}; "
+          f"attention paths prefill {prefill_paths} decode {decode_paths}"
+          f"{drops}; card {card}", flush=True)
+    if arch == "mixtral_8x7b":
+        long_prefill(srv, prefill, cfg, ops, torch, np, card)
     if profile:
-        profile_block(f"{arch} prefill 4 x 1024", lambda: prefill(
-            {"tokens": prompts}), walls[1], torch)
+        profile_block(f"{arch} prefill 4 x 1024", lambda: prefill(batch),
+                      walls[1], torch, host_top=6)
 
         def decode8():
             for _ in range(8):
                 lg, srv.cache = srv.step(srv.cache, {"tokens": srv.tokens})
                 lg[:, -1, :cfg.vocab].argmax(-1).cpu()
         profile_block(f"{arch} decode x 8", decode8,
-                      8 * stats["ms_per_step"] / 1e3, torch)
-    del srv, logits, prefill, inner
+                      8 * stats["ms_per_step"] / 1e3, torch, host_top=6)
+        syncs = [host_syncs(lambda: prefill(batch), torch),
+                 host_syncs(lambda: srv.step(
+                     srv.cache, {"tokens": srv.tokens}), torch)]
+        print(f"profile {arch}: host syncs in one prefill {syncs[0]}; in "
+              f"one decode step {syncs[1]}", flush=True)
+    del srv, logits, prefill, inner, batch
     gc.collect()
     torch.cuda.empty_cache()
     return counts
+
+
+def host_syncs(fn, torch) -> dict:
+    """The synchronizing CUDA calls ``fn`` makes, by the line of the port
+    that made them (``torch.cuda.set_sync_debug_mode("warn")``)."""
+    import warnings
+    torch.cuda.synchronize()
+    where = {}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+    for w in caught:
+        if "synchroniz" not in str(w.message):
+            continue
+        key = f"{Path(w.filename).name}:{w.lineno}"
+        where[key] = where.get(key, 0) + 1
+    return where
+
+
+def long_prefill(srv, prefill, cfg, ops, torch, np, card) -> None:
+    """One 1 x 4,608-token prefill, so that the sliding window (4,096 for
+    Mixtral) cuts at full width; prints the attention path it took."""
+    S = 4608
+    if not 0 < cfg.sliding_window < S:
+        fail(f"{cfg.name}: window {cfg.sliding_window} does not cut at {S}")
+    toks = torch.as_tensor(np.random.default_rng(5).integers(
+        0, cfg.vocab, (1, S)), device="cuda")
+    before = dict(ops.FLASH_PATHS)
+    seen, hooks = moe_inputs(srv.model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits = prefill({"tokens": toks})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for h in hooks:
+        h.remove()
+    paths = {p: n - before[p] for p, n in ops.FLASH_PATHS.items()}
+    drops = drop_text(drop_stats(moe_layers(srv.model), seen, torch))
+    seen.clear()
+    if logits.shape != (1, 1, cfg.vocab_padded) or \
+            not bool(torch.isfinite(logits).all()):
+        fail(f"{cfg.name}: 1 x {S} prefill logits not finite")
+    if paths["wgmma"] != cfg.n_layers or sum(paths.values()) != cfg.n_layers:
+        fail(f"{cfg.name}: 1 x {S} prefill attention paths {paths}")
+    print(f"serve {cfg.name}: prefill 1 x {S} tokens past the "
+          f"{cfg.sliding_window}-token window in {wall:.3f} s (cold) = "
+          f"{S / wall:.1f} tokens/s; attention paths {paths}; {drops}; "
+          f"peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; card {card}",
+          flush=True)
+    del logits
 
 
 def main() -> None:
@@ -1280,9 +1537,11 @@ def main() -> None:
     # 7. prefill against decode, full width
     prefill_vs_decode(C, LM, torch, np)
     # 8. serving path, full published configs
+    serve_launches = {}
     for arch, kernel in SERVE_ARCHS.items():
-        launches[kernel] = serve_path(arch, C, Server, STEP, ops, torch, np,
-                                      card, profile)[kernel]
+        serve_launches[arch] = serve_path(arch, C, Server, STEP, ops, torch,
+                                          np, card, profile)[kernel]
+        launches[kernel] += serve_launches[arch]
 
     # 9. result lines
     rows = []
@@ -1338,6 +1597,9 @@ def main() -> None:
     for row in rows:
         if row["name"] in launches_by_path:
             row["launches_by_path"] = launches_by_path[row["name"]]
+    flash["launches_by_path"] = {
+        a: n for a, n in serve_launches.items()
+        if SERVE_ARCHS[a] == "flash_attention"}
     rank_row = next(r for r in rows if r["name"] == "tick_rank")
     for key in ("device_us", "path", "segs", "smem_bytes",
                 "torch_form_device_us", "torch_form_ms"):
@@ -1768,11 +2030,13 @@ def fabric_profile(torch) -> None:
               f"{e.count:7d} calls", flush=True)
 
 
-def profile_block(label, fn, warm_wall: float, torch, top: int = 8):
+def profile_block(label, fn, warm_wall: float, torch, top: int = 8,
+                  host_top: int = 0):
     """Device time of the CUDA kernels that ``fn`` launches
     (torch.profiler), against ``warm_wall``, the unprofiled wall time in
     seconds of the same work; prints the kernels with the most device
-    time and returns (kernel events, launches, ``fn``'s result)."""
+    time (and the ``host_top`` host ops with the most self CPU time) and
+    returns (kernel events, launches, ``fn``'s result)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1795,6 +2059,12 @@ def profile_block(label, fn, warm_wall: float, torch, top: int = 8):
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"profile {label}: {e.key[:60]:60s} "
               f"{e.self_device_time_total / 1e3:8.3f} ms {e.count:6d} calls",
+              flush=True)
+    host = [e for e in prof.key_averages()
+            if getattr(e, "device_type", None) == DeviceType.CPU]
+    for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:host_top]:
+        print(f"profile {label}: host {e.key[:55]:55s} "
+              f"{e.self_cpu_time_total / 1e3:8.3f} ms {e.count:6d} calls",
               flush=True)
     return kern, n_launch, out
 

@@ -8,6 +8,7 @@ per-request generation lengths, a cache length shared by every slot).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -22,13 +23,18 @@ from repro_torch.train.step import make_serve_step
 class Server:
     """Slot-based continuous batching over a fixed decode batch.  Runs on
     the card unless ``device`` names another; weights are drawn from a
-    ``torch.Generator`` seeded with ``seed`` on that device."""
+    ``torch.Generator`` seeded with ``seed`` on that device.  ``n_layers``
+    cuts the config's depth (its widths stay), for a model whose every
+    layer does not fit the card."""
 
     def __init__(self, arch: str, *, device=None, slots: int = 4,
-                 max_len: int = 96, reduced: bool = True, seed: int = 0):
+                 max_len: int = 96, reduced: bool = True, seed: int = 0,
+                 n_layers: int | None = None):
         dev = resolve_device(device)
         self.device = dev
         self.cfg = C.get_reduced(arch) if reduced else C.get_config(arch)
+        if n_layers is not None:
+            self.cfg = dataclasses.replace(self.cfg, n_layers=n_layers)
         gen = torch.Generator(device=dev).manual_seed(seed)
         self.model = LM(self.cfg, device=dev, generator=gen)
         self.slots = slots

@@ -1,10 +1,10 @@
-"""Language model for the dense and RWKV families: the port of
-``repro.models.lm``'s ``init_params`` / ``forward`` / ``init_cache`` /
+"""Language model for the dense, MoE, VLM and RWKV families: the port
+of ``repro.models.lm``'s ``init_params`` / ``forward`` / ``init_cache`` /
 ``decode_step``.
 
-Layers are a ``ModuleList`` (no stacked scan).  The MoE, hybrid, VLM
-and enc-dec families raise ``NotImplementedError`` (ROADMAP.md queue 1,
-"The rest of the model zoo").
+Layers are a ``ModuleList`` (no stacked scan).  The hybrid and enc-dec
+families raise ``NotImplementedError`` (ROADMAP.md queue 1, "The rest of
+the model zoo").
 """
 from __future__ import annotations
 
@@ -15,9 +15,10 @@ from repro_torch.device import resolve_device
 from repro_torch.models import ssm
 from repro_torch.models.common import (MLP, UNPORTED, Attention, ModelCfg,
                                        init_rope, param, rms_norm)
+from repro_torch.models.moe import MoE
 
 MAX_ROPE = 1 << 16
-FAMILIES = ("dense", "rwkv")
+FAMILIES = ("dense", "moe", "vlm", "rwkv")
 
 
 def block_kinds(cfg: ModelCfg) -> list[str]:
@@ -50,8 +51,8 @@ def scan_unit(cfg: ModelCfg) -> tuple[int, int]:
 
 
 class Block(nn.Module):
-    """Pre-norm residual block: attention + MLP, or RWKV time mix +
-    channel mix."""
+    """Pre-norm residual block: attention + MLP (``attn``), attention +
+    MoE (``attn_moe``), or RWKV time mix + channel mix (``rwkv``)."""
 
     def __init__(self, cfg: ModelCfg, kind: str, *, device, generator=None):
         super().__init__()
@@ -62,6 +63,9 @@ class Block(nn.Module):
         if kind == "attn":
             self.attn = Attention(cfg, **kw)
             self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.dtype, **kw)
+        elif kind == "attn_moe":
+            self.attn = Attention(cfg, **kw)
+            self.moe = MoE(cfg, **kw)
         elif kind == "rwkv":
             self.tmix = ssm.RWKV6TimeMix(cfg, **kw)
             self.cmix = ssm.RWKVChannelMix(cfg, **kw)
@@ -69,8 +73,10 @@ class Block(nn.Module):
             raise NotImplementedError(f"block kind {kind!r}: {UNPORTED}")
 
     def forward(self, x, rope=None, positions=None, cache=None,
-                cache_len: int = 0):
-        """``cache`` (decode) is this layer's dict, updated in place."""
+                cache_len: int = 0, with_aux: bool = False):
+        """Returns ``(x, aux)``: ``aux`` is the MoE load-balance loss when
+        ``with_aux`` and the kind is ``attn_moe``, else None.  ``cache``
+        (decode) is this layer's dict, updated in place."""
         eps = self.cfg.norm_eps
         if self.kind == "rwkv":
             h, shift, wkv = self.tmix(rms_norm(x, self.ln1, eps), cache)
@@ -81,10 +87,13 @@ class Block(nn.Module):
                 cache["shift"].copy_(shift)
                 cache["wkv"].copy_(wkv)
                 cache["cshift"].copy_(cshift)
-            return x + h
+            return x + h, None
         x = x + self.attn(rms_norm(x, self.ln1, eps), rope, positions,
                           kv_cache=cache, cache_len=cache_len)
-        return x + self.mlp(rms_norm(x, self.ln2, eps))
+        if self.kind == "attn_moe":
+            h, aux = self.moe(rms_norm(x, self.ln2, eps), with_aux)
+            return x + h, aux
+        return x + self.mlp(rms_norm(x, self.ln2, eps)), None
 
 
 class LM(nn.Module):
@@ -108,7 +117,7 @@ class LM(nn.Module):
             Block(cfg, kinds[i % len(kinds)], **kw)
             for i in range(cfg.n_layers))
         cos = sin = None
-        if "attn" in kinds:   # built once per model, shared by every step
+        if any(k.startswith("attn") for k in kinds):   # once per model
             cos, sin = init_rope(cfg.d_head, MAX_ROPE, cfg.rope_theta,
                                  device=dev)
         self.register_buffer("rope_cos", cos, persistent=False)
@@ -126,25 +135,35 @@ class LM(nn.Module):
         return rms_norm(x, self.ln_f, self.cfg.norm_eps) @ self.out
 
     @torch.no_grad()
-    def forward(self, tokens):
-        """Training / prefill forward.  tokens: [B, S] int.  Returns logits
-        [B, S, vocab_padded]."""
+    def forward(self, tokens, *, prefix_embed=None, with_aux: bool = False):
+        """Training / prefill forward.  tokens: [B, S] int; prefix_embed:
+        [B, Np, d] VLM patch embeddings put before the tokens' (positions
+        run over all ``Np + S``).  Returns logits [B, Np + S,
+        vocab_padded], and with ``with_aux`` also the summed MoE aux loss
+        (a 0-d f32 tensor), as the reference returns ``(logits, aux)``."""
         x = self.embed[tokens.long()]
+        if prefix_embed is not None:
+            x = torch.cat([prefix_embed.to(x.dtype), x], dim=1)
         B, S, _ = x.shape
         positions = torch.arange(S, device=x.device).expand(B, S)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device) \
+            if with_aux else None
         for blk in self.blocks:
-            x = blk(x, self.rope, positions)
-        return self._head(x)
+            x, a = blk(x, self.rope, positions, with_aux=with_aux)
+            if a is not None:
+                aux = aux + a
+        logits = self._head(x)
+        return (logits, aux) if with_aux else logits
 
     def init_cache(self, batch: int, max_len: int) -> dict:
         """Decode cache: ``{"layers": [one dict per layer], "len": int}``;
-        an attention layer holds ``k``/``v`` [batch, max_len, n_kv,
-        d_head], an RWKV layer ``shift``/``cshift`` [batch, d] and ``wkv``
-        [batch, H, 64, 64] f32."""
+        an attention layer (``attn``, ``attn_moe``) holds ``k``/``v``
+        [batch, max_len, n_kv, d_head], an RWKV layer ``shift``/``cshift``
+        [batch, d] and ``wkv`` [batch, H, 64, 64] f32."""
         cfg, dev = self.cfg, self.device
         layers = []
         for blk in self.blocks:
-            if blk.kind == "attn":
+            if blk.kind.startswith("attn"):
                 shape = (batch, max_len, cfg.n_kv, cfg.d_head)
                 layers.append({n: torch.zeros(shape, dtype=cfg.dtype,
                                               device=dev) for n in "kv"})
@@ -163,11 +182,17 @@ class LM(nn.Module):
     def decode_step(self, tokens, cache):
         """One decode step.  tokens: [B, 1].  Updates ``cache`` in place
         (the reference donates it) and returns (logits [B, 1, V], cache)."""
+        return self.decode_embeds(self.embed[tokens.long()], cache)
+
+    @torch.no_grad()
+    def decode_embeds(self, x, cache):
+        """``decode_step`` from embeddings x: [B, 1, d] (a VLM prefix row
+        goes through the cache this way)."""
         n = cache["len"]
-        x = self.embed[tokens.long()]
+        x = x.to(self.cfg.dtype)
         B = x.shape[0]
         pos = torch.full((B, 1), n, dtype=torch.long, device=x.device)
         for blk, lc in zip(self.blocks, cache["layers"]):
-            x = blk(x, self.rope, pos, cache=lc, cache_len=n)
+            x, _ = blk(x, self.rope, pos, cache=lc, cache_len=n)
         cache["len"] = n + 1
         return self._head(x), cache

@@ -8,12 +8,15 @@ from repro_torch.models.lm import LM
 
 
 def make_prefill_step(model: LM, max_len: int):
-    """Serve prefill: ``batch["tokens"]`` [B, S] -> logits of the last
-    position [B, 1, V].  As in the reference, it is the full forward and
-    populates no cache; ``max_len`` is kept for the reference's
-    signature."""
+    """Serve prefill: ``batch["tokens"]`` [B, S] (and, for the VLM family,
+    ``batch["prefix_embed"]`` [B, Np, d]) -> logits of the last position
+    [B, 1, V].  As in the reference, it is the full forward and populates
+    no cache; ``max_len`` is kept for the reference's signature."""
+    vlm = model.cfg.family == "vlm"
+
     def prefill(batch):
-        return model(batch["tokens"])[:, -1:]
+        kw = {"prefix_embed": batch["prefix_embed"]} if vlm else {}
+        return model(batch["tokens"], **kw)[:, -1:]
 
     return prefill
 

@@ -188,6 +188,7 @@ def test_port_imports_without_jax_or_reference():
     mods = set(out.stdout.split())
     assert len(mods) >= 40                       # every module was imported
     for m in ("models.common", "models.lm", "models.ssm", "models.convert",
+              "models.moe",
               "configs.phi3_medium_14b", "configs.rwkv6_7b", "train.step",
               "launch.serve", "kernels.ops", "net.sim.engine",
               "net.sim.failures", "net.policies.ugal", "net.policies.flicr",

@@ -31,6 +31,7 @@ from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.net.sim import build as B  # noqa: E402
 from repro_torch.net.sim import engine as E  # noqa: E402
 from repro_torch.net.sim import failures as FF  # noqa: E402
+from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.models.lm import LM  # noqa: E402
 from repro_torch.net.topology.dragonfly import make_dragonfly  # noqa: E402
 
@@ -508,8 +509,13 @@ def test_flash_attention_kernel(cuda, B, Sq, Sk, Hq, Hkv, D, window,
     (2, 1, 1024, 8, 2, 128, 0, 64, ("split", "split")),
     (2, 1, 1024, 8, 2, 128, 0, 1000, ("split", "split")),
     (2, 1, 100, 8, 2, 64, 16, 300, ("split", "split")),    # no unmasked key
+    (2, 100, 100, 14, 2, 128, 0, 0, ("wgmma", "simt")),    # G = 7: 64 % 7
+    (1, 300, 300, 14, 2, 128, 64, 0, ("wgmma", "simt")),   # G = 7, window
+    (2, 100, 100, 4, 4, 128, 0, 0, ("wgmma", "simt")),     # G = 1
+    (2, 1, 1024, 14, 2, 128, 0, 700, ("split", "split")),  # decode, G = 7
 ], ids=["rows_ragged", "sk_ragged", "d64", "window", "offset", "decode_0",
-        "decode_63", "decode_64", "decode_1000", "decode_all_masked"])
+        "decode_63", "decode_64", "decode_1000", "decode_all_masked", "g7",
+        "g7_window", "g1", "decode_g7"])
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_flash_attention_paths(cuda, B, Sq, Sk, Hq, Hkv, D, window, q_offset,
                                paths, dtype):
@@ -559,14 +565,22 @@ def test_rwkv6_chunked_kernel(cuda, B, S, H, chunk, lo, dtype):
 
 
 @pytest.mark.parametrize("arch", ["phi3_medium_14b", "qwen2_5_32b",
-                                  "granite_34b", "rwkv6_7b"])
+                                  "granite_34b", "rwkv6_7b",
+                                  "deepseek_moe_16b", "mixtral_8x7b",
+                                  "llava_next_34b"])
 def test_reduced_model_on_card_equals_cpu(cuda, arch):
     cfg = dataclasses.replace(C.get_reduced(arch), dtype=torch.float32)
     cpu = LM(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
     gpu = copy.deepcopy(cpu).to(cuda)
     toks = torch.as_tensor(RNG.integers(0, cfg.vocab, (2, 40)))
+    pe = {}
+    if cfg.family == "vlm":
+        pe["prefix_embed"] = torch.as_tensor(np.random.default_rng(5).normal(
+            0, 1, (2, cfg.n_patches, cfg.d_model)), dtype=torch.float32)
     ops.reset_launches()
-    _close(gpu(toks[:, :32].to(cuda)), cpu(toks[:, :32]), 1e-4)
+    _close(gpu(toks[:, :32].to(cuda),
+               **{k: v.to(cuda) for k, v in pe.items()}),
+           cpu(toks[:, :32], **pe), 1e-4)
     cg, cc = gpu.init_cache(2, 16), cpu.init_cache(2, 16)
     for i in range(8):
         tok = toks[:, 32 + i:33 + i]
@@ -574,3 +588,26 @@ def test_reduced_model_on_card_equals_cpu(cuda, arch):
                cpu.decode_step(tok, cc)[0], 1e-4)
     kernel = "rwkv6_chunked" if cfg.family == "rwkv" else "flash_attention"
     assert ops.LAUNCHES[kernel] > 0
+
+
+@pytest.mark.parametrize("kind", ["random", "ties"])
+@pytest.mark.parametrize("t,E,k", [(4, 64, 6), (4096, 64, 6), (37, 8, 2),
+                                   (4608, 8, 2)])
+def test_moe_dispatch_on_card_equals_cpu(cuda, kind, t, E, k):
+    """The sort dispatch's buffers, ``dst``, ``keep``, gates, counts and
+    top-k experts on the card equal the CPU's for the same probabilities
+    (stable sorts, lowest-index-first ties, the sentinel row never
+    read)."""
+    rng = np.random.default_rng(t + E + k)
+    logits = (rng.normal(0, 1, (t, E)) if kind == "random"
+              else rng.integers(0, 2, (t, E)).astype(np.float64))
+    probs = torch.softmax(torch.as_tensor(logits, dtype=torch.float32), -1)
+    xt = torch.as_tensor(rng.normal(0, 1, (t, 32)), dtype=torch.bfloat16)
+    cap = MOE.capacity(1.25, k, t, E)
+    want = MOE.local_dispatch(xt, probs, k, cap, E)
+    got = MOE.local_dispatch(xt.to(cuda), probs.to(cuda), k, cap, E)
+    names = ("buf", "dst", "keep", "gate", "counts", "topi")
+    assert len(got) == len(want) == len(names)
+    for name, g, w in zip(names, got, want):
+        assert g.device.type == "cuda", name
+        assert torch.equal(g.cpu(), w), name

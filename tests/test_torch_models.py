@@ -1,7 +1,9 @@
-"""The port's model zoo (dense and RWKV families) vs the JAX reference.
+"""The port's model zoo (dense, MoE, VLM and RWKV families) vs the JAX
+reference.
 
 Reduced configs, weights drawn by ``repro.models.lm.init_params`` and
-carried into the port by ``convert.from_jax_params``; tokens from numpy.
+carried into the port by ``convert.from_jax_params``; tokens (and the
+VLM's patch embeddings) from numpy.
 On the CPU attention runs ``ops.flash_attention``'s plain version and
 RWKV prefill ``ops.rwkv6_chunked``'s.  Tolerances: 1e-4 in f32 (sums in
 another order), 5e-2 in bf16 (the frameworks round bf16 products at other
@@ -25,11 +27,13 @@ from repro_torch import configs as TC  # noqa: E402
 from repro_torch.models import common as TCOM  # noqa: E402
 from repro_torch.models import convert  # noqa: E402
 from repro_torch.models import lm as TLM  # noqa: E402
+from repro_torch.models import moe as TMOE  # noqa: E402
 from repro_torch.train import step as TSTEP  # noqa: E402
 
-ARCHS = ["phi3_medium_14b", "qwen2_5_32b", "granite_34b", "rwkv6_7b"]
-UNPORTED = ["mixtral_8x7b", "deepseek_moe_16b", "jamba_1_5_large",
-            "llava_next_34b", "whisper_small"]
+ARCHS = ["phi3_medium_14b", "qwen2_5_32b", "granite_34b", "rwkv6_7b",
+         "deepseek_moe_16b", "mixtral_8x7b", "llava_next_34b"]
+MOE_ARCHS = ["deepseek_moe_16b", "mixtral_8x7b"]
+UNPORTED = ["jamba_1_5_large", "whisper_small"]
 TOL = 1e-4
 
 
@@ -42,21 +46,49 @@ def _tok(cfg, B, S, seed):
         .astype(np.int32)
 
 
+def _dropless(cfg):
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=float(cfg.moe.n_experts)))
+
+
 class Pair:
     """One reduced architecture on both sides with the same weights."""
 
-    def __init__(self, arch, bf16=False):
+    def __init__(self, arch, bf16=False, dropless=False):
         jdt, tdt = ((jnp.bfloat16, torch.bfloat16) if bf16
                     else (jnp.float32, torch.float32))
         self.jcfg = dataclasses.replace(JC.get_reduced(arch), dtype=jdt)
         self.tcfg = dataclasses.replace(TC.get_reduced(arch), dtype=tdt)
+        if dropless:
+            self.jcfg, self.tcfg = _dropless(self.jcfg), _dropless(self.tcfg)
         self.params = JLM.init_params(jax.random.PRNGKey(0), self.jcfg)
         self.model = convert.from_jax_params(
             self.tcfg, jax.tree.map(np.asarray, self.params), device="cpu")
-        self.jfwd = jax.jit(lambda p, t: JLM.forward(p, self.jcfg, t,
-                                                     remat=False)[0])
+        self.jfwd = jax.jit(lambda p, t, **kw: JLM.forward(
+            p, self.jcfg, t, remat=False, **kw))
         self.jdec = jax.jit(lambda p, t, c: JLM.decode_step(p, self.jcfg, t,
                                                             c))
+
+    def prefix(self, B):
+        """{} or, for the VLM, numpy patch embeddings [B, Np, d] under
+        ``prefix_embed``."""
+        if self.jcfg.family != "vlm":
+            return {}
+        return {"prefix_embed": np.random.default_rng(17).normal(
+            0, 1, (B, self.jcfg.n_patches, self.jcfg.d_model))
+            .astype(np.float32)}
+
+    def both(self, toks):
+        """Logits and aux of the reference and of the port on ``toks``
+        (with the VLM's prefix)."""
+        pe = self.prefix(toks.shape[0])
+        want, waux = self.jfwd(self.params, jnp.asarray(toks),
+                               **{k: jnp.asarray(v, self.jcfg.dtype)
+                                  for k, v in pe.items()})
+        got, aux = self.model(torch.from_numpy(toks), with_aux=True,
+                              **{k: torch.from_numpy(v)
+                                 for k, v in pe.items()})
+        return want, waux, got, aux
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -67,10 +99,12 @@ def pair(request):
 @pytest.mark.parametrize("S", [16, 24])   # rwkv: chunked / per-token path
 def test_forward_matches_reference(pair, S):
     toks = _tok(pair.jcfg, 2, S, seed=S)
-    want = pair.jfwd(pair.params, jnp.asarray(toks))
-    got = pair.model(torch.from_numpy(toks))
-    assert got.shape == (2, S, pair.tcfg.vocab_padded)
+    want, waux, got, aux = pair.both(toks)
+    assert got.shape == (2, pair.tcfg.n_patches + S, pair.tcfg.vocab_padded)
     np.testing.assert_allclose(got.numpy(), _np(want), rtol=TOL, atol=TOL)
+    assert aux.dtype == torch.float32
+    np.testing.assert_allclose(float(aux), float(waux), rtol=1e-5, atol=0)
+    assert (float(aux) > 0) == (pair.tcfg.moe is not None)
 
 
 def test_decode_from_carried_cache_matches_reference(pair):
@@ -103,10 +137,13 @@ def test_decode_from_carried_cache_matches_reference(pair):
 
 def test_prefill_step_matches_reference(pair):
     toks = _tok(pair.jcfg, 2, 32, seed=7)
+    pe = pair.prefix(2)
     want = JSTEP.make_prefill_step(pair.jcfg, 64)(
-        pair.params, {"tokens": jnp.asarray(toks)})
+        pair.params, {"tokens": jnp.asarray(toks),
+                      **{k: jnp.asarray(v) for k, v in pe.items()}})
     got = TSTEP.make_prefill_step(pair.model, 64)(
-        {"tokens": torch.from_numpy(toks)})
+        {"tokens": torch.from_numpy(toks),
+         **{k: torch.from_numpy(v) for k, v in pe.items()}})
     assert got.shape == (2, 1, pair.tcfg.vocab_padded)
     np.testing.assert_allclose(got.numpy(), _np(want), rtol=TOL, atol=TOL)
 
@@ -124,23 +161,135 @@ def test_serve_step_matches_reference(pair):
         np.testing.assert_allclose(got.numpy(), _np(want), rtol=TOL, atol=TOL)
 
 
-@pytest.mark.parametrize("arch", ["phi3_medium_14b", "rwkv6_7b"])
+NEAR_TIE = 5e-3
+
+
+def _moe_inputs(model) -> dict:
+    """Forward pre-hooks on the model's MoE layers: the returned dict
+    holds, by layer, each one's input of its latest call."""
+    seen = {}
+    for i, blk in enumerate(model.blocks):
+        if getattr(blk, "moe", None) is not None:
+            blk.moe.register_forward_pre_hook(
+                lambda m, args, i=i: seen.__setitem__(i, args[0]))
+    return seen
+
+
+def _before_near_tie(model, seen, T):
+    """How many tokens, in the dispatch's token order, precede the first
+    one whose k-th and (k+1)-th router probabilities lie within
+    ``NEAR_TIE`` in some MoE layer of the model's last call (``seen``
+    holds the layers' inputs; ``T`` when none does, or the model has no
+    MoE).  In bf16 the two frameworks round the residual stream at other
+    places, which may swap such a near tie; that changes the token's
+    experts, the capacity left to every later token, and (through
+    attention) later positions.  Tokens before it are routed alike on
+    both sides."""
+    first = T
+    for i, x in seen.items():
+        moe = model.blocks[i].moe
+        k = moe.me.top_k
+        probs = TMOE.route(x.reshape(-1, x.shape[-1]), moe.router)
+        p = torch.sort(probs, dim=-1, descending=True).values
+        near = torch.nonzero(p[:, k - 1] - p[:, k] < NEAR_TIE)
+        if len(near):
+            first = min(first, int(near[0, 0]))
+    return first
+
+
+# token seeds whose routing keeps clear of near ties for at least half
+# the forward's 32 positions and half the decode steps: seed 1, the other
+# archs', meets one at DeepSeek-MoE's forward token 6 and Mixtral's 5;
+# seeds 7 and 5 first at tokens 26 and 25
+BF16_SEEDS = {"deepseek_moe_16b": 7, "mixtral_8x7b": 5}
+
+
+@pytest.mark.parametrize("arch", ["phi3_medium_14b", "rwkv6_7b",
+                                  "deepseek_moe_16b", "mixtral_8x7b",
+                                  "llava_next_34b"])
 def test_bf16_forward_and_decode(arch):
+    """bf16 within 5e-2; for the MoE archs over the tokens before the
+    first near tie of the routing (``_before_near_tie``): the forward's
+    positions in token order, then each decode step's rows until one
+    holds a near tie.  At least half the forward's positions and half
+    the decode steps are compared (``BF16_SEEDS``)."""
     p = Pair(arch, bf16=True)
-    toks = _tok(p.jcfg, 2, 16, seed=1)
-    want = p.jfwd(p.params, jnp.asarray(toks))
-    got = p.model(torch.from_numpy(toks))
+    seen = _moe_inputs(p.model)
+    toks = _tok(p.jcfg, 2, 16, seed=BF16_SEEDS.get(arch, 1))
+    want, _, got, _ = p.both(toks)
     assert got.dtype == torch.bfloat16
-    np.testing.assert_allclose(got.float().numpy(), _np(want), rtol=5e-2,
+    V = got.shape[-1]
+    T = got.shape[0] * got.shape[1]
+    n = _before_near_tie(p.model, seen, T)
+    assert n >= T // 2, (n, T)
+    np.testing.assert_allclose(got.float().numpy().reshape(-1, V)[:n],
+                               _np(want).reshape(-1, V)[:n], rtol=5e-2,
                                atol=5e-2)
     jcache = JLM.init_cache(p.jcfg, 2, 8)
     cache = p.model.init_cache(2, 8)
-    for i in range(4):
+    steps = 4
+    for i in range(steps):
         want, jcache = p.jdec(p.params, jnp.asarray(toks[:, i:i + 1]), jcache)
         got, cache = p.model.decode_step(torch.from_numpy(toks[:, i:i + 1]),
                                          cache)
-        np.testing.assert_allclose(got.float().numpy(), _np(want), rtol=5e-2,
-                                   atol=5e-2)
+        n = _before_near_tie(p.model, seen, 2)
+        np.testing.assert_allclose(got.float().numpy()[:n], _np(want)[:n],
+                                   rtol=5e-2, atol=5e-2)
+        if n < 2:
+            break
+    assert i + (n == 2) >= steps // 2, (i, n)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_prefill_matches_decode_dropless(arch):
+    """With a dropless capacity factor (as ``tests/test_models.py`` sets
+    it: capacity drops legitimately differ between T tokens routed
+    together and one), the port's forward logits equal its step-by-step
+    decode logits at every position, and both equal the reference's."""
+    p = Pair(arch, dropless=True)
+    toks = _tok(p.jcfg, 2, 12, seed=21)
+    want, _, full, _ = p.both(toks)
+    np.testing.assert_allclose(full.numpy(), _np(want), rtol=TOL, atol=TOL)
+    cache = p.model.init_cache(2, 12)
+    for i in range(12):
+        lg, cache = p.model.decode_step(torch.from_numpy(toks[:, i:i + 1]),
+                                        cache)
+        np.testing.assert_allclose(lg[:, 0].numpy(), full[:, i].numpy(),
+                                   rtol=TOL, atol=TOL, err_msg=str(i))
+
+
+def test_vlm_prefix_through_the_cache_matches_forward():
+    """LLaVA: the prefix rows through ``decode_embeds``, then the tokens
+    through ``decode_step``, give the forward's logits at every
+    position."""
+    p = Pair("llava_next_34b")
+    toks = _tok(p.jcfg, 2, 6, seed=23)
+    pe = p.prefix(2)["prefix_embed"]
+    _, _, full, _ = p.both(toks)
+    Np = p.tcfg.n_patches
+    cache = p.model.init_cache(2, Np + 6)
+    steps = [p.model.decode_embeds(torch.from_numpy(pe[:, i:i + 1]), cache)[0]
+             for i in range(Np)]
+    steps += [p.model.decode_step(torch.from_numpy(toks[:, i:i + 1]),
+                                  cache)[0] for i in range(6)]
+    got = torch.cat(steps, dim=1)
+    np.testing.assert_allclose(got.numpy(), full.numpy(), rtol=TOL, atol=TOL)
+
+
+def test_mixtral_decode_past_its_window_matches_reference():
+    """Reduced Mixtral has a 64-token sliding window: 80 decode steps on
+    both sides, the last 16 with keys cut by the window."""
+    p = Pair("mixtral_8x7b")
+    assert p.tcfg.sliding_window == 64
+    toks = _tok(p.jcfg, 2, 80, seed=29)
+    jcache = JLM.init_cache(p.jcfg, 2, 80)
+    cache = p.model.init_cache(2, 80)
+    for i in range(80):
+        want, jcache = p.jdec(p.params, jnp.asarray(toks[:, i:i + 1]), jcache)
+        got, cache = p.model.decode_step(torch.from_numpy(toks[:, i:i + 1]),
+                                         cache)
+        np.testing.assert_allclose(got.numpy(), _np(want), rtol=TOL, atol=TOL,
+                                   err_msg=str(i))
 
 
 @pytest.mark.parametrize("arch", UNPORTED)
