@@ -99,7 +99,11 @@ Phases (any failure exits non-zero before the final line):
    plain versions at the serving path's shapes (prefill and decode, bf16
    and f32; bf16 also at LLaVA's 56 / 8 heads over 1,600 positions,
    DeepSeek-MoE's 16 / 16 and Mixtral's 32 / 8 with its 4,096 window
-   over 1 x 4,608, each on the path phase 8 takes) and at ragged,
+   over 1 x 4,608, each on the path phase 8 takes; bf16 and f32 at
+   Jamba's 64 / 8 heads, prefill and decode, and at Whisper's 12 / 12
+   heads of 64: the encoder over 4 x 1,500 frames and the cross-attention
+   of a 4 x 448 prefill and of a decode row to them, not causal, and the
+   decoder's causal 4 x 448) and at ragged,
    sliding-window and strong-decay cases, within
    the tolerances of ``tests/test_kernels.py``, each bf16 attention case
    also within 2x of SDPA's max and mean error against the f32 reference,
@@ -109,8 +113,9 @@ Phases (any failure exits non-zero before the final line):
    SDPA (at decode also SDPA over the visible keys alone) and RWKV-6 from
    torch.profiler; each RWKV-6 case prints its dynamic shared memory and
    the kernel's ptxas registers and spills;
-6. card against CPU: the reduced Phi-3, RWKV-6, DeepSeek-MoE, Mixtral
-   and LLaVA (with seeded patch embeddings) configs in f32 on ``cuda``
+6. card against CPU: the reduced Phi-3, RWKV-6, DeepSeek-MoE, Mixtral,
+   LLaVA (with seeded patch embeddings), Jamba and Whisper (with seeded
+   frames [2, 64, d]) configs in f32 on ``cuda``
    (kernels) and on ``cpu`` (plain versions) from the same weights,
    prefill and 16 decode steps, logits within 1e-4; every MoE layer's
    integer dispatch (top-k experts, ``keep``, ``dst``, ``counts``) on the
@@ -120,10 +125,13 @@ Phases (any failure exits non-zero before the final line):
    logits equal the step-by-step decode logits at every position (the
    MoE archs with a dropless capacity factor, since capacity drops differ
    between T tokens and one; LLaVA with its 576 patch embeddings put
-   through the cache by ``decode_embeds``);
+   through the cache by ``decode_embeds``; Jamba's attention and Mamba +
+   MoE layers; Whisper's 2 decoder and 2 encoder layers over 1,500
+   seeded frames, encoded in every decode step);
 8. serving path: Phi-3-medium-14B (40 layers), RWKV-6-7B (32 layers),
    DeepSeek-MoE-16B (28 layers), Mixtral-8x7B (its width, 16 of its 32
-   layers: whole it is ~93 GB of bf16) and LLaVA-NeXT-34B (60 layers)
+   layers: whole it is ~93 GB of bf16), LLaVA-NeXT-34B (60 layers) and
+   Jamba-1.5-Large (its width, 4 of its 72 layers: every block kind)
    in bf16, random weights from a seeded generator on the card:
    ``make_prefill_step`` on 4 x 1,024 tokens (LLaVA after 4 x 576 seeded
    patch embeddings), then a 4-slot ``Server`` answering 8 requests of 64
@@ -134,6 +142,11 @@ Phases (any failure exits non-zero before the final line):
    per-expert demand behind the drops (each layer's input taken by a
    forward pre-hook, its dispatch recomputed); Mixtral
    also runs one 1 x 4,608-token prefill, past its 4,096-token window;
+   Whisper-small whole (12 + 12 layers), which the ``Server`` refuses,
+   through the steps: a 4 x 448-token prefill over 4 x 1,500 seeded
+   frame embeddings, then 64 greedy decode steps on 4 slots with the
+   frames in each batch (the encoder, wgmma, in every step; self- and
+   cross-attention on the split path);
 9. the script's wall time, a JSON line of kernel numbers, then the final
    JSON line.
 
@@ -195,10 +208,17 @@ SERVE_ARCHS = {"phi3_medium_14b": "flash_attention",
                "rwkv6_7b": "rwkv6_chunked",
                "deepseek_moe_16b": "flash_attention",
                "mixtral_8x7b": "flash_attention",
-               "llava_next_34b": "flash_attention"}
+               "llava_next_34b": "flash_attention",
+               "jamba_1_5_large": "flash_attention",
+               "whisper_small": "flash_attention"}
 # phase 8's depth cuts (widths stay published): Mixtral-8x7B's 32 layers
-# are ~93 GB of bf16, over the card's 80 GB
-SERVE_LAYERS = {"mixtral_8x7b": 16}
+# are ~93 GB of bf16, over the card's 80 GB; Jamba-1.5-Large's first 4
+# layers (attention, Mamba + MoE, Mamba, Mamba + MoE: every block kind)
+# are ~46 GB, its whole 8-layer unit ~90 GB
+SERVE_LAYERS = {"mixtral_8x7b": 16, "jamba_1_5_large": 4}
+# Whisper-small's serving shapes: 1,500 frames (n_audio_ctx, 30 s of
+# audio) and 448 decoder positions (n_text_ctx), arXiv:2212.04356
+WHISPER_FRAMES, WHISPER_TEXT = 1500, 448
 
 
 def fail(msg: str) -> None:
@@ -729,21 +749,27 @@ def check_model_kernels(ops, ref, torch, np, rwkv_smem,
     def sdpa(q, k, v, kw):
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         Sq, Sk = q.shape[1], k.shape[1]
+        if not kw["causal"] and not kw["sliding_window"]:
+            return lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, enable_gqa=True).transpose(1, 2)
         if kw["q_offset"] == 0 and Sq == Sk and not kw["sliding_window"]:
             return lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, enable_gqa=True).transpose(1, 2)
         qpos = kw["q_offset"] + torch.arange(Sq, device=dev)[:, None]
         kpos = torch.arange(Sk, device=dev)[None, :]
-        mask = kpos <= qpos
+        mask = (kpos <= qpos if kw["causal"] else
+                torch.ones((Sq, Sk), dtype=torch.bool, device=dev))
         if kw["sliding_window"]:
             mask &= kpos > qpos - kw["sliding_window"]
         return lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, enable_gqa=True).transpose(1, 2)
 
     def sdpa_visible(q, k, v, kw):
-        """SDPA over only the keys a decode row sees, [0, q_offset + 1),
-        unmasked: the same work as the split path's."""
-        kend = min(k.shape[1], kw["q_offset"] + 1)
+        """SDPA over only the keys a decode row sees, [0, q_offset + 1)
+        (all of them when not causal), unmasked: the same work as the
+        split path's."""
+        kend = (min(k.shape[1], kw["q_offset"] + 1) if kw["causal"]
+                else k.shape[1])
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k[:, :kend],
                                                   v[:, :kend]))
         return lambda: F.scaled_dot_product_attention(
@@ -771,6 +797,7 @@ def check_model_kernels(ops, ref, torch, np, rwkv_smem,
     # ---- flash attention: the serving path's shapes, then ragged ones
     B, S, Hq, Hkv, D = 4, 1024, 40, 10, 128
     cases = [  # (label, Sq, Sk, B, Hq, Hkv, D, dtype, window, q_offset)
+        # [, causal]: causal unless a case says otherwise
         ("prefill bf16", S, S, B, Hq, Hkv, D, torch.bfloat16, 0, 0),
         ("prefill bf16 D=64", S, S, B, Hq, Hkv, 64, torch.bfloat16, 0, 0),
         ("prefill f32", S, S, B, Hq, Hkv, D, torch.float32, 0, 0),
@@ -794,11 +821,27 @@ def check_model_kernels(ops, ref, torch, np, rwkv_smem,
         ("window 4096 bf16 32/8", 4608, 4608, 1, 32, 8, D, torch.bfloat16,
          4096, 0),
     ]
+    # Jamba-1.5-Large's 64 / 8 heads; Whisper-small's 12 / 12 heads of 64:
+    # its encoder over 1,500 frames and its cross-attention (prefill and
+    # decode) to them, not causal, and its decoder's causal self-attention
+    Te, St = WHISPER_FRAMES, WHISPER_TEXT
+    for dt, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        cases += [
+            (f"prefill {name} 64/8", S, S, B, 64, 8, D, dt, 0, 0),
+            (f"decode {name} 64/8", 1, S, B, 64, 8, D, dt, 0, 700),
+            (f"whisper encoder {name}", Te, Te, B, 12, 12, 64, dt, 0, 0,
+             False),
+            (f"whisper decoder {name}", St, St, B, 12, 12, 64, dt, 0, 0),
+            (f"whisper cross prefill {name}", St, Te, B, 12, 12, 64, dt, 0,
+             0, False),
+            (f"whisper cross decode {name}", 1, Te, B, 12, 12, 64, dt, 0, 0,
+             False)]
     worst = 0.0
-    for label, sq, sk, b, hq, hkv, d, dt, win, off in cases:
+    for label, sq, sk, b, hq, hkv, d, dt, win, off, *nc in cases:
+        causal = not nc or nc[0]
         q, k, v = rand((b, sq, hq, d), dt), rand((b, sk, hkv, d), dt), \
             rand((b, sk, hkv, d), dt)
-        kw = dict(causal=True, sliding_window=win, q_offset=off)
+        kw = dict(causal=causal, sliding_window=win, q_offset=off)
         ops.reset_launches()
         got = ops.flash_attention(q, k, v, **kw)
         path = next(p for p, n in ops.FLASH_PATHS.items() if n)
@@ -823,7 +866,7 @@ def check_model_kernels(ops, ref, torch, np, rwkv_smem,
             e32 = bf16_errors(label, got, lib_out, q, k, v, kw)
         del lib_out
         worst = max(worst, e)
-        flops, nb = attention_work(q, k, causal=True, window=win,
+        flops, nb = attention_work(q, k, causal=causal, window=win,
                                    q_offset=off)
         kind = "bf16" if dt == torch.bfloat16 else "f32"
         bms, by = bound_ms(flops, nb, kind)
@@ -856,7 +899,8 @@ def check_model_kernels(ops, ref, torch, np, rwkv_smem,
             extra += (f"; SDPA on the visible keys alone, device "
                       f"{row['library_visible_device_ms']:.4f} ms")
         print(f"kernel flash_attention {label} {tuple(q.shape)} x "
-              f"{tuple(k.shape)}: path {path}; max err {e:.3g} (tol "
+              f"{tuple(k.shape)}{'' if causal else ' not causal'}: path "
+              f"{path}; max err {e:.3g} (tol "
               f"{tol}), SDPA err "
               f"{e_lib:.3g}; kernel {row['ms']:.4f} ms, plain "
               f"{row['plain_ms']:.4f} ms, SDPA {row['library_ms']:.4f} ms; "
@@ -917,15 +961,21 @@ def moe_layers(model) -> list:
             if getattr(blk, "moe", None) is not None]
 
 
-def prefix_of(cfg, B, torch, np, seed=4, device="cpu") -> dict:
+def prefix_of(cfg, B, torch, np, seed=4, device="cpu", Te=64) -> dict:
     """{} or, for the VLM, seeded patch embeddings [B, Np, d] under
-    ``prefix_embed``."""
-    if cfg.family != "vlm":
+    ``prefix_embed``; for the enc-dec family seeded frame embeddings
+    [B, Te, d] under ``enc_frames``."""
+    n = {"vlm": cfg.n_patches, "encdec": Te}.get(cfg.family)
+    if n is None:
         return {}
-    pe = np.random.default_rng(seed).normal(0, 1, (B, cfg.n_patches,
-                                                    cfg.d_model))
-    return {"prefix_embed": torch.as_tensor(pe, dtype=cfg.dtype,
-                                            device=device)}
+    pe = np.random.default_rng(seed).normal(0, 1, (B, n, cfg.d_model))
+    key = "prefix_embed" if cfg.family == "vlm" else "enc_frames"
+    return {key: torch.as_tensor(pe, dtype=cfg.dtype, device=device)}
+
+
+def frames_of(inputs: dict) -> dict:
+    """The decode steps' share of ``prefix_of``'s inputs: the frames."""
+    return {k: v for k, v in inputs.items() if k == "enc_frames"}
 
 
 def moe_inputs(model) -> tuple[dict, list]:
@@ -1008,7 +1058,8 @@ def drop_text(st) -> str:
 
 def card_vs_cpu(C, LM, step, torch, np) -> None:
     """Phase 6: the reduced configs in f32 on the card (kernels) and on
-    the CPU (plain versions), same weights; prefill and 16 decode steps.
+    the CPU (plain versions), same weights; prefill and 16 decode steps
+    (the enc-dec family with seeded frames [2, 64, d] in each).
     Tolerance 1e-4: only summation orders differ (TF32 is off).  The MoE
     layers' dispatch must be equal on both for the same input."""
     for arch in SERVE_ARCHS:
@@ -1034,9 +1085,10 @@ def card_vs_cpu(C, LM, step, torch, np) -> None:
         aux_err = abs(float(ag) - float(ac))
         cg, cc = gpu.init_cache(2, 80), cpu.init_cache(2, 80)
         sg, sc = step.make_serve_step(gpu), step.make_serve_step(cpu)
+        fr, fr_gpu = frames_of(pe), frames_of(pe_gpu)
         for i in range(16):
-            lg, cg = sg(cg, {"tokens": gen[:, i:i + 1].cuda()})
-            lc, cc = sc(cc, {"tokens": gen[:, i:i + 1]})
+            lg, cg = sg(cg, {"tokens": gen[:, i:i + 1].cuda(), **fr_gpu})
+            lc, cc = sc(cc, {"tokens": gen[:, i:i + 1], **fr})
             errs.append(float((lg.cpu() - lc).abs().max()))
             n_disp += same_dispatch(cpu, gpu, seen,
                                     f"{arch} reduced decode {i}", torch)
@@ -1047,8 +1099,7 @@ def card_vs_cpu(C, LM, step, torch, np) -> None:
         extra = (f"; MoE dispatch equal on {n_disp} (token, expert) "
                  f"assignments over {len(moe_layers(cpu))} layers, aux "
                  f"error {aux_err:.3g}" if moe_layers(cpu) else "")
-        extra += (f"; prefix {tuple(pe['prefix_embed'].shape)}"
-                  if pe else "")
+        extra += "".join(f"; {k} {tuple(v.shape)}" for k, v in pe.items())
         print(f"card vs cpu {arch} reduced f32: prefill [2, 64] + 16 decode "
               f"steps, max logit error {e:.3g} (tol 1e-4){extra}",
               flush=True)
@@ -1067,13 +1118,16 @@ FULL_WIDTH_TOL = 2e-4
 
 
 def prefill_vs_decode(C, LM, torch, np) -> None:
-    """Phase 7: full published widths, depth cut to 2 layers, f32.  The
+    """Phase 7: full published widths, depth cut to 2 layers (Whisper: 2
+    decoder and 2 encoder layers over 1,500 seeded frames), f32.  The
     MoE archs run dropless (capacity factor = n_experts); LLaVA's patch
     embeddings go through the cache one row a step (``decode_embeds``)
     before the tokens."""
     for arch in SERVE_ARCHS:
         cfg = dataclasses.replace(C.get_config(arch), n_layers=2,
                                   dtype=torch.float32)
+        if cfg.n_enc_layers:
+            cfg = dataclasses.replace(cfg, n_enc_layers=2)
         if cfg.moe is not None:
             cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
                 cfg.moe, capacity_factor=float(cfg.moe.n_experts)))
@@ -1082,9 +1136,10 @@ def prefill_vs_decode(C, LM, torch, np) -> None:
         B, S = 2, 64
         toks = torch.as_tensor(np.random.default_rng(3).integers(
             0, cfg.vocab, (B, S)), device="cuda")
-        pe = prefix_of(cfg, B, torch, np, device="cuda")
+        pe = prefix_of(cfg, B, torch, np, device="cuda", Te=WHISPER_FRAMES)
+        fr = frames_of(pe)
         full = model(toks, **pe)
-        Np = cfg.n_patches if pe else 0
+        Np = cfg.n_patches if "prefix_embed" in pe else 0
         cache = model.init_cache(B, Np + S)
         e = 0.0
         for i in range(Np + S):
@@ -1093,14 +1148,17 @@ def prefill_vs_decode(C, LM, torch, np) -> None:
                     pe["prefix_embed"][:, i:i + 1], cache)
             else:
                 lg, cache = model.decode_step(toks[:, i - Np:i - Np + 1],
-                                              cache)
+                                              cache, **fr)
             e = max(e, float((lg[:, 0] - full[:, i]).abs().max()))
         scale = float(full.abs().max())
         if not e <= FULL_WIDTH_TOL:
             fail(f"{arch} full width: prefill and decode differ by {e:.3g}")
         how = ((f", dropless (capacity factor {cfg.moe.capacity_factor})"
                 if cfg.moe is not None else "")
-               + (f", {Np} patch embeddings first" if Np else ""))
+               + (f", {Np} patch embeddings first" if Np else "")
+               + "".join(f", {cfg.n_enc_layers} encoder layers over frames "
+                         f"{tuple(v.shape)} in every step"
+                         for v in fr.values()))
         print(f"prefill vs decode {arch} full width 2 layers f32: [{B}, {S}]"
               f"{how}, max logit error {e:.3g} (tol {FULL_WIDTH_TOL}; max "
               f"|logit| {scale:.3g})", flush=True)
@@ -1232,6 +1290,110 @@ def serve_path(arch, C, Server, step, ops, torch, np, card,
         print(f"profile {arch}: host syncs in one prefill {syncs[0]}; in "
               f"one decode step {syncs[1]}", flush=True)
     del srv, logits, prefill, inner, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def serve_encdec(arch, C, Server, step, ops, torch, np, card,
+                 profile=False) -> dict:
+    """Phase 8 for the enc-dec family, which the ``Server`` refuses (the
+    reference's passes no frames): the whole published config in bf16,
+    4 x ``WHISPER_FRAMES`` seeded frame embeddings in place of the conv
+    front end, a 4 x ``WHISPER_TEXT``-token prefill (cold, then warm),
+    then 64 greedy decode steps of the serve step on 4 slots with the
+    frames in every batch and a cache of ``WHISPER_TEXT``; the host reads
+    each step's tokens, as the ``Server`` does.  Every decode step runs
+    the encoder again (as the reference's does): its attention on the
+    wgmma path, the decoder's self- and cross-attention on the split
+    path."""
+    from repro_torch.models.lm import LM
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg = C.get_config(arch)
+    model = LM(cfg, device="cuda",
+               generator=torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"serve {arch}: {cfg.n_layers} decoder and {cfg.n_enc_layers} "
+          f"encoder layers (whole), d_model {cfg.d_model}, {n_params} "
+          f"parameters ({cfg.param_count():.4g} by ModelCfg.param_count), "
+          f"{cfg.dtype}, initialised on the card in "
+          f"{time.perf_counter() - t0:.1f} s; memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    Te, St, B = WHISPER_FRAMES, WHISPER_TEXT, 4
+    frames = torch.randn((B, Te, cfg.d_model),
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(1), dtype=cfg.dtype, device="cuda")
+    prompts = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (B, St)), device="cuda")
+    batch = {"tokens": prompts, "enc_frames": frames}
+    prefill = step.make_prefill_step(model, St)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    walls = []
+    for _ in range(2):          # cold, then warm
+        t0 = time.perf_counter()
+        logits = prefill(batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    if logits.shape != (B, 1, cfg.vocab_padded) or \
+            not bool(torch.isfinite(logits).all()):
+        fail(f"{arch}: prefill logits {tuple(logits.shape)} not finite")
+    prefill_paths = dict(ops.FLASH_PATHS)
+    n_attn = cfg.n_enc_layers + 2 * cfg.n_layers
+    if prefill_paths != {"wgmma": 2 * n_attn, "split": 0, "simt": 0}:
+        fail(f"{arch}: prefill attention paths {prefill_paths}; want "
+             f"wgmma {2 * n_attn} (encoder, self- and cross-attention)")
+    serve = step.make_serve_step(model)
+    cache = model.init_cache(B, St)
+    tok = prompts[:, :1]
+    steps = 64
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        lg, cache = serve(cache, {"tokens": tok, "enc_frames": frames})
+        if not bool(torch.isfinite(lg).all()):
+            fail(f"{arch}: decode logits not finite")
+        tok = lg[:, -1, :cfg.vocab].argmax(-1)[:, None]
+        tok.cpu()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(ops.LAUNCHES)
+    decode_paths = {p: n - prefill_paths[p]
+                    for p, n in ops.FLASH_PATHS.items()}
+    want = {"wgmma": steps * cfg.n_enc_layers,
+            "split": steps * 2 * cfg.n_layers, "simt": 0}
+    if decode_paths != want or cache["len"] != steps:
+        fail(f"{arch}: decode attention paths {decode_paths} (want {want})"
+             f", cache length {cache['len']}")
+    peak = torch.cuda.max_memory_allocated()
+    ms = 1e3 * wall / steps
+    print(f"serve {arch}: prefill {B} x {St} tokens over {B} x {Te} frames "
+          f"in {walls[0]:.3f} s cold, {walls[1]:.3f} s warm = "
+          f"{B * St / walls[1]:.1f} tokens/s ({B * (St + Te) / walls[1]:.1f}"
+          f" positions/s); decode {steps} steps on {B} slots, the encoder "
+          f"in each, {ms:.2f} ms/step, {B * steps} tokens in {wall:.3f} s = "
+          f"{B * steps / wall:.1f} tokens/s; peak memory {peak / 1e9:.2f} "
+          f"GB; launches {counts} ({sum(want.values()) // steps} attention "
+          f"launches a decode step); attention paths prefill "
+          f"{prefill_paths} decode {decode_paths}; card {card}", flush=True)
+    if profile:
+        profile_block(f"{arch} prefill {B} x {St}", lambda: prefill(batch),
+                      walls[1], torch, host_top=6)
+
+        def decode8():
+            c = model.init_cache(B, St)
+            t = prompts[:, :1]
+            for _ in range(8):
+                lg, c = serve(c, {"tokens": t, "enc_frames": frames})
+                t = lg[:, -1, :cfg.vocab].argmax(-1)[:, None]
+                t.cpu()
+        profile_block(f"{arch} decode x 8", decode8, 8 * ms / 1e3, torch,
+                      host_top=6)
+    del model, cache, logits, lg, prefill, serve, batch, frames
     gc.collect()
     torch.cuda.empty_cache()
     return counts
@@ -1539,8 +1701,10 @@ def main() -> None:
     # 8. serving path, full published configs
     serve_launches = {}
     for arch, kernel in SERVE_ARCHS.items():
-        serve_launches[arch] = serve_path(arch, C, Server, STEP, ops, torch,
-                                          np, card, profile)[kernel]
+        serve = (serve_encdec if C.get_config(arch).family == "encdec"
+                 else serve_path)
+        serve_launches[arch] = serve(arch, C, Server, STEP, ops, torch, np,
+                                     card, profile)[kernel]
         launches[kernel] += serve_launches[arch]
 
     # 9. result lines
@@ -1557,7 +1721,8 @@ def main() -> None:
     flash["path"] = nums["flash prefill bf16"]["path"]
     for key in ("device_ms", "library_device_ms"):
         flash[key] = nums["flash prefill bf16"][key]
-    for label in ("decode bf16", "window 4096 f32"):
+    for label in ("decode bf16", "window 4096 f32", "whisper encoder bf16",
+                  "whisper cross prefill bf16", "whisper cross decode bf16"):
         key = label.replace(" ", "_")
         flash[f"{key}_ms"] = nums[f"flash {label}"]["ms"]
         flash[f"{key}_library_ms"] = nums[f"flash {label}"]["library_ms"]

@@ -25,7 +25,9 @@ class Server:
     the card unless ``device`` names another; weights are drawn from a
     ``torch.Generator`` seeded with ``seed`` on that device.  ``n_layers``
     cuts the config's depth (its widths stay), for a model whose every
-    layer does not fit the card."""
+    layer does not fit the card.  The enc-dec family is refused: the
+    reference's ``Server`` passes no frames, so its encoder has no
+    input; it is served through ``train.step``'s steps instead."""
 
     def __init__(self, arch: str, *, device=None, slots: int = 4,
                  max_len: int = 96, reduced: bool = True, seed: int = 0,
@@ -33,6 +35,12 @@ class Server:
         dev = resolve_device(device)
         self.device = dev
         self.cfg = C.get_reduced(arch) if reduced else C.get_config(arch)
+        if self.cfg.family == "encdec":
+            raise ValueError(
+                f"{arch}: the Server passes no enc_frames, so the encdec "
+                f"family's encoder has no input; serve it through "
+                f"make_prefill_step / make_serve_step with "
+                f"batch['enc_frames']")
         if n_layers is not None:
             self.cfg = dataclasses.replace(self.cfg, n_layers=n_layers)
         gen = torch.Generator(device=dev).manual_seed(seed)

@@ -145,8 +145,9 @@ def apply_rope(x, cos, sin, positions):
 
 
 class Attention(nn.Module):
-    """GQA self-attention with RoPE (reference ``init_attn`` /
-    ``apply_attn``); the core is ``ops.flash_attention``."""
+    """GQA attention with RoPE (reference ``init_attn`` / ``apply_attn``):
+    self-attention, causal or not, or cross-attention to an encoder's
+    output; the core is ``ops.flash_attention`` in every case."""
 
     def __init__(self, cfg: ModelCfg, *, device, generator=None):
         super().__init__()
@@ -165,22 +166,28 @@ class Attention(nn.Module):
             self.bk = param((dkv,), fill=0.0, **kw)
             self.bv = param((dkv,), fill=0.0, **kw)
 
-    def forward(self, x, rope, positions, kv_cache=None, cache_len: int = 0):
+    def forward(self, x, rope, positions, kv_cache=None, cache_len: int = 0,
+                causal: bool = True, xattn_kv=None):
         """x: [B, S, d].  ``kv_cache`` (decode): dict(k, v) of
         [B, max_len, n_kv, d_head], written in place at ``cache_len``
         (the reference donates its cache); attention then runs over the
-        whole cache with ``q_offset = cache_len``."""
+        whole cache with ``q_offset = cache_len``.  ``xattn_kv`` [B, Se,
+        d] (cross-attention): k and v come from it, with no RoPE and no
+        cache."""
         cfg = self.cfg
         B, S, _ = x.shape
-        q, k, v = x @ self.wq, x @ self.wk, x @ self.wv
+        src = x if xattn_kv is None else xattn_kv
+        Se = src.shape[1]
+        q, k, v = x @ self.wq, src @ self.wk, src @ self.wv
         if cfg.qkv_bias:
             q, k, v = q + self.bq, k + self.bk, v + self.bv
         q = q.reshape(B, S, cfg.n_heads, cfg.d_head)
-        k = k.reshape(B, S, cfg.n_kv, cfg.d_head)
-        v = v.reshape(B, S, cfg.n_kv, cfg.d_head)
-        cos, sin = rope
-        q = apply_rope(q, cos, sin, positions)
-        k = apply_rope(k, cos, sin, positions)
+        k = k.reshape(B, Se, cfg.n_kv, cfg.d_head)
+        v = v.reshape(B, Se, cfg.n_kv, cfg.d_head)
+        if xattn_kv is None:
+            cos, sin = rope
+            q = apply_rope(q, cos, sin, positions)
+            k = apply_rope(k, cos, sin, positions)
         q_offset = 0
         if kv_cache is not None:
             max_len = kv_cache["k"].shape[1]
@@ -191,7 +198,7 @@ class Attention(nn.Module):
             kv_cache["v"][:, cache_len:cache_len + S] = v
             k, v, q_offset = kv_cache["k"], kv_cache["v"], cache_len
         out = ops.flash_attention(q.contiguous(), k.contiguous(),
-                                  v.contiguous(), causal=True,
+                                  v.contiguous(), causal=causal,
                                   sliding_window=cfg.sliding_window,
                                   q_offset=q_offset)
         return out.reshape(B, S, cfg.d_qkv) @ self.wo

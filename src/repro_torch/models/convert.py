@@ -4,7 +4,9 @@ The reference's trees hold numpy arrays (``jax.tree.map(np.asarray,
 tree)``); nothing here imports jax.  ``params["blocks"]`` is a list, one
 entry per position in the scan unit, whose leaves are stacked over units:
 layer ``unit * u + pos`` of the port is ``blocks[pos]`` at index
-``unit``.  Layouts match, so nothing is transposed.
+``unit``.  The enc-dec family's ``enc_blocks`` is one tree stacked over
+encoder layers: encoder layer ``e`` is index ``e``.  Layouts match, so
+nothing is transposed.
 """
 from __future__ import annotations
 
@@ -26,13 +28,16 @@ def to_tensor(arr, *, device) -> torch.Tensor:
     return torch.from_numpy(arr).to(device)
 
 
+def _index(t, i: int):
+    """Index ``i`` of every leaf of the stacked tree ``t``."""
+    if isinstance(t, dict):
+        return {k: _index(v, i) for k, v in t.items()}
+    return t[i]
+
+
 def _layer(stacked, l: int, u: int):
     """Layer ``l``'s slice of the reference's per-position stacked trees."""
-    def walk(t, unit):
-        if isinstance(t, dict):
-            return {k: walk(v, unit) for k, v in t.items()}
-        return t[unit]
-    return walk(stacked[l % u], l // u)
+    return _index(stacked[l % u], l // u)
 
 
 def _flatten(tree, prefix=""):
@@ -47,10 +52,14 @@ def from_jax_params(cfg: ModelCfg, tree, *, device) -> LM:
     """An ``LM`` holding the reference parameter tree ``tree``."""
     model = LM(cfg, device=device)
     _, u = scan_unit(cfg)
-    flat = {k: tree[k] for k in ("embed", "out", "ln_f")}
+    flat = {k: tree[k] for k in ("embed", "out", "ln_f", "enc_ln_f")
+            if k in tree}
     for l in range(cfg.n_layers):
         for k, v in _flatten(_layer(tree["blocks"], l, u)):
             flat[f"blocks.{l}.{k}"] = v
+    for e in range(cfg.n_enc_layers if "enc_blocks" in tree else 0):
+        for k, v in _flatten(_index(tree["enc_blocks"], e)):
+            flat[f"enc_blocks.{e}.{k}"] = v
     own = dict(model.named_parameters())
     if own.keys() != flat.keys():
         raise ValueError(f"parameter names differ: only in the port "
@@ -77,8 +86,10 @@ def cache_from_jax(cfg: ModelCfg, tree, *, device) -> dict:
         elif "rwkv" in c:
             d = {"shift": c["rwkv"]["shift"], "wkv": c["rwkv"]["wkv"],
                  "cshift": c["cshift"]}
+        elif "mamba" in c:
+            d = {"conv": c["mamba"]["conv"], "ssm": c["mamba"]["ssm"]}
         else:
-            raise NotImplementedError(f"cache entries {sorted(c)} of family "
-                                      f"{cfg.family!r}")
+            raise ValueError(f"cache entries {sorted(c)} of family "
+                             f"{cfg.family!r}")
         layers.append({k: to_tensor(v, device=device) for k, v in d.items()})
     return {"layers": layers, "len": int(tree["len"])}

@@ -1,10 +1,14 @@
-"""RWKV-6 "Finch" blocks (data-dependent decay): the RWKV half of the
-reference's ``repro.models.ssm``.
+"""State-space / linear-recurrence blocks: the port of the reference's
+``repro.models.ssm``.
 
-Prefill (S > 1, S divisible by the chunk) runs the chunked recurrence
-through ``ops.rwkv6_chunked``; decode (or a ragged S) runs the exact
-per-token recurrence.  Mamba waits for the hybrid family (ROADMAP.md
-queue 1, "The rest of the model zoo").
+Mamba (Jamba's hybrid stack) is torch ops: the reference has no Pallas
+kernel for it.  Its parallel form scans 256-token chunks, each chunk's
+decays and drives built inside the loop and its states written over its
+drives, so no tensor spans the whole sequence's [S, d_in, d_state].
+
+RWKV-6 "Finch" (data-dependent decay): prefill (S > 1, S divisible by
+the chunk) runs the chunked recurrence through ``ops.rwkv6_chunked``;
+decode (or a ragged S) runs the exact per-token recurrence.
 """
 from __future__ import annotations
 
@@ -18,6 +22,76 @@ from repro_torch.models.common import ModelCfg, param
 
 HD = 64     # RWKV-6 head size, fixed as in the reference
 CHUNK = 16  # the reference model's chunk (its Pallas wrapper defaults to 64)
+SCAN_CHUNK = 256  # Mamba's parallel scan: tokens a chunk, as the reference
+
+
+class Mamba(nn.Module):
+    """Reference ``init_mamba`` / ``apply_mamba``: d_in = 2 d, a causal
+    depthwise conv of width 4, a selective scan over ``d_state``."""
+
+    def __init__(self, cfg: ModelCfg, *, device, generator=None):
+        super().__init__()
+        self.cfg = cfg
+        d, ds = cfg.d_model, cfg.d_state
+        d_in = 2 * d
+        s = float(1.0 / np.sqrt(d))
+        kw = dict(dtype=cfg.dtype, device=device, generator=generator)
+        f32 = dict(kw, dtype=torch.float32)
+        self.in_proj = param((d, 2 * d_in), scale=s, **kw)
+        self.conv_w = param((4, d_in), scale=0.2, **kw)
+        self.x_proj = param((d_in, 2 * ds + 1), scale=s, **kw)
+        self.dt_bias = param((d_in,), fill=0.0, **f32)
+        a = torch.arange(1, ds + 1, dtype=torch.float32, device=device)
+        self.A_log = nn.Parameter(torch.log(a).repeat(d_in, 1),
+                                  requires_grad=False)
+        self.D = param((d_in,), fill=1.0, **f32)
+        self.out_proj = param((d_in, d), scale=s, **kw)
+
+    def forward(self, x, state=None):
+        """x: [B, S, d]; state: None (parallel form) or dict(conv [B, 3,
+        d_in] in ``cfg.dtype``, ssm [B, d_in, d_state] f32) for one decode
+        token.  Returns (out [B, S, d], new state dict)."""
+        B, S, _ = x.shape
+        ds = self.cfg.d_state
+        if state is not None and S != 1:
+            raise ValueError(f"Mamba's recurrent form takes one token, got "
+                             f"S = {S}")
+        xs, z = (x @ self.in_proj).chunk(2, dim=-1)
+        d_in = xs.shape[-1]
+        head = (torch.zeros((B, 3, d_in), dtype=xs.dtype, device=x.device)
+                if state is None else state["conv"].to(xs.dtype))
+        xpad = torch.cat([head, xs], dim=1)
+        # the causal depthwise conv, summed in the reference's order, in
+        # cfg.dtype
+        xc = xpad[:, 0:S] * self.conv_w[0]
+        for i in range(1, 4):
+            xc = xc + xpad[:, i:i + S] * self.conv_w[i]
+        xc = torch.nn.functional.silu(xc)
+        proj = (xc @ self.x_proj).float()
+        Bm, Cm, dt = proj[..., :ds], proj[..., ds:2 * ds], proj[..., -1:]
+        # the mean of the whole dt_bias, as the reference takes it
+        dt = torch.nn.functional.softplus(dt + self.dt_bias.mean())
+        A = -torch.exp(self.A_log)                           # [d_in, ds]
+        xcf = xc.float()
+        h = (torch.zeros((B, d_in, ds), dtype=torch.float32, device=x.device)
+             if state is None else state["ssm"])
+        ys = []
+        for c0 in range(0, S, SCAN_CHUNK):
+            sl = slice(c0, min(c0 + SCAN_CHUNK, S))
+            # h_t = exp(dt A) h_{t-1} + dt B_t x_t, in place over the drives
+            dtc = dt[:, sl, :, None]                         # [B, C, 1, 1]
+            decay = torch.exp(dtc * A)                       # [B, C, d_in, ds]
+            hs = (dtc * Bm[:, sl, None, :]) * xcf[:, sl, :, None]
+            for t in range(hs.shape[1]):
+                hs[:, t].addcmul_(decay[:, t], h)
+                h = hs[:, t]
+            ys.append(torch.einsum("bcen,bcn->bce", hs, Cm[:, sl]))
+            h = h.clone()                    # free the chunk's buffers
+            del decay, hs
+        y = torch.cat(ys, dim=1) if len(ys) > 1 else ys[0]
+        y = y + xcf * self.D
+        y = y.to(x.dtype) * torch.nn.functional.silu(z)
+        return y @ self.out_proj, {"conv": xpad[:, -3:], "ssm": h}
 
 
 def _shifted(x, last):

@@ -199,7 +199,7 @@ def test_port_imports_without_jax_or_reference():
               "exp.workloads", "exp.packet", "exp.openloop", "exp.host",
               "exp.runner", "exp.__main__", "exp.flow", "exp.cross",
               "exp.report", "fabric", "fabric.flowsim", "fabric.bridge",
-              "device"):
+              "device", "core", "core.spritz"):
         assert f"repro_torch.{m}" in mods, m
 
 
@@ -215,3 +215,21 @@ def test_port_sources_name_no_jax_or_reference():
     for f in files:
         assert not pat.search(f.read_text()), f
         assert not named.search(f.read_text()), f
+
+
+def test_core_spritz_reexports_the_policy_module():
+    """``repro_torch.core.spritz`` holds every name ``repro.core.spritz``
+    re-exports, each the port's policy-layer object."""
+    from repro.core import spritz as JCS
+    from repro_torch.core import spritz as TCS
+    from repro_torch.net.policies import base as TPB
+    from repro_torch.net.policies import spritz as TPS
+    names = [n for n in vars(JCS) if not n.startswith("__")
+             and n not in ("annotations",)]
+    assert len(names) >= 18
+    for n in names:
+        want = (TPB.weighted_sample_rows if n == "_weighted_sample"
+                else getattr(TPS, n))
+        assert getattr(TCS, n) is want, n
+    assert (TCS.ACK_OK, TCS.ACK_ECN, TCS.NACK, TCS.TIMEOUT, TCS.NO_FB) == \
+        (JCS.ACK_OK, JCS.ACK_ECN, JCS.NACK, JCS.TIMEOUT, JCS.NO_FB)

@@ -466,7 +466,7 @@ def _within_2x_sdpa(got, q, k, v, kw):
     Sq, Sk = q[0].shape[1], k[0].shape[1]
     qpos = kw["q_offset"] + torch.arange(Sq)[:, None]
     kpos = torch.arange(Sk)[None, :]
-    keep = kpos <= qpos
+    keep = kpos <= qpos if kw["causal"] else torch.ones((Sq, Sk), dtype=bool)
     if kw["sliding_window"]:
         keep &= kpos > qpos - kw["sliding_window"]
     bias = torch.zeros((Sq, Sk)).masked_fill(~keep, -1e30)
@@ -498,34 +498,41 @@ def test_flash_attention_kernel(cuda, B, Sq, Sk, Hq, Hkv, D, window,
         _within_2x_sdpa(got, q, k, v, kw)
 
 
-@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,window,q_offset,paths", [
-    (2, 200, 200, 8, 2, 128, 0, 0, ("wgmma", "simt")),     # 800 rows: ragged
-    (2, 100, 300, 8, 2, 64, 0, 200, ("wgmma", "simt")),    # Sk % 64, offset
-    (2, 128, 128, 8, 2, 64, 0, 0, ("wgmma", "simt")),      # D = 64
-    (1, 256, 256, 8, 2, 128, 64, 0, ("wgmma", "simt")),    # window
-    (1, 64, 1000, 8, 2, 128, 0, 900, ("wgmma", "simt")),   # chunk past a cache
-    (2, 1, 1024, 8, 2, 128, 0, 0, ("split", "split")),     # decode, G = 4
-    (2, 1, 1024, 8, 2, 128, 0, 63, ("split", "split")),
-    (2, 1, 1024, 8, 2, 128, 0, 64, ("split", "split")),
-    (2, 1, 1024, 8, 2, 128, 0, 1000, ("split", "split")),
-    (2, 1, 100, 8, 2, 64, 16, 300, ("split", "split")),    # no unmasked key
-    (2, 100, 100, 14, 2, 128, 0, 0, ("wgmma", "simt")),    # G = 7: 64 % 7
-    (1, 300, 300, 14, 2, 128, 64, 0, ("wgmma", "simt")),   # G = 7, window
-    (2, 100, 100, 4, 4, 128, 0, 0, ("wgmma", "simt")),     # G = 1
-    (2, 1, 1024, 14, 2, 128, 0, 700, ("split", "split")),  # decode, G = 7
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,window,q_offset,paths,causal", [
+    (2, 200, 200, 8, 2, 128, 0, 0, ("wgmma", "simt"), True),  # 800 rows
+    (2, 100, 300, 8, 2, 64, 0, 200, ("wgmma", "simt"), True),  # Sk % 64
+    (2, 128, 128, 8, 2, 64, 0, 0, ("wgmma", "simt"), True),    # D = 64
+    (1, 256, 256, 8, 2, 128, 64, 0, ("wgmma", "simt"), True),  # window
+    (1, 64, 1000, 8, 2, 128, 0, 900, ("wgmma", "simt"), True),  # past a cache
+    (2, 1, 1024, 8, 2, 128, 0, 0, ("split", "split"), True),   # decode, G 4
+    (2, 1, 1024, 8, 2, 128, 0, 63, ("split", "split"), True),
+    (2, 1, 1024, 8, 2, 128, 0, 64, ("split", "split"), True),
+    (2, 1, 1024, 8, 2, 128, 0, 1000, ("split", "split"), True),
+    (2, 1, 100, 8, 2, 64, 16, 300, ("split", "split"), True),  # all masked
+    (2, 100, 100, 14, 2, 128, 0, 0, ("wgmma", "simt"), True),  # G = 7
+    (1, 300, 300, 14, 2, 128, 64, 0, ("wgmma", "simt"), True),  # G 7, window
+    (2, 100, 100, 4, 4, 128, 0, 0, ("wgmma", "simt"), True),   # G = 1
+    (2, 1, 1024, 14, 2, 128, 0, 700, ("split", "split"), True),  # decode G 7
+    # non-causal (Whisper): cross-attention of a 448-token prefill to
+    # 1,500 frames (Sk % 64 = 28), of a decode row to them, and the
+    # encoder's self-attention over ragged frames
+    (1, 448, 1500, 12, 12, 64, 0, 0, ("wgmma", "simt"), False),
+    (2, 1, 1500, 12, 12, 64, 0, 0, ("split", "split"), False),
+    (2, 150, 150, 12, 12, 64, 0, 0, ("wgmma", "simt"), False),
 ], ids=["rows_ragged", "sk_ragged", "d64", "window", "offset", "decode_0",
         "decode_63", "decode_64", "decode_1000", "decode_all_masked", "g7",
-        "g7_window", "g1", "decode_g7"])
+        "g7_window", "g1", "decode_g7", "cross_prefill", "cross_decode",
+        "encoder"])
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_flash_attention_paths(cuda, B, Sq, Sk, Hq, Hkv, D, window, q_offset,
-                               paths, dtype):
+                               paths, causal, dtype):
     """Each case reaches the path it is meant for (``ops.FLASH_PATHS``)
     and agrees with the plain version."""
     dt = getattr(torch, dtype)
     q = _pair(RNG.normal(0, 1, (B, Sq, Hq, D)), dt, cuda)
     k = _pair(RNG.normal(0, 1, (B, Sk, Hkv, D)), dt, cuda)
     v = _pair(RNG.normal(0, 1, (B, Sk, Hkv, D)), dt, cuda)
-    kw = dict(causal=True, sliding_window=window, q_offset=q_offset)
+    kw = dict(causal=causal, sliding_window=window, q_offset=q_offset)
     want_path = paths[0] if dtype == "bfloat16" else paths[1]
     ops.reset_launches()
     got = ops.flash_attention(q[1], k[1], v[1], **kw)
@@ -567,25 +574,32 @@ def test_rwkv6_chunked_kernel(cuda, B, S, H, chunk, lo, dtype):
 @pytest.mark.parametrize("arch", ["phi3_medium_14b", "qwen2_5_32b",
                                   "granite_34b", "rwkv6_7b",
                                   "deepseek_moe_16b", "mixtral_8x7b",
-                                  "llava_next_34b"])
+                                  "llava_next_34b", "jamba_1_5_large",
+                                  "whisper_small"])
 def test_reduced_model_on_card_equals_cpu(cuda, arch):
     cfg = dataclasses.replace(C.get_reduced(arch), dtype=torch.float32)
     cpu = LM(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
     gpu = copy.deepcopy(cpu).to(cuda)
     toks = torch.as_tensor(RNG.integers(0, cfg.vocab, (2, 40)))
     pe = {}
+    fr = {}
     if cfg.family == "vlm":
         pe["prefix_embed"] = torch.as_tensor(np.random.default_rng(5).normal(
             0, 1, (2, cfg.n_patches, cfg.d_model)), dtype=torch.float32)
+    if cfg.family == "encdec":
+        fr["enc_frames"] = torch.as_tensor(np.random.default_rng(6).normal(
+            0, 1, (2, 64, cfg.d_model)), dtype=torch.float32)
+        pe.update(fr)
     ops.reset_launches()
     _close(gpu(toks[:, :32].to(cuda),
                **{k: v.to(cuda) for k, v in pe.items()}),
            cpu(toks[:, :32], **pe), 1e-4)
     cg, cc = gpu.init_cache(2, 16), cpu.init_cache(2, 16)
+    fr_gpu = {k: v.to(cuda) for k, v in fr.items()}
     for i in range(8):
         tok = toks[:, 32 + i:33 + i]
-        _close(gpu.decode_step(tok.to(cuda), cg)[0],
-               cpu.decode_step(tok, cc)[0], 1e-4)
+        _close(gpu.decode_step(tok.to(cuda), cg, **fr_gpu)[0],
+               cpu.decode_step(tok, cc, **fr)[0], 1e-4)
     kernel = "rwkv6_chunked" if cfg.family == "rwkv" else "flash_attention"
     assert ops.LAUNCHES[kernel] > 0
 

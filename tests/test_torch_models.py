@@ -1,9 +1,10 @@
-"""The port's model zoo (dense, MoE, VLM and RWKV families) vs the JAX
-reference.
+"""The port's model zoo (all six families: dense, MoE, VLM, hybrid,
+enc-dec, RWKV) vs the JAX reference.
 
 Reduced configs, weights drawn by ``repro.models.lm.init_params`` and
 carried into the port by ``convert.from_jax_params``; tokens (and the
-VLM's patch embeddings) from numpy.
+VLM's patch embeddings, the enc-dec family's frame embeddings) from
+numpy.
 On the CPU attention runs ``ops.flash_attention``'s plain version and
 RWKV prefill ``ops.rwkv6_chunked``'s.  Tolerances: 1e-4 in f32 (sums in
 another order), 5e-2 in bf16 (the frameworks round bf16 products at other
@@ -31,10 +32,11 @@ from repro_torch.models import moe as TMOE  # noqa: E402
 from repro_torch.train import step as TSTEP  # noqa: E402
 
 ARCHS = ["phi3_medium_14b", "qwen2_5_32b", "granite_34b", "rwkv6_7b",
-         "deepseek_moe_16b", "mixtral_8x7b", "llava_next_34b"]
-MOE_ARCHS = ["deepseek_moe_16b", "mixtral_8x7b"]
-UNPORTED = ["jamba_1_5_large", "whisper_small"]
+         "deepseek_moe_16b", "mixtral_8x7b", "llava_next_34b",
+         "jamba_1_5_large", "whisper_small"]
+MOE_ARCHS = ["deepseek_moe_16b", "mixtral_8x7b", "jamba_1_5_large"]
 TOL = 1e-4
+TE = 12     # the enc-dec family's frames a sequence
 
 
 def _np(a):
@@ -66,17 +68,39 @@ class Pair:
             self.tcfg, jax.tree.map(np.asarray, self.params), device="cpu")
         self.jfwd = jax.jit(lambda p, t, **kw: JLM.forward(
             p, self.jcfg, t, remat=False, **kw))
-        self.jdec = jax.jit(lambda p, t, c: JLM.decode_step(p, self.jcfg, t,
-                                                            c))
+        self.jdec = jax.jit(lambda p, t, c, **kw: JLM.decode_step(
+            p, self.jcfg, t, c, **kw))
 
     def prefix(self, B):
         """{} or, for the VLM, numpy patch embeddings [B, Np, d] under
-        ``prefix_embed``."""
-        if self.jcfg.family != "vlm":
-            return {}
-        return {"prefix_embed": np.random.default_rng(17).normal(
-            0, 1, (B, self.jcfg.n_patches, self.jcfg.d_model))
-            .astype(np.float32)}
+        ``prefix_embed``; for the enc-dec family numpy frame embeddings
+        [B, TE, d] under ``enc_frames``."""
+        fam, d = self.jcfg.family, self.jcfg.d_model
+        if fam == "vlm":
+            return {"prefix_embed": np.random.default_rng(17).normal(
+                0, 1, (B, self.jcfg.n_patches, d)).astype(np.float32)}
+        if fam == "encdec":
+            return {"enc_frames": np.random.default_rng(19).normal(
+                0, 1, (B, TE, d)).astype(np.float32)}
+        return {}
+
+    def frames(self, B):
+        """The decode steps' keyword arguments, as numpy: the enc-dec
+        family's frames, else none."""
+        pe = self.prefix(B)
+        return {k: v for k, v in pe.items() if k == "enc_frames"}
+
+    def jdecode(self, toks, jcache):
+        """One reference decode step on numpy tokens [B, 1]."""
+        kw = {k: jnp.asarray(v, self.jcfg.dtype)
+              for k, v in self.frames(toks.shape[0]).items()}
+        return self.jdec(self.params, jnp.asarray(toks), jcache, **kw)
+
+    def decode(self, toks, cache):
+        """One port decode step on numpy tokens [B, 1]."""
+        kw = {k: torch.from_numpy(v)
+              for k, v in self.frames(toks.shape[0]).items()}
+        return self.model.decode_step(torch.from_numpy(toks), cache, **kw)
 
     def both(self, toks):
         """Logits and aux of the reference and of the port on ``toks``
@@ -113,16 +137,13 @@ def test_decode_from_carried_cache_matches_reference(pair):
     toks = _tok(pair.jcfg, 2, 13, seed=3)
     jcache = JLM.init_cache(pair.jcfg, 2, 32)
     for i in range(5):
-        _, jcache = pair.jdec(pair.params, jnp.asarray(toks[:, i:i + 1]),
-                              jcache)
+        _, jcache = pair.jdecode(toks[:, i:i + 1], jcache)
     cache = convert.cache_from_jax(pair.tcfg, jax.tree.map(np.asarray, jcache),
                                    device="cpu")
     assert cache["len"] == 5
     for i in range(5, 13):
-        want, jcache = pair.jdec(pair.params, jnp.asarray(toks[:, i:i + 1]),
-                                 jcache)
-        got, cache = pair.model.decode_step(torch.from_numpy(toks[:, i:i + 1]),
-                                            cache)
+        want, jcache = pair.jdecode(toks[:, i:i + 1], jcache)
+        got, cache = pair.decode(toks[:, i:i + 1], cache)
         np.testing.assert_allclose(got.numpy(), _np(want), rtol=TOL, atol=TOL)
     assert cache["len"] == int(jcache["len"]) == 13
     carried = convert.cache_from_jax(pair.tcfg,
@@ -154,10 +175,14 @@ def test_serve_step_matches_reference(pair):
     tstep = TSTEP.make_serve_step(pair.model)
     jcache = JLM.init_cache(pair.jcfg, 3, 8)
     cache = pair.model.init_cache(3, 8)
+    fr = pair.frames(3)
     for i in range(4):
         want, jcache = jstep(pair.params, jcache,
-                             {"tokens": jnp.asarray(toks[:, i:i + 1])})
-        got, cache = tstep(cache, {"tokens": torch.from_numpy(toks[:, i:i + 1])})
+                             {"tokens": jnp.asarray(toks[:, i:i + 1]),
+                              **{k: jnp.asarray(v) for k, v in fr.items()}})
+        got, cache = tstep(cache, {"tokens": torch.from_numpy(toks[:, i:i + 1]),
+                                   **{k: torch.from_numpy(v)
+                                      for k, v in fr.items()}})
         np.testing.assert_allclose(got.numpy(), _np(want), rtol=TOL, atol=TOL)
 
 
@@ -200,13 +225,16 @@ def _before_near_tie(model, seen, T):
 # token seeds whose routing keeps clear of near ties for at least half
 # the forward's 32 positions and half the decode steps: seed 1, the other
 # archs', meets one at DeepSeek-MoE's forward token 6 and Mixtral's 5;
-# seeds 7 and 5 first at tokens 26 and 25
-BF16_SEEDS = {"deepseek_moe_16b": 7, "mixtral_8x7b": 5}
+# seeds 7 and 5 first at tokens 26 and 25; Jamba meets one at token 4
+# with seed 1 and none with seed 22 (forward or 4 decode steps)
+BF16_SEEDS = {"deepseek_moe_16b": 7, "mixtral_8x7b": 5,
+              "jamba_1_5_large": 22}
 
 
 @pytest.mark.parametrize("arch", ["phi3_medium_14b", "rwkv6_7b",
                                   "deepseek_moe_16b", "mixtral_8x7b",
-                                  "llava_next_34b"])
+                                  "llava_next_34b", "jamba_1_5_large",
+                                  "whisper_small"])
 def test_bf16_forward_and_decode(arch):
     """bf16 within 5e-2; for the MoE archs over the tokens before the
     first near tie of the routing (``_before_near_tie``): the forward's
@@ -229,9 +257,8 @@ def test_bf16_forward_and_decode(arch):
     cache = p.model.init_cache(2, 8)
     steps = 4
     for i in range(steps):
-        want, jcache = p.jdec(p.params, jnp.asarray(toks[:, i:i + 1]), jcache)
-        got, cache = p.model.decode_step(torch.from_numpy(toks[:, i:i + 1]),
-                                         cache)
+        want, jcache = p.jdecode(toks[:, i:i + 1], jcache)
+        got, cache = p.decode(toks[:, i:i + 1], cache)
         n = _before_near_tie(p.model, seen, 2)
         np.testing.assert_allclose(got.float().numpy()[:n], _np(want)[:n],
                                    rtol=5e-2, atol=5e-2)
@@ -252,8 +279,7 @@ def test_moe_prefill_matches_decode_dropless(arch):
     np.testing.assert_allclose(full.numpy(), _np(want), rtol=TOL, atol=TOL)
     cache = p.model.init_cache(2, 12)
     for i in range(12):
-        lg, cache = p.model.decode_step(torch.from_numpy(toks[:, i:i + 1]),
-                                        cache)
+        lg, cache = p.decode(toks[:, i:i + 1], cache)
         np.testing.assert_allclose(lg[:, 0].numpy(), full[:, i].numpy(),
                                    rtol=TOL, atol=TOL, err_msg=str(i))
 
@@ -292,11 +318,18 @@ def test_mixtral_decode_past_its_window_matches_reference():
                                    err_msg=str(i))
 
 
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_families_raise(arch):
-    cfg = dataclasses.replace(TC.get_reduced(arch), dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="The rest of the model zoo"):
-        TLM.LM(cfg, device="cpu")
+@pytest.mark.parametrize("arch", JC.ARCHS)
+def test_every_config_builds(arch):
+    """Every config of the registry builds an ``LM`` (reduced, f32) whose
+    parameter count is the reference's ``init_params``'s."""
+    jcfg = dataclasses.replace(JC.get_reduced(arch), dtype=jnp.float32)
+    tcfg = dataclasses.replace(TC.get_reduced(arch), dtype=torch.float32)
+    model = TLM.LM(tcfg, device="cpu",
+                   generator=torch.Generator().manual_seed(0))
+    shapes = jax.eval_shape(lambda: JLM.init_params(jax.random.PRNGKey(0),
+                                                    jcfg))
+    want = sum(int(np.prod(a.shape)) for a in jax.tree.leaves(shapes))
+    assert sum(p.numel() for p in model.parameters()) == want
 
 
 def test_tp_align_head_maps_raise():

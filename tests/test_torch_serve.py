@@ -6,10 +6,11 @@ port's model takes the reference server's weights through
 tokens in the same number of steps.  Argmax is exact only where the top
 two logits are apart, so the test asserts that every step of every
 active slot has a top-2 gap above 1e-3, far above the 1e-4 the logits
-may differ by; weight seed 39 is one whose gaps do so for RWKV-6 and
-Phi-3.  DeepSeek-MoE's gaps at seed 39 fall to 5e-4, so it takes the
-first seed whose gaps all clear 1e-3 (3); it routes every slot, the
-inactive ones too, with the tokens the reference feeds them.
+may differ by; weight seed 39 is one whose gaps do so for RWKV-6,
+Phi-3 and Jamba (its MoE layers inside Mamba blocks).  DeepSeek-MoE's
+gaps at seed 39 fall to 5e-4, so it takes the first seed whose gaps all
+clear 1e-3 (3); it routes every slot, the inactive ones too, with the
+tokens the reference feeds them.
 """
 import dataclasses
 import os
@@ -38,7 +39,7 @@ SEEDS = {"deepseek_moe_16b": 3}
 
 
 @pytest.mark.parametrize("arch", ["rwkv6_7b", "phi3_medium_14b",
-                                  "deepseek_moe_16b"])
+                                  "deepseek_moe_16b", "jamba_1_5_large"])
 def test_server_matches_reference(arch, monkeypatch):
     jcfg = dataclasses.replace(JC.get_reduced(arch), dtype=jnp.float32)
     tcfg = dataclasses.replace(TC.get_reduced(arch), dtype=torch.float32)
@@ -82,6 +83,13 @@ def test_server_cuts_depth_keeping_widths():
     assert srv.cfg == dataclasses.replace(full, n_layers=1)
     assert len(srv.model.blocks) == 1
     assert len(srv.cache["layers"]) == 1
+
+
+def test_server_refuses_the_encdec_family():
+    """The reference's ``Server`` passes no ``enc_frames``, so its encoder
+    has no input; the port's says so instead of serving Whisper."""
+    with pytest.raises(ValueError, match="passes no enc_frames"):
+        TSERVE.Server("whisper_small", device="cpu")
 
 
 def test_server_defaults_to_the_card():
