@@ -6,7 +6,7 @@
 Phases (any failure exits non-zero before the final line):
 
 1. card: name and power limit from nvidia-smi;
-2. build: compile the seven CUDA kernels from ``src/repro_torch`` with
+2. build: compile the eight CUDA kernels from ``src/repro_torch`` with
    nvcc for sm_90a, one process per source;
 3. tick kernel checks: each tick kernel against its plain torch version
    on the card, at the packet engine's DF-1056 shapes plus ragged sizes
@@ -112,7 +112,10 @@ Phases (any failure exits non-zero before the final line):
    ``scaled_dot_product_attention``, and the device times of attention,
    SDPA (at decode also SDPA over the visible keys alone) and RWKV-6 from
    torch.profiler; each RWKV-6 case prints its dynamic shared memory and
-   the kernel's ptxas registers and spills;
+   the kernel's ptxas registers and spills; every forward case at
+   q_offset 0 off the split path also runs ``ops.flash_attention_lse``
+   (the forward writing the row log-sum-exp, as training takes it), whose
+   o must equal the case's and whose LSE the plain one within 1e-3;
 6. card against CPU: the reduced Phi-3, RWKV-6, DeepSeek-MoE, Mixtral,
    LLaVA (with seeded patch embeddings), Jamba and Whisper (with seeded
    frames [2, 64, d]) configs in f32 on ``cuda``
@@ -147,7 +150,39 @@ Phases (any failure exits non-zero before the final line):
    frame embeddings, then 64 greedy decode steps on 4 slots with the
    frames in each batch (the encoder, wgmma, in every step; self- and
    cross-attention on the split path);
-9. the script's wall time, a JSON line of kernel numbers, then the final
+5b. (the training phases run after serving's, so that phase 8's peak
+   memory is serving's alone) attention's backward kernel
+   (``ops.flash_attention_bwd``: dQ, then dK / dV) against
+   ``ref.mha_backward_reference`` on the forward kernel's o and LSE:
+   MiniCPM-2B's training shape as phase 9 trains it (8 x 2,048, 36 / 36
+   heads of 64, causal) in bf16 and f32, Phi-3's 40 / 10 heads of 128
+   at 1 x 2,048, and ragged, non-causal Sq != Sk, windowed and causal
+   Sq < Sk cases; each case's LSE forward within 1e-3 of ``ref.mha_lse``
+   and its o equal to the serving launch's where both take one path;
+   f32 within 1e-4, bf16 within 5e-2 of each gradient's largest entry
+   and within 2x of SDPA's backward's max and mean error against the f32
+   plain backward; CUDA-event and profiler times of the kernel, the
+   plain version and SDPA's backward, the bound (2.5x the forward's
+   FLOPs; q, k, v, o, dO, dq, dk, dv and the LSE once), the kernel's
+   ptxas registers and spills;
+6b. training card against CPU: reduced MiniCPM, Phi-3 and LLaVA in f32,
+   the loss within 1e-4 and every gradient within 1e-4 of its largest
+   entry, then three train steps (the second with ``microbatch=2``),
+   each from the CPU's state: the parameters and AdamW's ``m`` / ``v``
+   within 1e-4 of each tensor's largest entry;
+9. training: MiniCPM-2B whole (40 layers, 3,008,289,024 parameters in
+   bf16, AdamW moments in f32) trained 8 steps of 8 x 2,048 tokens by
+   ``repro_torch.launch.train.train`` (WSD, remat): every loss finite and
+   the last below the first, attention's forward launched 80 times a
+   step (40 and 40 recomputed, all wgmma) and its backward 80 (40 x dQ
+   and dK / dV), no other kernel of the port; one line with the losses,
+   warm ms/step, tokens/s, model FLOP/s (6 N D without the embedding
+   table, attention's backward 2.5x its forward, remat's recomputation
+   left out) against 989 TFLOP/s, peak memory
+   and the card; then the reduced MiniCPM's restart check (6 steps
+   straight against 3, a checkpoint and a resume to 6: losses within
+   2e-4, whether bit-equal);
+10. the script's wall time, a JSON line of kernel numbers, then the final
    JSON line.
 
 ``--profile`` adds ``torch.profiler`` breakdowns of one warm engine
@@ -158,7 +193,10 @@ train cell, spritz_spray_w: busy share, launches and device time a
 water-fill level, the host ops with the most CPU time), and, per served
 model, of one prefill and 8 decode steps (busy share, launches, the
 kernels and host ops with the most time, and the synchronizing CUDA
-calls of one prefill and of one decode step).
+calls of one prefill and of one decode step), and of one MiniCPM-2B
+train step (device time by kind: GEMMs, attention forward and backward,
+the rest; the AdamW update and the loss's forward and backward timed
+apart).
 Imports torch and the port only, never jax nor the reference package.
 """
 from __future__ import annotations
@@ -199,6 +237,11 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
                       "src/repro/kernels/spritz_select.py:72"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:78"),
+    # attention's gradient (the reference trains through XLA's autodiff of
+    # its plain chunked attention, not through a Pallas kernel)
+    "flash_attention_bwd": (
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "src/repro/models/common.py:166"),
     "rwkv6_chunked": ("src/repro_torch/kernels/csrc/rwkv6_chunked.cu",
                       "src/repro/kernels/rwkv6_chunked.py:90"),
 }
@@ -852,6 +895,17 @@ def check_model_kernels(ops, ref, torch, np, rwkv_smem,
         if path != want_path:
             fail(f"flash_attention {label}: path {path}, want {want_path}")
         want = ref.mha_reference(q, k, v, **kw)
+        if off == 0 and path != "split":
+            # the forward a gradient is taken of: the same launch writing
+            # the row log-sum-exp too must give the same o
+            o2, lse = ops.flash_attention_lse(q, k, v, causal=causal,
+                                              sliding_window=win)
+            e_lse = err(lse, ref.mha_lse(q, k, causal=causal,
+                                         sliding_window=win))
+            if not torch.equal(o2, got) or e_lse > 1e-3:
+                fail(f"flash_attention {label}: with the LSE pointer o "
+                     f"equal {torch.equal(o2, got)}, LSE error {e_lse:.3g}")
+            del o2, lse
         torch.cuda.synchronize()
         tol = 5e-2 if dt == torch.bfloat16 else 2e-5
         e = err(got, want)
@@ -953,6 +1007,181 @@ def check_model_kernels(ops, ref, torch, np, rwkv_smem,
         out[f"rwkv {label}"] = row
     out["rwkv6_chunked"] = dict(out["rwkv prefill chunk 16"],
                                 max_abs_err=worst)
+    return out
+
+
+TRAIN_ARCH, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = "minicpm_2b", 8, 8, 2048
+
+
+def check_attention_bwd(ops, ref, torch, np, ptxas: dict,
+                        dev="cuda") -> dict:
+    """Phase 5b (run after phase 8): attention's backward kernel
+    (``ops.flash_attention_bwd``, two launches) against
+    ``ref.mha_backward_reference`` on the card, on the forward kernel's
+    own o and LSE: MiniCPM-2B's training shape as phase 9 trains it (8 x
+    2,048, no microbatches, 36 / 36 heads of 64, causal) in bf16 and f32,
+    Phi-3's 40 / 10 heads of 128 at 1 x 2,048, and small ragged,
+    non-causal, windowed and Sq != Sk cases.  Each case's forward first:
+    its LSE within 1e-3 of ``ref.mha_lse``, and its o equal to the
+    serving launch's where both take the same path.  f32 within 1e-4 and
+    bf16 within 5e-2 of the plain version, relative to each gradient's
+    largest entry; bf16 also within 2x of SDPA's backward's max and mean
+    error against the f32 plain backward.  Times: CUDA events and
+    torch.profiler for the kernel, the plain version and SDPA's backward (``torch.autograd.grad`` through
+    ``scaled_dot_product_attention``, its forward outside the timing)."""
+    rng = np.random.default_rng(8)
+    F = torch.nn.functional
+
+    def rand(shape, dtype):
+        return torch.as_tensor(rng.normal(0, 1, shape), dtype=dtype,
+                               device=dev)
+
+    def rel(got, want):
+        return max(float((g.float() - w.float()).abs().max())
+                   / max(float(w.float().abs().max()), 1e-30)
+                   for g, w in zip(got, want))
+
+    def sdpa_bwd(q, k, v, do, causal, window):
+        """A callable timing SDPA's backward alone, and its gradients."""
+        qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_(True)
+                      for t in (q, k, v))
+        Sq, Sk = q.shape[1], k.shape[1]
+        if window or (causal and Sq != Sk):
+            qpos = torch.arange(Sq, device=dev)[:, None]
+            kpos = torch.arange(Sk, device=dev)[None, :]
+            mask = (kpos <= qpos) if causal else torch.ones(
+                (Sq, Sk), dtype=torch.bool, device=dev)
+            if window:
+                mask &= kpos > qpos - window
+            out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                 enable_gqa=True)
+        else:
+            out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                 enable_gqa=True)
+        dot = do.transpose(1, 2)
+
+        def run():
+            return torch.autograd.grad(out, (qt, kt, vt), dot,
+                                       retain_graph=True)
+        return run, tuple(g.transpose(1, 2) for g in run())
+
+    ents = ptxas_entries(ptxas.get("flash_attention_bwd", ""))
+    if not ents:
+        fail("flash_attention_bwd: no ptxas report of its kernels")
+    print("kernel flash_attention_bwd ptxas (registers / stack / spill "
+          "bytes): " + ", ".join(
+              f"{k} {v['registers']} / {v['stack_bytes']} / "
+              f"{v['spill_bytes']}" for k, v in sorted(ents.items())),
+          flush=True)
+    out = {}
+    cases = [  # (label, B, Sq, Sk, Hq, Hkv, D, dtype, causal, window)
+        ("minicpm train bf16", TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 36, 36,
+         64, torch.bfloat16, True, 0),
+        ("minicpm train f32", TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 36, 36, 64,
+         torch.float32, True, 0),
+        ("phi3 train bf16", 1, 2048, 2048, 40, 10, 128, torch.bfloat16,
+         True, 0),
+        ("ragged f32", 2, 77, 77, 8, 2, 64, torch.float32, True, 0),
+        ("not causal Sq != Sk bf16", 2, 100, 300, 8, 2, 128,
+         torch.bfloat16, False, 0),
+        ("window 128 f32", 1, 512, 512, 8, 2, 64, torch.float32, True, 128),
+        ("causal Sq < Sk f32", 1, 60, 200, 4, 4, 32, torch.float32, True,
+         0),
+    ]
+    for label, b, sq, sk, hq, hkv, d, dt, causal, win in cases:
+        q, k, v = rand((b, sq, hq, d), dt), rand((b, sk, hkv, d), dt), \
+            rand((b, sk, hkv, d), dt)
+        do = rand((b, sq, hq, d), dt)
+        kw = dict(causal=causal, sliding_window=win)
+        ops.reset_launches()
+        o_serve = ops.flash_attention(q, k, v, **kw)
+        serve_path = next(p for p, n in ops.FLASH_PATHS.items() if n)
+        ops.reset_launches()
+        o, lse = ops.flash_attention_lse(q, k, v, **kw)
+        lse_path = next(p for p, n in ops.FLASH_PATHS.items() if n)
+        e_lse = float((lse - ref.mha_lse(q, k, **kw).float()).abs().max())
+        same_o = serve_path != lse_path or torch.equal(o, o_serve)
+        if not (e_lse <= 1e-3 and same_o):
+            fail(f"flash_attention_lse {label}: LSE error {e_lse:.3g} (tol "
+                 f"1e-3), o on the {lse_path} path equal to the serving "
+                 f"launch's ({serve_path}) {same_o}")
+        del o_serve
+        ops.reset_launches()
+        got = ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+        if ops.LAUNCHES["flash_attention_bwd"] != 2:
+            fail(f"flash_attention_bwd {label}: launches {ops.LAUNCHES}")
+        want = ref.mha_backward_reference(q, k, v, o, lse, do, **kw)
+        e = rel(got, want)
+        tol = 5e-2 if dt == torch.bfloat16 else 1e-4
+        if not e <= tol or not all(bool(torch.isfinite(g).all())
+                                   for g in got):
+            fail(f"flash_attention_bwd {label}: relative error {e:.3g} "
+                 f"above {tol}")
+        lib_run, lib_got = sdpa_bwd(q, k, v, do, causal, win)
+        extra = ""
+        if dt == torch.bfloat16:
+            qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+            o32 = ref.mha_reference(qf, kf, vf, **kw)
+            want32 = ref.mha_backward_reference(
+                qf, kf, vf, o32, ref.mha_lse(qf, kf, **kw), dof, **kw)
+            ek = [(g.float() - w).abs() for g, w in zip(got, want32)]
+            es = [(g.float() - w).abs() for g, w in zip(lib_got, want32)]
+            for name, a, c in zip(("dq", "dk", "dv"), ek, es):
+                if not (float(a.max()) <= 2 * float(c.max())
+                        and float(a.mean()) <= 2 * float(c.mean())):
+                    fail(f"flash_attention_bwd {label} {name}: error "
+                         f"against the f32 backward max {float(a.max()):.3g}"
+                         f" mean {float(a.mean()):.3g} above 2x SDPA's "
+                         f"(max {float(c.max()):.3g}, mean "
+                         f"{float(c.mean()):.3g})")
+            extra = "; vs the f32 backward: " + ", ".join(
+                f"{n} max {float(a.max()):.3g} (SDPA {float(c.max()):.3g}) "
+                f"mean {float(a.mean()):.3g} (SDPA {float(c.mean()):.3g})"
+                for n, a, c in zip(("dq", "dk", "dv"), ek, es))
+            del o32, want32, ek, es
+        fwd_flops, _ = attention_work(q, k, causal=causal, window=win,
+                                      q_offset=0)
+        flops = int(2.5 * fwd_flops)
+        nb = 4 * nbytes(q) + 4 * nbytes(k) + nbytes(lse)
+        bms, by = bound_ms(flops, nb, "bf16" if dt == torch.bfloat16
+                           else "f32")
+        reps = 3 if sq >= 2048 else 20
+
+        def kern():
+            return ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        row = dict(ms=time_ms(kern, reps=reps, warmup=1),
+                   plain_ms=time_ms(lambda: ref.mha_backward_reference(
+                       q, k, v, o, lse, do, **kw), reps=reps, warmup=1),
+                   library_ms=time_ms(lib_run, reps=reps, warmup=1),
+                   flops=flops, bytes=nb, bound_ms=bms, bound_by=by,
+                   max_abs_err=max(float((g.float() - w.float()).abs().max())
+                                   for g, w in zip(got, want)),
+                   rel_err=e)
+        row["device_ms"] = device_us(kern, torch, reps,
+                                     what=f"flash_attention_bwd {label}") / 1e3
+        row["library_device_ms"] = device_us(
+            lib_run, torch, reps,
+            what=f"flash_attention_bwd {label} SDPA") / 1e3
+        print(f"kernel flash_attention_bwd {label} {tuple(q.shape)} x "
+              f"{tuple(k.shape)}{'' if causal else ' not causal'}"
+              f"{f' window {win}' if win else ''}: forward on the "
+              f"{lse_path} path, LSE error {e_lse:.3g} (tol 1e-3), o "
+              f"{'equal to' if serve_path == lse_path else 'not compared with'}"
+              f" the serving launch's ({serve_path}); relative error {e:.3g} "
+              f"(tol {tol}); kernel {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, SDPA backward "
+              f"{row['library_ms']:.4f} ms; device: kernel "
+              f"{row['device_ms']:.4f} ms, SDPA backward "
+              f"{row['library_device_ms']:.4f} ms; {flops} FLOP, {nb} B, "
+              f"bound {bms:.4f} ms ({by}){extra}", flush=True)
+        out[f"flash bwd {label}"] = row
+        del q, k, v, do, o, lse, got, want, lib_run, lib_got
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["flash_attention_bwd"] = dict(
+        out["flash bwd minicpm train bf16"],
+        max_abs_err=max(r["max_abs_err"] for r in out.values()))
     return out
 
 
@@ -1106,6 +1335,128 @@ def card_vs_cpu(C, LM, step, torch, np) -> None:
         for h in hooks:
             h.remove()
         del cpu, gpu, cg, cc
+
+
+def train_card_vs_cpu(C, LM, step, optim, torch, np) -> None:
+    """Phase 6b (run after phase 8): training, card against CPU.  Reduced
+    MiniCPM, Phi-3 and LLaVA in f32 from the same weights: the loss and
+    every gradient of ``make_loss_fn`` (attention's forward with its LSE
+    and the backward kernel on the card, autograd through the plain
+    versions on the CPU) within 1e-4, each gradient relative to its
+    largest entry; then three train steps (the second with
+    ``microbatch=2``), each from the CPU's state copied to the card:
+    losses within 1e-4, and the parameters and ``m`` / ``v`` within 1e-4
+    of each tensor's largest entry.  TF32 is off, so
+    only summation orders differ; but Adam moves an element by about
+    ``lr * sign(g)``, so where a step's gradient is within 1e-5 of zero
+    (relative to its tensor's largest) and not 0, the two signs may
+    differ: such elements (from the CPU's gradient before each step, as
+    the step takes it: with microbatches the mean of its shards') are
+    counted, at most 1 in 1,000 a step, and their parameters bounded by
+    2 x the summed lr instead.  Such a flip moves a weight by ~lr, which
+    would then reach every later gradient: hence each step's common
+    start."""
+
+    def step_grads(loss_fn, model, b, mb):
+        """The gradient a train step with ``microbatch=mb`` takes: the
+        batch's, or the mean of its row shards' (a shard's loss is
+        normalized by its own token count)."""
+        named = dict(model.named_parameters())
+        n = max(mb, 1)
+        total = None
+        for i in range(n):
+            loss, _ = loss_fn(model, {k: v.reshape(n, -1, *v.shape[1:])[i]
+                                      for k, v in b.items()})
+            gs = torch.autograd.grad(loss, list(named.values()))
+            total = gs if total is None else [a + g for a, g in
+                                              zip(total, gs)]
+        return {k: g / n for k, g in zip(named, total)}
+
+    def rel(got, want, skip=None):
+        gap = (got.detach().cpu() - want.detach()).abs()
+        if skip is not None:
+            gap = gap.masked_fill(skip, 0)
+        return float(gap.max()) / max(float(want.detach().abs().max()),
+                                      1e-30)
+    for arch in ("minicpm_2b", "phi3_medium_14b", "llava_next_34b"):
+        cfg = dataclasses.replace(C.get_reduced(arch), dtype=torch.float32)
+        cpu = LM(cfg, device="cpu",
+                 generator=torch.Generator().manual_seed(0))
+        gpu = copy.deepcopy(cpu).to("cuda")
+        rng = np.random.default_rng(6)
+
+        def batch():
+            toks = torch.as_tensor(rng.integers(0, cfg.vocab, (4, 65)))
+            b = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+            if cfg.family == "vlm":
+                b["prefix_embed"] = torch.as_tensor(rng.normal(
+                    0, 0.02, (4, cfg.n_patches, cfg.d_model)),
+                    dtype=torch.float32)
+            return b, {k: v.cuda() for k, v in b.items()}
+        loss_fn = step.make_loss_fn(cfg)
+        bc, bg = batch()
+        grads = []
+        for model, b in ((cpu, bc), (gpu, bg)):
+            model.requires_grad_(True)
+            loss, _ = loss_fn(model, b)
+            named = dict(model.named_parameters())
+            grads.append((float(loss.detach()), dict(zip(
+                named, torch.autograd.grad(loss, list(named.values()))))))
+        (lc, gc_), (lg, gg) = grads
+        e_grad = max(rel(gg[n], g) for n, g in gc_.items())
+        if not (abs(lg - lc) <= 1e-4 and e_grad <= 1e-4):
+            fail(f"{arch} reduced training: loss {lg} vs {lc}, gradient "
+                 f"error {e_grad:.3g} (tol 1e-4)")
+        oc = optim.adamw_init(dict(cpu.named_parameters()))
+        losses, lr_sum, e_state, n_near, near_gap = [], 0.0, 0.0, 0, 0.0
+        total = sum(p.numel() for p in cpu.parameters())
+        for mb in (0, 2, 0):
+            fn = step.make_train_step(cfg, warmup=1, total=3, microbatch=mb)
+            bc, bg = batch()
+            near = {}
+            for n, g in step_grads(loss_fn, cpu, bc, mb).items():
+                a = g.abs()
+                near[n] = (a <= 1e-5 * a.max()) & (a > 0)
+            # each step from one state: the card's model and AdamW state
+            # copied from the CPU's (a near-zero gradient's flipped sign
+            # moves a weight by ~lr, which would reach every later
+            # gradient and moment)
+            gpu = copy.deepcopy(cpu).to("cuda")
+            og = optim.AdamWState(m={k: t.cuda() for k, t in oc.m.items()},
+                                  v={k: t.cuda() for k, t in oc.v.items()},
+                                  step=oc.step.cuda())
+            cpu, oc, mc = fn(cpu, oc, bc)
+            gpu, og, mg = fn(gpu, og, bg)
+            losses.append(abs(float(mg["loss"]) - float(mc["loss"])))
+            lr_sum += float(mc["lr"])
+            own = dict(gpu.named_parameters())
+            n_near = max(n_near, sum(int(m.sum()) for m in near.values()))
+            for n, p in cpu.named_parameters():
+                if near[n].any():
+                    gap = (own[n].detach().cpu() - p.detach()).abs()
+                    near_gap = max(near_gap, float(gap[near[n]].max()))
+                e_state = max(e_state, rel(own[n], p, near[n]),
+                              rel(og.m[n], oc.m[n], near[n]),
+                              rel(og.v[n], oc.v[n], near[n]))
+        if not (max(losses) <= 1e-4 and e_state <= 1e-4
+                and n_near <= total / 1000
+                and near_gap <= 2 * lr_sum + 1e-4):
+            fail(f"{arch} reduced training: 3 steps, loss gaps {losses}, "
+                 f"relative parameter / moment error {e_state:.3g} (tol "
+                 f"1e-4); up to {n_near} of {total} near-zero gradients a "
+                 f"step moved up to {near_gap:.3g} (limit "
+                 f"{2 * lr_sum + 1e-4:.3g})")
+        print(f"card vs cpu {arch} reduced f32 training: loss {lg:.6f} "
+              f"(CPU {lc:.6f}), relative gradient error {e_grad:.3g} over "
+              f"{len(gc_)} tensors; 3 train steps (microbatch 0, 2, 0), "
+              f"each from the CPU's state: loss gaps {max(losses):.3g}, "
+              f"parameters and m / v {e_state:.3g} of each tensor's largest "
+              f"(tol 1e-4); up to {n_near} of {total} elements a step with "
+              f"a near-zero gradient, moved apart by up to {near_gap:.3g} "
+              f"(limit {2 * lr_sum + 1e-4:.3g})", flush=True)
+        del cpu, gpu, oc, og, grads
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # Prefill (flash at Sq = S, the chunked RWKV-6 kernel) against step-by-step
@@ -1399,6 +1750,144 @@ def serve_encdec(arch, C, Server, step, ops, torch, np, card,
     return counts
 
 
+def train_path(C, TRAIN, STEP, OPT, ops, torch, np, card,
+               profile=False) -> dict:
+    """Phase 9: MiniCPM-2B whole (40 layers, bf16 weights, f32 moments)
+    trained 8 steps of 8 x 2,048 tokens through
+    ``repro_torch.launch.train.train`` on the card (WSD, remat, random
+    weights from a seeded generator): every loss finite, the last below
+    the first; per step attention's forward launches 2 x 40 times (the
+    forward, then each block's recomputation), all on the wgmma path, and
+    its backward 2 x 40 times (dQ, then dK / dV); nothing else of the
+    port's kernels.  Then the restart check on the reduced MiniCPM: 6
+    straight steps against 3 steps, a checkpoint and a resume to 6, the
+    losses within 2e-4.  Launches are counted from just before the
+    ``train`` call to just after it."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = C.get_config(TRAIN_ARCH)
+    L = cfg.n_layers
+    stamps = []
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    model, opt, losses = TRAIN.train(
+        TRAIN_ARCH, reduced=False, steps=TRAIN_STEPS,
+        global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, log_every=1,
+        device="cuda", on_step=lambda s, l: stamps.append(time.perf_counter()))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, paths = dict(ops.LAUNCHES), dict(ops.FLASH_PATHS)
+    n_params = sum(p.numel() for p in model.parameters())
+    peak = torch.cuda.max_memory_allocated()
+    if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
+        fail(f"train {TRAIN_ARCH}: losses {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"train {TRAIN_ARCH}: loss did not fall: {losses}")
+    per = TRAIN_STEPS * 2 * L
+    want = dict.fromkeys(counts, 0)
+    want.update(flash_attention=per, flash_attention_bwd=per)
+    if counts != want or paths != {"wgmma": per, "split": 0, "simt": 0}:
+        fail(f"train {TRAIN_ARCH}: launches {counts}, attention paths "
+             f"{paths}; want {want} on the wgmma path")
+    step_s = np.diff(stamps)[1:]           # steps 2.., warm
+    warm = float(step_s.mean())
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    q = torch.empty((TRAIN_BATCH, TRAIN_SEQ, cfg.n_heads, cfg.d_head),
+                    device="meta")
+    k = torch.empty((TRAIN_BATCH, TRAIN_SEQ, cfg.n_kv, cfg.d_head),
+                    device="meta")
+    attn_fwd, _ = attention_work(q, k, causal=True, window=0, q_offset=0)
+    # model FLOPs: 6 N D over the weights that enter a product (not the
+    # embedding table, a gather whose backward is a scatter-add; the
+    # output head is a product and stays in), plus attention's forward
+    # and its backward (2.5x the forward, as phase 5b's bound counts it);
+    # remat's recomputed forward is not counted
+    n_gemm = n_params - model.embed.numel()
+    flops = 6 * n_gemm * tokens + 3.5 * attn_fwd * L
+    print(f"train {TRAIN_ARCH}: {L} layers (whole), {n_params} parameters "
+          f"bf16 (AdamW m / v f32), {TRAIN_STEPS} steps of {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} tokens, WSD; losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}; first step "
+          f"{stamps[0] - t0:.2f} s with the initialisation, steps "
+          f"{', '.join(f'{x:.3f}' for x in np.diff(stamps))} s; warm "
+          f"{warm * 1e3:.1f} ms/step = {tokens / warm:.1f} tokens/s, "
+          f"{flops:.4g} model FLOP a step ({n_gemm} parameters in "
+          f"products) = {flops / warm / 1e12:.1f} TFLOP/s = "
+          f"{100 * flops / warm / PEAK_FLOPS['bf16']:.1f} % of 989 TFLOP/s; "
+          f"peak memory {peak / 1e9:.2f} GB; wall {wall:.1f} s; launches "
+          f"{counts}; attention paths {paths}; card {card}", flush=True)
+    if profile:
+        data_b = {k2: torch.as_tensor(v, device="cuda") for k2, v in
+                  TRAIN.TokenStream(TRAIN.DataCfg(
+                      vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH, seed=7)).batch(0).items()}
+        fn = STEP.make_train_step(cfg, schedule="wsd", total=TRAIN_STEPS,
+                                  warmup=1)
+        kern, n_launch, _ = profile_block(
+            f"train {TRAIN_ARCH} step", lambda: fn(model, opt, data_b), warm,
+            torch, top=10, host_top=6)
+        cats = {"GEMM": 0.0, "attention forward": 0.0,
+                "attention backward": 0.0, "other": 0.0}
+        for e in kern:
+            key = e.key.lower()
+            cat = ("attention backward" if "flash_bwd" in key else
+                   "attention forward" if "flash_" in key else
+                   "GEMM" if any(w in key for w in ("gemm", "xmma", "cutlass",
+                                                    "nvjet", "sm90_")) else
+                   "other")
+            cats[cat] += e.self_device_time_total / 1e3
+        busy = sum(cats.values())
+        print(f"profile train {TRAIN_ARCH} step by kind (device ms): "
+              + ", ".join(f"{c} {v:.1f}" for c, v in cats.items())
+              + f"; busy {busy:.1f} of {warm * 1e3:.1f} ms of unprofiled wall",
+              flush=True)
+        # the loss and the optimizer apart, on this run's tensors
+        params = dict(model.named_parameters())
+        grads = {n: torch.zeros_like(p) for n, p in params.items()}
+        lr = torch.tensor(1e-5, device="cuda")
+        t_opt = time_ms(lambda: OPT.adamw_update(params, dict(grads), opt, lr),
+                        reps=2, warmup=1)
+        logits = torch.randn((TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_padded),
+                             dtype=cfg.dtype, device="cuda",
+                             requires_grad=True)
+
+        def xent():
+            loss = STEP.xent_loss(logits, data_b["labels"], cfg.vocab)
+            return torch.autograd.grad(loss, logits)
+        t_loss = time_ms(xent, reps=3, warmup=1)
+        print(f"profile train {TRAIN_ARCH}: AdamW update {t_opt:.1f} ms, "
+              f"loss forward + backward on the [{TRAIN_BATCH}, {TRAIN_SEQ}, "
+              f"{cfg.vocab_padded}] logits {t_loss:.1f} ms (CUDA events)",
+              flush=True)
+        del grads, logits, params
+    del model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    import tempfile
+    kw = dict(global_batch=4, seq_len=64, log_every=0, device="cuda")
+    full = TRAIN.train(TRAIN_ARCH, steps=6, **kw)[2]
+    with tempfile.TemporaryDirectory() as tmp:
+        TRAIN.train(TRAIN_ARCH, steps=3, ckpt_dir=tmp, ckpt_every=3, **kw)
+        resumed = TRAIN.train(TRAIN_ARCH, steps=6, ckpt_dir=tmp,
+                              ckpt_every=100, **kw)[2]
+    gaps = [abs(a - b) for a, b in zip(full[3:], resumed)]
+    if len(resumed) != 3 or any(g > 2e-4 + 2e-4 * abs(b)
+                                for g, b in zip(gaps, full[3:])):
+        fail(f"train {TRAIN_ARCH} reduced restart: straight {full[3:]}, "
+             f"resumed {resumed}")
+    print(f"train {TRAIN_ARCH} reduced restart: 6 steps straight against 3 "
+          f"+ a resume to 6: losses {', '.join(f'{x:.6f}' for x in full[3:])}"
+          f" / {', '.join(f'{x:.6f}' for x in resumed)}, largest gap "
+          f"{max(gaps):.3g} (tol 2e-4), bit-equal {full[3:] == resumed}",
+          flush=True)
+    return dict(counts=counts, warm_ms=warm * 1e3, tokens_s=tokens / warm,
+                model_flops_share=flops / warm / PEAK_FLOPS["bf16"],
+                peak_gb=peak / 1e9, losses=losses)
+
+
 def host_syncs(fn, torch) -> dict:
     """The synchronizing CUDA calls ``fn`` makes, by the line of the port
     that made them (``torch.cuda.set_sync_debug_mode("warn")``)."""
@@ -1466,7 +1955,9 @@ def main() -> None:
     try:
         from repro_torch import configs as C
         from repro_torch import data as GOLD
+        from repro_torch.launch import train as TRAIN
         from repro_torch.launch.serve import Server
+        from repro_torch.train import optim as OPT
         from repro_torch.models.lm import LM
         from repro_torch.train import step as STEP
         from repro_torch.kernels import _build, ops
@@ -1694,7 +2185,7 @@ def main() -> None:
     for name in TICK_KERNELS:
         nums[name].update(bound_ms=nums[name]["bytes"] / HBM_BYTES_PER_S
                           * 1e3, bound_by="bytes")
-    # 6. card against CPU, reduced configs
+    # 6. card against CPU, reduced configs, serving
     card_vs_cpu(C, LM, STEP, torch, np)
     # 7. prefill against decode, full width
     prefill_vs_decode(C, LM, torch, np)
@@ -1706,8 +2197,19 @@ def main() -> None:
         serve_launches[arch] = serve(arch, C, Server, STEP, ops, torch, np,
                                      card, profile)[kernel]
         launches[kernel] += serve_launches[arch]
+    # the training phases come after serving's, so that what a backward
+    # leaves behind (autograd's device thread keeps a cuBLAS workspace of
+    # its own) stays out of phase 8's peak memory: 5b. attention's
+    # backward kernel; 6b. training card against CPU, reduced configs
+    nums.update(check_attention_bwd(ops, KREF, torch, np,
+                                    _build.BUILD_INFO.get("ptxas", {})))
+    train_card_vs_cpu(C, LM, STEP, OPT, torch, np)
+    # 9. training: MiniCPM-2B whole
+    trained = train_path(C, TRAIN, STEP, OPT, ops, torch, np, card, profile)
+    for k in ("flash_attention", "flash_attention_bwd"):
+        launches[k] += trained["counts"][k]
 
-    # 9. result lines
+    # 10. result lines
     rows = []
     for name, (src, replaces) in KERNELS.items():
         v = nums[name]
@@ -1765,6 +2267,18 @@ def main() -> None:
     flash["launches_by_path"] = {
         a: n for a, n in serve_launches.items()
         if SERVE_ARCHS[a] == "flash_attention"}
+    flash["launches_by_path"][f"train {TRAIN_ARCH}"] = \
+        trained["counts"]["flash_attention"]
+    bwd = next(r for r in rows if r["name"] == "flash_attention_bwd")
+    for key in ("device_ms", "library_device_ms", "rel_err"):
+        bwd[key] = nums["flash bwd minicpm train bf16"][key]
+    for label in ("minicpm train f32", "phi3 train bf16"):
+        key = label.replace(" ", "_")
+        for k2 in ("ms", "device_ms", "library_ms", "library_device_ms",
+                   "plain_ms", "bound_ms"):
+            bwd[f"{key}_{k2}"] = nums[f"flash bwd {label}"][k2]
+    bwd["train_step"] = {k: trained[k] for k in (
+        "warm_ms", "tokens_s", "model_flops_share", "peak_gb")}
     rank_row = next(r for r in rows if r["name"] == "tick_rank")
     for key in ("device_us", "path", "segs", "smem_bytes",
                 "torch_form_device_us", "torch_form_ms"):

@@ -1,4 +1,7 @@
-"""Golden records of DF-1056 runs of the JAX reference.
+"""Golden records of DF-1056 runs of the JAX reference, and the training
+data pipeline (:mod:`repro_torch.data.pipeline`, the port of
+``repro.data.pipeline``: seeded token batches, a pure function of the
+seed and the step).
 
 ``df1056_permutation_golden.json`` holds, per scheme, the counters and a
 sum and sha256 of each per-flow result array of one run: the 1,056

@@ -57,10 +57,16 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_common.cuh"
+
 namespace {
 
-constexpr float MASKED = -1e30f;
+using flash::MASKED;
+using flash::dot4;
+using flash::load4;
+using flash::store4;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // ------------------------------------------------------------ path 3 --
 constexpr int TPR = 4;               // threads per row
@@ -68,41 +74,12 @@ constexpr int BR = 32;               // rows per block
 constexpr int BK = 32;               // keys per shared-memory tile
 constexpr int THREADS = BR * TPR;
 
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 b = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-__device__ __forceinline__ void store4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
-  __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
-  uint2 raw;
-  raw.x = *reinterpret_cast<unsigned*>(&a);
-  raw.y = *reinterpret_cast<unsigned*>(&b);
-  *reinterpret_cast<uint2*>(p) = raw;
-}
-
-__device__ __forceinline__ float dot4(float4 a, float4 b) {
-  return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
-}
-
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS) flash_simt_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk, int Hq,
-    int Hkv, float scale, int causal, int window, int q_offset) {
+    const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+    int Sq, int Sk, int Hq, int Hkv, float scale, int causal, int window,
+    int q_offset) {
   constexpr int D4 = D / 4;          // float4s per key row
   constexpr int NV = D4 / TPR;       // float4s of a row per thread
   __shared__ float4 Ks[BK][D4];
@@ -199,6 +176,9 @@ __global__ void __launch_bounds__(THREADS) flash_simt_kernel(
              make_float4(acc[i].x * inv, acc[i].y * inv, acc[i].z * inv,
                          acc[i].w * inv));
     }
+    // the row's log-sum-exp of the scaled scores (m is in their units)
+    if (lse != nullptr && c == 0)
+      lse[((long long)b * Hq + h) * Sq + qi] = m + logf(l);
   }
 }
 
@@ -332,8 +312,8 @@ template <int D>
 __global__ void __launch_bounds__(WG_THREADS) flash_wgmma_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-    int B, int Sq, int Sk, int Hq, int Hkv, float scale_log2, int causal,
-    int window, int q_offset) {
+    float* __restrict__ lse, int B, int Sq, int Sk, int Hq, int Hkv,
+    float scale_log2, int causal, int window, int q_offset) {
   constexpr int NB = D / 64;                 // 64-column blocks
   constexpr int CH = D / 8;                  // 16-byte chunks of a row
   constexpr int Q_BLK = WG_ROWS * 128;       // bytes of one Q column block
@@ -493,6 +473,10 @@ __global__ void __launch_bounds__(WG_THREADS) flash_wgmma_kernel(
     if (!rvalid[i]) continue;
     const int gr = row0 + 16 * warp + lane / 4 + 8 * i;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
+    // the row's log-sum-exp, from m and l in log2 units
+    if (lse != nullptr && (lane & 3) == 0)
+      lse[((long long)b * Hq + hk * G + gr % G) * Sq + gr / G] =
+          (m[i] + log2f(l[i])) * LN2;
     __nv_bfloat16* dst =
         o + ((long long)(b * Sq + gr / G) * Hq + hk * G + gr % G) * D +
         2 * (lane & 3);
@@ -668,14 +652,15 @@ __global__ void __launch_bounds__(D) flash_combine_kernel(
 // ---------------------------------------------------------- launchers --
 template <typename T>
 int launch_simt(const void* q, const void* k, const void* v, void* o,
-                int B, int Sq, int Sk, int Hq, int Hkv, int D, int causal,
-                int window, int q_offset, float scale, cudaStream_t stream) {
+                float* lse, int B, int Sq, int Sk, int Hq, int Hkv, int D,
+                int causal, int window, int q_offset, float scale,
+                cudaStream_t stream) {
   const dim3 grid((Sq * (Hq / Hkv) + BR - 1) / BR, Hkv, B);
 #define FLASH_CASE(DIM)                                                    \
   case DIM:                                                                \
     flash_simt_kernel<T, DIM><<<grid, THREADS, 0, stream>>>(               \
-        (const T*)q, (const T*)k, (const T*)v, (T*)o, Sq, Sk, Hq, Hkv,     \
-        scale, causal, window, q_offset);                                  \
+        (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, Sq, Sk, Hq,     \
+        Hkv, scale, causal, window, q_offset);                             \
     break;
   switch (D) {
     FLASH_CASE(32)
@@ -690,8 +675,8 @@ int launch_simt(const void* q, const void* k, const void* v, void* o,
 
 template <int D>
 int launch_wgmma_d(const void* q, const void* k, const void* v, void* o,
-                   int B, int Sq, int Sk, int Hq, int Hkv, int causal,
-                   int window, int q_offset, float scale,
+                   float* lse, int B, int Sq, int Sk, int Hq, int Hkv,
+                   int causal, int window, int q_offset, float scale,
                    cudaStream_t stream) {
   constexpr int smem = wg_smem_bytes(D);
   static bool configured = false;
@@ -708,7 +693,7 @@ int launch_wgmma_d(const void* q, const void* k, const void* v, void* o,
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   flash_wgmma_kernel<D><<<(unsigned)blocks, WG_THREADS, smem, stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (__nv_bfloat16*)o, B, Sq, Sk, Hq, Hkv,
+      (const __nv_bfloat16*)v, (__nv_bfloat16*)o, lse, B, Sq, Sk, Hq, Hkv,
       scale * LOG2E, causal, window, q_offset);
   return (int)cudaGetLastError();
 }
@@ -763,34 +748,39 @@ int launch_split(const void* q, const void* k, const void* v, void* o,
 
 // path: 0 simt, 1 wgmma, 2 split (split_len, n_split and the f32 scratch
 // of B * Hkv * n_split * Sq * G * (D + 2) floats are read by path 2 only).
+// lse: null, or (paths 0 and 1) the f32 [B, Hq, Sq] row log-sum-exp of
+// the scaled scores, which the backward (flash_attention_bwd.cu) reads.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int B, int Sq,
                                       int Sk, int Hq, int Hkv, int D,
                                       int is_bf16, int causal, int window,
                                       int q_offset, float scale, int path,
                                       int split_len, int n_split,
-                                      void* scratch, void* stream) {
+                                      void* scratch, void* lse,
+                                      void* stream) {
   if (B == 0 || Sq == 0) return 0;
   if (Sk <= 0 || Hkv <= 0 || Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  float* rowlse = (float*)lse;
   switch (path) {
     case 0:
-      return is_bf16 ? launch_simt<__nv_bfloat16>(q, k, v, o, B, Sq, Sk, Hq,
-                                                  Hkv, D, causal, window,
-                                                  q_offset, scale, s)
-                     : launch_simt<float>(q, k, v, o, B, Sq, Sk, Hq, Hkv, D,
-                                          causal, window, q_offset, scale,
-                                          s);
+      return is_bf16 ? launch_simt<__nv_bfloat16>(q, k, v, o, rowlse, B, Sq,
+                                                  Sk, Hq, Hkv, D, causal,
+                                                  window, q_offset, scale, s)
+                     : launch_simt<float>(q, k, v, o, rowlse, B, Sq, Sk, Hq,
+                                          Hkv, D, causal, window, q_offset,
+                                          scale, s);
     case 1:
       if (!is_bf16) return (int)cudaErrorInvalidValue;
       if (D == 64)
-        return launch_wgmma_d<64>(q, k, v, o, B, Sq, Sk, Hq, Hkv, causal,
-                                  window, q_offset, scale, s);
+        return launch_wgmma_d<64>(q, k, v, o, rowlse, B, Sq, Sk, Hq, Hkv,
+                                  causal, window, q_offset, scale, s);
       if (D == 128)
-        return launch_wgmma_d<128>(q, k, v, o, B, Sq, Sk, Hq, Hkv, causal,
-                                   window, q_offset, scale, s);
+        return launch_wgmma_d<128>(q, k, v, o, rowlse, B, Sq, Sk, Hq, Hkv,
+                                   causal, window, q_offset, scale, s);
       return (int)cudaErrorInvalidValue;
     case 2:
+      if (rowlse != nullptr) return (int)cudaErrorInvalidValue;
       return is_bf16
                  ? launch_split<__nv_bfloat16>(q, k, v, o, (float*)scratch,
                                                B, Sq, Sk, Hq, Hkv, D, causal,

@@ -1,7 +1,7 @@
-"""Wrappers of the seven CUDA kernels (four tick kernels, the tick's
-random draws, attention and the chunked RWKV-6 time mix), and of the
-fused launch of two of them (``tick_rank_red_ecn``: the rank and the
-RED/ECN stage on it).
+"""Wrappers of the eight CUDA kernels (four tick kernels, the tick's
+random draws, attention, attention's backward and the chunked RWKV-6
+time mix), and of the fused launch of two of them
+(``tick_rank_red_ecn``: the rank and the RED/ECN stage on it).
 
 Each wrapper checks its inputs, then either launches its kernel on the
 current CUDA stream (tensors on the card) or calls the kernel's plain
@@ -23,7 +23,8 @@ from repro_torch.kernels import ref as R
 
 LAUNCHES = dict.fromkeys(("flow_agg", "tick_rank", "red_ecn",
                           "tick_rank_red_ecn", "tick_draws", "spritz_select",
-                          "flash_attention", "rwkv6_chunked"), 0)
+                          "flash_attention", "flash_attention_bwd",
+                          "rwkv6_chunked"), 0)
 # flash_attention launches by the path the kernel took (see flash_plan)
 FLASH_PATHS = dict.fromkeys(("wgmma", "split", "simt"), 0)
 # tick_rank and tick_rank_red_ecn launches by the path the kernel took
@@ -333,7 +334,7 @@ def _float_code(name: str, *ts: torch.Tensor) -> int:
 
 def flash_plan(B: int, Sq: int, Sk: int, Hq: int, Hkv: int, D: int,
                dtype: torch.dtype, *, num_sms: int, causal: bool = True,
-               q_offset: int = 0) -> tuple[str, int, int]:
+               q_offset: int = 0, grad: bool = False) -> tuple[str, int, int]:
     """The attention kernel's path for these shapes, as ``(path,
     split_len, n_split)``.
 
@@ -344,13 +345,15 @@ def flash_plan(B: int, Sq: int, Sk: int, Hq: int, Hkv: int, D: int,
     multiple of ``SPLIT_KEYS``; the last one ragged, none empty), enough
     for about two blocks on each of the card's ``num_sms`` SMs.
     ``"wgmma"``: bf16, at least one 64-row tile and D of 64 or 128.
-    ``"simt"``: everything else.  Shapes without rows or keys have no
+    ``"simt"``: everything else.  With ``grad`` (a forward whose
+    gradient will be taken) the split path, which writes no row
+    log-sum-exp, is never chosen.  Shapes without rows or keys have no
     plan (the wrapper launches nothing for them)."""
     if min(B, Sq, Sk, Hq, Hkv) < 1 or num_sms < 1:
         raise ValueError(f"flash_plan: no work to plan for B={B}, Sq={Sq}, "
                          f"Sk={Sk}, Hq={Hq}, Hkv={Hkv} on {num_sms} SMs")
     rows = Sq * (Hq // Hkv)
-    if rows <= SPLIT_ROWS and B * Hkv < 2 * num_sms:
+    if not grad and rows <= SPLIT_ROWS and B * Hkv < 2 * num_sms:
         kend = min(Sk, q_offset + Sq) if causal else Sk
         want = -(-2 * num_sms // (B * Hkv))
         split_len = -(-max(-(-kend // want), 1) // SPLIT_KEYS) * SPLIT_KEYS
@@ -360,13 +363,7 @@ def flash_plan(B: int, Sq: int, Sk: int, Hq: int, Hkv: int, D: int,
     return "simt", 0, 0
 
 
-def flash_attention(q, k, v, *, causal: bool = True, sliding_window: int = 0,
-                    q_offset: int = 0):
-    """GQA attention.  q: [B, Sq, Hq, D]; k, v: [B, Sk, Hkv, D], Hq a
-    multiple of Hkv (query head h reads kv head h // (Hq // Hkv)); f32 or
-    bf16.  Query row i sits at position ``q_offset + i`` (decode: the
-    cache length).  Returns [B, Sq, Hq, D] in q's dtype.  On the card D
-    must be 32, 64 or 128; the kernel's path is :func:`flash_plan`'s."""
+def _check_attention(q, k, v, q_offset: int, sliding_window: int):
     if not (q.ndim == k.ndim == v.ndim == 4):
         raise ValueError("q, k and v must be 4-D [B, S, H, D]")
     B, Sq, Hq, D = q.shape
@@ -379,13 +376,15 @@ def flash_attention(q, k, v, *, causal: bool = True, sliding_window: int = 0,
                          f"({Hkv})")
     if q_offset < 0 or sliding_window < 0:
         raise ValueError("q_offset and sliding_window must be >= 0")
-    kw = dict(causal=causal, sliding_window=sliding_window,
-              q_offset=int(q_offset))
-    on_cpu = _on_cpu(q, k, v)
-    if q.numel() == 0:                       # no rows: nothing to launch
-        return torch.empty_like(q)
-    if on_cpu:
-        return R.mha_reference(q, k, v, **kw)
+
+
+def _flash_forward(q, k, v, *, causal: bool, sliding_window: int,
+                   q_offset: int, lse: bool):
+    """One launch of the attention kernel on the card: ``(o, lse)``, the
+    row log-sum-exp f32 [B, Hq, Sq] written only when ``lse`` (then the
+    split path is never taken)."""
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
     code = _float_code("flash_attention", q, k, v)
     if D not in (32, 64, 128):
         raise ValueError(f"flash_attention kernel: D must be 32, 64 or 128, "
@@ -393,8 +392,10 @@ def flash_attention(q, k, v, *, causal: bool = True, sliding_window: int = 0,
     path, split_len, n_split = flash_plan(
         B, Sq, Sk, Hq, Hkv, D, q.dtype, causal=causal, q_offset=q_offset,
         num_sms=torch.cuda.get_device_properties(q.device)
-        .multi_processor_count)
+        .multi_processor_count, grad=lse)
     o = torch.empty_like(q)
+    rowlse = (torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+              if lse else None)
     scratch = None
     if path == "split":
         scratch = torch.empty(B * Hkv * n_split * Sq * (Hq // Hkv) * (D + 2),
@@ -403,9 +404,116 @@ def flash_attention(q, k, v, *, causal: bool = True, sliding_window: int = 0,
             o.data_ptr(), B, Sq, Sk, Hq, Hkv, D, code, int(bool(causal)),
             int(sliding_window), int(q_offset), 1.0 / math.sqrt(D),
             _FLASH_CODES[path], split_len, n_split,
-            None if scratch is None else scratch.data_ptr())
+            None if scratch is None else scratch.data_ptr(),
+            None if rowlse is None else rowlse.data_ptr())
     FLASH_PATHS[path] += 1
-    return o
+    return o, rowlse
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Attention on the card with a gradient: the forward kernel writes
+    the row log-sum-exp beside ``o``, the backward is
+    :func:`flash_attention_bwd`'s two kernel launches."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sliding_window):
+        o, lse = _flash_forward(q, k, v, causal=causal,
+                                sliding_window=sliding_window, q_offset=0,
+                                lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.mask = (causal, sliding_window)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        causal, window = ctx.mask
+        return (*flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
+                                     causal=causal, sliding_window=window),
+                None, None)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, sliding_window: int = 0,
+                    q_offset: int = 0):
+    """GQA attention.  q: [B, Sq, Hq, D]; k, v: [B, Sk, Hkv, D], Hq a
+    multiple of Hkv (query head h reads kv head h // (Hq // Hkv)); f32 or
+    bf16.  Query row i sits at position ``q_offset + i`` (decode: the
+    cache length).  Returns [B, Sq, Hq, D] in q's dtype.  On the card D
+    must be 32, 64 or 128; the kernel's path is :func:`flash_plan`'s.
+
+    Differentiable: under grad with an input that requires it, on the
+    card the forward kernel also writes the row log-sum-exp and the
+    gradient is the backward kernel's (:func:`flash_attention_bwd`;
+    ``q_offset`` must then be 0); on the CPU autograd differentiates the
+    plain version."""
+    _check_attention(q, k, v, q_offset, sliding_window)
+    kw = dict(causal=causal, sliding_window=sliding_window,
+              q_offset=int(q_offset))
+    on_cpu = _on_cpu(q, k, v)
+    if q.numel() == 0:                       # no rows: nothing to launch
+        return torch.empty_like(q)
+    if on_cpu:
+        return R.mha_reference(q, k, v, **kw)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        if q_offset:
+            raise ValueError("flash_attention: no gradient with q_offset "
+                             f"{q_offset} (training attends from 0)")
+        return _FlashAttention.apply(q, k, v, bool(causal),
+                                     int(sliding_window))
+    return _flash_forward(q, k, v, **kw, lse=False)[0]
+
+
+def flash_attention_lse(q, k, v, *, causal: bool = True,
+                        sliding_window: int = 0):
+    """The forward of a differentiable call without autograd: ``(o,
+    lse)``, lse the f32 row log-sum-exp [B, Hq, Sq] that
+    :func:`flash_attention_bwd` takes.  One kernel launch on the card
+    (never the split path); the plain versions on the CPU."""
+    _check_attention(q, k, v, 0, sliding_window)
+    kw = dict(causal=causal, sliding_window=sliding_window)
+    if _on_cpu(q, k, v):
+        return (R.mha_reference(q, k, v, **kw),
+                R.mha_lse(q, k, **kw))
+    return _flash_forward(q, k, v, **kw, q_offset=0, lse=True)
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                        sliding_window: int = 0):
+    """Attention's gradient: ``(dq, dk, dv)`` in the inputs' dtype from q,
+    o, do [B, Sq, Hq, D], k, v [B, Sk, Hkv, D] and the forward's row
+    log-sum-exp lse (f32 [B, Hq, Sq]); query row i at position i.  On
+    the card two launches of ``flash_attention_bwd.cu`` (each counted):
+    dQ with ``rowsum(dO o O)``, then dK and dV, each kv head's group
+    summed in one block (no atomics: the same inputs give the same bits).
+    On the CPU :func:`ref.mha_backward_reference`."""
+    _check_attention(q, k, v, 0, sliding_window)
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    if o.shape != q.shape or do.shape != q.shape or \
+            tuple(lse.shape) != (B, Hq, Sq):
+        raise ValueError(f"o and do must be {tuple(q.shape)} and lse "
+                         f"{(B, Hq, Sq)}; got {tuple(o.shape)}, "
+                         f"{tuple(do.shape)}, {tuple(lse.shape)}")
+    kw = dict(causal=causal, sliding_window=sliding_window)
+    if _on_cpu(q, k, v, o, lse, do):
+        return R.mha_backward_reference(q, k, v, o, lse, do, **kw)
+    code = _float_code("flash_attention_bwd", q, k, v, o, do)
+    _dtype(lse, torch.float32, "lse")
+    if D not in (32, 64, 128):
+        raise ValueError(f"flash_attention_bwd kernel: D must be 32, 64 or "
+                         f"128, got {D}")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.numel() == 0:
+        return dq, dk.zero_(), dv.zero_()
+    delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    for stage in (0, 1):          # dQ (and delta), then dK / dV
+        _launch("flash_attention_bwd", q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), B, Sq, Sk, Hq, Hkv, D, code,
+                int(bool(causal)), int(sliding_window), 1.0 / math.sqrt(D),
+                stage)
+    return dq, dk, dv
 
 
 def rwkv6_chunked(r, k, v, w, u, wkv0, *, chunk: int = 64):

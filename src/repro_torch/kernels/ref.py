@@ -1,12 +1,13 @@
-"""Plain torch versions of the seven kernels.
+"""Plain torch versions of the eight kernels.
 
 Each tick kernel's version mirrors its oracle in ``repro.kernels.ref``
 operation for operation, so it is bit-identical to the reference on any
 device.  The model kernels' versions (attention, RWKV-6) are f32 and
 held to the tolerances of ``tests/test_kernels.py``; ``mha_partials``
-and ``combine_partials`` spell out the attention kernel's split path.
-``ops`` calls these for tensors on the CPU; ``chip_smoke.py`` holds each
-CUDA kernel against them on the card.
+and ``combine_partials`` spell out the attention kernel's split path,
+``mha_lse`` its row log-sum-exp and ``mha_backward_reference`` the
+backward kernel's formula.  ``ops`` calls these for tensors on the CPU;
+``chip_smoke.py`` holds each CUDA kernel against them on the card.
 """
 from __future__ import annotations
 
@@ -107,6 +108,48 @@ def mha_reference(q, k, v, *, causal: bool = True, sliding_window: int = 0,
                                      q_offset=q_offset), dim=-1)
     o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
     return o.reshape(B, Sq, Hq, D).to(q.dtype)
+
+
+def mha_lse(q, k, *, causal: bool = True, sliding_window: int = 0,
+            q_offset: int = 0):
+    """Row log-sum-exp of the scaled, masked scores: f32 [B, Hq, Sq],
+    ``lse[b, h, i] = log sum_j exp(q_i . k_j / sqrt(D))`` over the keys
+    row i may see (the attention kernel's second output)."""
+    B, Sq, Hq, _ = q.shape
+    s = _masked_scores(q, k, causal=causal, sliding_window=sliding_window,
+                       q_offset=q_offset)
+    return torch.logsumexp(s, -1).reshape(B, Hq, Sq)
+
+
+def mha_backward_reference(q, k, v, o, lse, do, *, causal: bool = True,
+                           sliding_window: int = 0):
+    """Attention's gradient by the explicit formula, in f32: ``P = exp(S -
+    lse)``, ``dV = P^T dO``, ``dS = P (dO V^T - rowsum(dO o O))``, ``dQ =
+    dS K / sqrt(D)``, ``dK = dS^T Q / sqrt(D)``, dK and dV summed over each
+    kv head's group of G query heads.  q, o, do: [B, Sq, Hq, D]; k, v:
+    [B, Sk, Hkv, D]; lse: f32 [B, Hq, Sq] (:func:`mha_lse`).  Query row
+    i sits at position i.  Returns (dq, dk, dv) in the inputs' dtypes.
+    A masked score is -1e30, so its P is exactly 0; a row that sees no
+    key at all (only when Sq > Sk, or with a window) has no gradient
+    here, where the softmax of its equal scores would give it one."""
+    B, Sq, Hq, D = q.shape
+    _, Sk, Hkv, _ = k.shape
+    G = Hq // Hkv
+    scale = 1.0 / math.sqrt(D)
+    s = _masked_scores(q, k, causal=causal, sliding_window=sliding_window,
+                       q_offset=0)                      # [B, Hkv, G, Sq, Sk]
+    p = torch.exp(s - lse.float().reshape(B, Hkv, G, Sq, 1))
+    og, dog = (t.reshape(B, Sq, Hkv, G, D).float() for t in (o, do))
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dog)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dog, v.float())
+    # rowsum(dO o O), [B, Hkv, G, Sq, 1]
+    di = (dog * og).sum(-1).permute(0, 2, 3, 1)[..., None]
+    ds = p * (dp - di)
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, k.float()) * scale
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds,
+                      q.reshape(B, Sq, Hkv, G, D).float()) * scale
+    return (dq.reshape(B, Sq, Hq, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def mha_partials(q, k, v, bounds, *, causal: bool = True,

@@ -1,4 +1,6 @@
-"""Carry weights and decode state from the JAX reference into the port.
+"""Carry weights, AdamW state and decode state from the JAX reference
+into the port, and the port's parameters (or gradients, or moments) back
+to the reference's tree layout.
 
 The reference's trees hold numpy arrays (``jax.tree.map(np.asarray,
 tree)``); nothing here imports jax.  ``params["blocks"]`` is a list, one
@@ -15,6 +17,7 @@ import torch
 
 from repro_torch.models.common import ModelCfg
 from repro_torch.models.lm import LM, scan_unit
+from repro_torch.train.optim import AdamWState
 
 
 def to_tensor(arr, *, device) -> torch.Tensor:
@@ -48,9 +51,10 @@ def _flatten(tree, prefix=""):
             yield f"{prefix}{k}", v
 
 
-def from_jax_params(cfg: ModelCfg, tree, *, device) -> LM:
-    """An ``LM`` holding the reference parameter tree ``tree``."""
-    model = LM(cfg, device=device)
+def _port_names(cfg: ModelCfg, tree) -> dict:
+    """The reference tree ``tree`` (parameters, or any tree of their
+    layout: AdamW moments, gradients) flattened to the port's parameter
+    names."""
     _, u = scan_unit(cfg)
     flat = {k: tree[k] for k in ("embed", "out", "ln_f", "enc_ln_f")
             if k in tree}
@@ -60,6 +64,13 @@ def from_jax_params(cfg: ModelCfg, tree, *, device) -> LM:
     for e in range(cfg.n_enc_layers if "enc_blocks" in tree else 0):
         for k, v in _flatten(_index(tree["enc_blocks"], e)):
             flat[f"enc_blocks.{e}.{k}"] = v
+    return flat
+
+
+def from_jax_params(cfg: ModelCfg, tree, *, device) -> LM:
+    """An ``LM`` holding the reference parameter tree ``tree``."""
+    model = LM(cfg, device=device)
+    flat = _port_names(cfg, tree)
     own = dict(model.named_parameters())
     if own.keys() != flat.keys():
         raise ValueError(f"parameter names differ: only in the port "
@@ -72,6 +83,62 @@ def from_jax_params(cfg: ModelCfg, tree, *, device) -> LM:
                              f"the port {tuple(p.shape)} {p.dtype}")
         p.data.copy_(t)
     return model
+
+
+def opt_from_jax(cfg: ModelCfg, state, model: LM):
+    """The port's ``AdamWState`` (``repro_torch.train.optim``) holding the
+    reference's ``AdamWState`` ``state`` (numpy leaves), on the model's
+    device and keyed by its parameter names."""
+    own = dict(model.named_parameters())
+
+    def tensors(tree):
+        flat = _port_names(cfg, tree)
+        if flat.keys() != own.keys():
+            raise ValueError("the state's tree does not match the model")
+        return {n: to_tensor(flat[n], device=own[n].device) for n in own}
+    step = torch.tensor(int(np.asarray(state.step)), dtype=torch.int32,
+                        device=model.device)
+    return AdamWState(m=tensors(state.m), v=tensors(state.v), step=step,
+                      err=None if state.err is None else tensors(state.err))
+
+
+def to_numpy_tree(model: LM, named: dict | None = None) -> dict:
+    """The model's parameters, or ``named`` (tensors keyed by its
+    parameter names: gradients, AdamW moments), as the reference's tree:
+    ``blocks`` a list over the scan unit's positions of trees stacked over
+    units, ``enc_blocks`` stacked over encoder layers.  Leaves are numpy,
+    bf16 ones widened to f32 (exactly)."""
+    _, u = scan_unit(model.cfg)
+    if named is None:
+        named = dict(model.named_parameters())
+
+    def arr(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    def put(tree, path, value):
+        for k in path[:-1]:
+            tree = tree.setdefault(k, {})
+        tree[path[-1]] = value
+    out, blocks, enc = {}, [{} for _ in range(u)], {}
+    for name, t in named.items():
+        parts = name.split(".")
+        if parts[0] == "blocks":
+            l = int(parts[1])
+            put(blocks[l % u], parts[2:] + [l // u], arr(t))
+        elif parts[0] == "enc_blocks":
+            put(enc, parts[2:] + [int(parts[1])], arr(t))
+        else:
+            out[name] = arr(t)
+
+    def stack(tree):
+        if all(isinstance(k, int) for k in tree):
+            return np.stack([tree[i] for i in range(len(tree))])
+        return {k: stack(v) for k, v in tree.items()}
+    out["blocks"] = [stack(b) for b in blocks]
+    if enc:
+        out["enc_blocks"] = stack(enc)
+    return out
 
 
 def cache_from_jax(cfg: ModelCfg, tree, *, device) -> dict:

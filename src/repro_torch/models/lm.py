@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import ssm
@@ -180,15 +181,19 @@ class LM(nn.Module):
             e, _ = blk(e, self.rope, epos)
         return rms_norm(e, self.enc_ln_f, self.cfg.norm_eps)
 
-    @torch.no_grad()
     def forward(self, tokens, *, prefix_embed=None, enc_frames=None,
-                with_aux: bool = False):
+                with_aux: bool = False, remat: bool = False):
         """Training / prefill forward.  tokens: [B, S] int; prefix_embed:
         [B, Np, d] VLM patch embeddings put before the tokens' (positions
         run over all ``Np + S``); enc_frames: [B, Te, d] the enc-dec
         family's frame embeddings.  Returns logits [B, Np + S,
         vocab_padded], and with ``with_aux`` also the summed MoE aux loss
-        (a 0-d f32 tensor), as the reference returns ``(logits, aux)``."""
+        (a 0-d f32 tensor), as the reference returns ``(logits, aux)``.
+
+        Differentiable; the serving callers run it under
+        ``torch.no_grad()``.  ``remat`` recomputes each block in the
+        backward instead of keeping its activations (the reference's
+        ``jax.checkpoint`` of its scan unit)."""
         x = self.embed[tokens.long()]
         if prefix_embed is not None:
             x = torch.cat([prefix_embed.to(x.dtype), x], dim=1)
@@ -198,12 +203,34 @@ class LM(nn.Module):
         aux = torch.zeros((), dtype=torch.float32, device=x.device) \
             if with_aux else None
         for blk in self.blocks:
-            x, a = blk(x, self.rope, positions, with_aux=with_aux,
-                       enc_out=enc_out)
+            if remat:
+                x, a = checkpoint(blk, x, self.rope, positions,
+                                  with_aux=with_aux, enc_out=enc_out,
+                                  use_reentrant=False,
+                                  preserve_rng_state=False)
+            else:
+                x, a = blk(x, self.rope, positions, with_aux=with_aux,
+                           enc_out=enc_out)
             if a is not None:
                 aux = aux + a
         logits = self._head(x)
         return (logits, aux) if with_aux else logits
+
+    def stacked_groups(self) -> list[list[str]]:
+        """Parameter names grouped as the reference stacks them into one
+        leaf of its tree: a block parameter over the layers that share
+        its position in the scan unit, an encoder block parameter over
+        the encoder layers, every other parameter alone."""
+        u = len(block_kinds(self.cfg))
+        groups: dict[tuple, list[str]] = {}
+        for name, _ in self.named_parameters():
+            parts = name.split(".")
+            key = (("blocks", int(parts[1]) % u, *parts[2:])
+                   if parts[0] == "blocks" else
+                   ("enc_blocks", *parts[2:]) if parts[0] == "enc_blocks"
+                   else (name,))
+            groups.setdefault(key, []).append(name)
+        return list(groups.values())
 
     def init_cache(self, batch: int, max_len: int) -> dict:
         """Decode cache: ``{"layers": [one dict per layer], "len": int}``;

@@ -1,1 +1,2 @@
-"""Serving steps of the model zoo: the port of ``repro.train``."""
+"""Training and serving steps of the model zoo and their optimizer: the
+port of ``repro.train``."""

@@ -199,7 +199,8 @@ def test_port_imports_without_jax_or_reference():
               "exp.workloads", "exp.packet", "exp.openloop", "exp.host",
               "exp.runner", "exp.__main__", "exp.flow", "exp.cross",
               "exp.report", "fabric", "fabric.flowsim", "fabric.bridge",
-              "device", "core", "core.spritz"):
+              "device", "core", "core.spritz", "train.optim",
+              "launch.train", "ckpt", "ckpt.manager", "data.pipeline"):
         assert f"repro_torch.{m}" in mods, m
 
 

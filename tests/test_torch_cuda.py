@@ -10,9 +10,11 @@ kernels and for the engine's torch forms, and under a mid-run failure
 plan and a degraded (capacity) plan with the launches of each phase-E
 form, the flow-level engine on ``cuda`` against ``cpu`` for all 11
 schemes (plain, under a capacity plan, stopped at ``t_end``) with a
-cut-down cross-engine cell, and the reduced dense and RWKV models on
-``cuda`` against ``cpu`` within 1e-4.  They need a card and skip without
-one.  On a machine with an H100:
+cut-down cross-engine cell, the reduced dense and RWKV models on
+``cuda`` against ``cpu`` within 1e-4, attention's backward kernel
+against its plain version (and its bits stable from call to call), and
+three train steps of reduced models on ``cuda`` against ``cpu``.  They
+need a card and skip without one.  On a machine with an H100:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -625,3 +627,127 @@ def test_moe_dispatch_on_card_equals_cpu(cuda, kind, t, E, k):
     for name, g, w in zip(names, got, want):
         assert g.device.type == "cuda", name
         assert torch.equal(g.cpu(), w), name
+
+
+def _grad_close(got, want, tol):
+    """Each gradient within ``tol`` of the plain backward's, relative to
+    that tensor's largest entry."""
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        scale = max(float(w.float().abs().max()), 1e-30)
+        err = float((g.cpu().float() - w.float()).abs().max()) / scale
+        assert err <= tol, (name, err)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,causal,window", [
+    (1, 128, 128, 4, 4, 64, True, 0), (2, 100, 100, 8, 2, 128, True, 0),
+    (2, 77, 333, 4, 1, 32, False, 0), (1, 256, 256, 4, 2, 64, True, 64),
+    (2, 65, 65, 14, 2, 128, True, 0), (1, 40, 90, 6, 3, 64, True, 0),
+    (2, 150, 150, 12, 12, 64, False, 0), (1, 33, 33, 2, 2, 32, False, 7)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_bwd_kernel(cuda, B, Sq, Sk, Hq, Hkv, D, causal,
+                                    window, dtype):
+    """The backward kernel (two launches) against the plain backward on
+    the same inputs and the forward's own LSE: 1e-4 in f32, 5e-2 in bf16
+    (the outputs round to bf16), relative to each tensor's max; its
+    gradient through ``ops.flash_attention`` under autograd is the same
+    launches."""
+    dt = getattr(torch, dtype)
+    q = _pair(RNG.normal(0, 1, (B, Sq, Hq, D)), dt, cuda)
+    k = _pair(RNG.normal(0, 1, (B, Sk, Hkv, D)), dt, cuda)
+    v = _pair(RNG.normal(0, 1, (B, Sk, Hkv, D)), dt, cuda)
+    do = _pair(RNG.normal(0, 1, (B, Sq, Hq, D)), dt, cuda)
+    kw = dict(causal=causal, sliding_window=window)
+    ops.reset_launches()
+    o, lse = ops.flash_attention_lse(q[1], k[1], v[1], **kw)
+    assert ops.FLASH_PATHS["split"] == 0
+    assert torch.equal(o, ops.flash_attention(q[1], k[1], v[1], **kw))
+    _close(lse, ref.mha_lse(q[0], k[0], **kw), 1e-4)
+    got = ops.flash_attention_bwd(q[1], k[1], v[1], o, lse, do[1], **kw)
+    assert ops.LAUNCHES["flash_attention_bwd"] == 2
+    want = ref.mha_backward_reference(q[0], k[0], v[0], o.cpu(), lse.cpu(),
+                                      do[0], **kw)
+    tol = 1e-4 if dtype == "float32" else 5e-2
+    _grad_close(got, want, tol)
+    # the same through autograd, twice: the same bits (no atomics)
+    tq, tk, tv = (t[1].clone().requires_grad_(True) for t in (q, k, v))
+    out = ops.flash_attention(tq, tk, tv, **kw)
+    g1 = torch.autograd.grad(out, (tq, tk, tv), do[1])
+    out = ops.flash_attention(tq, tk, tv, **kw)
+    g2 = torch.autograd.grad(out, (tq, tk, tv), do[1])
+    _grad_close(g1, want, tol)
+    assert all(torch.equal(a, b) for a, b in zip(g1, g2))
+    with pytest.raises(ValueError, match="q_offset"):
+        ops.flash_attention(tq, tk, tv, q_offset=1)
+
+
+@pytest.mark.parametrize("arch,microbatch", [
+    ("minicpm_2b", 0), ("minicpm_2b", 2), ("phi3_medium_14b", 0),
+    ("llava_next_34b", 0)])
+def test_train_step_on_card_equals_cpu(cuda, arch, microbatch):
+    """Reduced config in f32 from the same weights: three train steps on
+    the card (attention's forward with its LSE and the backward kernel)
+    and on the CPU (autograd through the plain versions), each from the
+    CPU's state copied to the card; losses within 1e-4, the parameters
+    and ``m`` / ``v`` within 1e-4 of each tensor's largest entry, but for
+    the elements whose gradient before a step (as the step takes it) is
+    within 1e-5 of zero and not 0 (Adam's ``sign(g)`` may differ there):
+    at most 1 in 1,000 a step, each within 2 x the summed lr (as
+    ``chip_smoke.py`` phase 6b)."""
+    from repro_torch.train import optim, step as STEP
+    cfg = dataclasses.replace(C.get_reduced(arch), dtype=torch.float32)
+    cpu = LM(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(4)
+    fn = STEP.make_train_step(cfg, warmup=1, total=3, microbatch=microbatch)
+    oc = optim.adamw_init(dict(cpu.named_parameters()))
+    loss_fn = STEP.make_loss_fn(cfg)
+    cpu.requires_grad_(True)
+    total = sum(p.numel() for p in cpu.parameters())
+    lr_sum = 0.0
+
+    def rel(got, want, skip):
+        gap = (got.detach().cpu() - want.detach()).abs().masked_fill(skip, 0)
+        return float(gap.max()) / max(float(want.detach().abs().max()),
+                                      1e-30)
+    ops.reset_launches()
+    for _ in range(3):
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab, (4, 33)))
+        b = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        if cfg.family == "vlm":
+            b["prefix_embed"] = torch.as_tensor(rng.normal(
+                0, 0.02, (4, cfg.n_patches, cfg.d_model)),
+                dtype=torch.float32)
+        # the gradient the step takes: with microbatches the mean of its
+        # row shards' (a shard's loss is normalized by its own count)
+        named = dict(cpu.named_parameters())
+        n_mb = max(microbatch, 1)
+        step_g = [0.0] * len(named)
+        for i in range(n_mb):
+            loss, _ = loss_fn(cpu, {k: v.reshape(n_mb, -1, *v.shape[1:])[i]
+                                    for k, v in b.items()})
+            step_g = [a + g for a, g in zip(step_g, torch.autograd.grad(
+                loss, list(named.values())))]
+        near = {n: (g.abs() <= 1e-5 * g.abs().max()) & (g != 0)
+                for n, g in zip(named, step_g)}
+        assert sum(int(m.sum()) for m in near.values()) <= total / 1000
+        # each step from the CPU's state: a flipped sign moves a weight by
+        # ~lr, which would reach every later gradient and moment
+        gpu = copy.deepcopy(cpu).to(cuda)
+        og = optim.AdamWState(m={k: t.to(cuda) for k, t in oc.m.items()},
+                              v={k: t.to(cuda) for k, t in oc.v.items()},
+                              step=oc.step.to(cuda))
+        cpu, oc, mc = fn(cpu, oc, b)
+        gpu, og, mg = fn(gpu, og, {k: v.to(cuda) for k, v in b.items()})
+        lr_sum += float(mc["lr"])
+        assert abs(float(mg["loss"]) - float(mc["loss"])) <= 1e-4
+        own = dict(gpu.named_parameters())
+        for name, p in cpu.named_parameters():
+            gap = (own[name].detach().cpu() - p.detach()).abs()
+            assert float(gap.max()) <= 2 * lr_sum + 1e-4, name
+            for what, g, w in (("p", own[name], p),
+                               ("m", og.m[name], oc.m[name]),
+                               ("v", og.v[name], oc.v[name])):
+                assert g.dtype == w.dtype and g.shape == w.shape, \
+                    (what, name)
+                assert rel(g, w, near[name]) <= 1e-4, (what, name)
+    assert ops.LAUNCHES["flash_attention_bwd"] > 0

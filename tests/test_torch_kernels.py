@@ -677,3 +677,92 @@ def test_model_kernel_wrappers_reject_bad_inputs():
     ops.rwkv6_chunked(x, x, x, x, u, s0, chunk=16)
     assert ops.LAUNCHES == dict.fromkeys(ops.LAUNCHES, 0)
     assert ops.FLASH_PATHS == dict.fromkeys(ops.FLASH_PATHS, 0)
+
+
+# ------------------------------------------------- attention's backward --
+# (B, Sq, Sk, Hq, Hkv, D, causal, window): the training masks; GQA; a
+# query block shorter than the keys (Sq != Sk, rows at positions 0..Sq-1)
+BWD_CASES = [
+    (2, 24, 24, 4, 4, 32, True, 0),       # MHA, causal
+    (1, 40, 40, 8, 2, 16, True, 0),       # GQA 4:1
+    (2, 17, 29, 6, 3, 32, False, 0),      # not causal, Sq != Sk
+    (1, 33, 33, 4, 1, 32, True, 7),       # MQA, sliding window
+    (1, 20, 45, 4, 2, 16, True, 0),       # causal, Sq < Sk
+    (2, 31, 31, 2, 2, 64, False, 9),      # window, not causal
+]
+
+
+def _bwd_inputs(B, Sq, Sk, Hq, Hkv, D):
+    return (_rand((B, Sq, Hq, D)), _rand((B, Sk, Hkv, D)),
+            _rand((B, Sk, Hkv, D)), _rand((B, Sq, Hq, D)))
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,causal,window", BWD_CASES)
+def test_mha_backward_reference_matches_autograd_and_jax(B, Sq, Sk, Hq, Hkv,
+                                                        D, causal, window):
+    """The plain backward (the formula the CUDA kernel computes) against
+    autograd through the plain forward and against ``jax.grad`` of the
+    reference's ``chunked_attention``, which the reference trains
+    through; f32, 2e-5 (sums in another order)."""
+    from repro.models.common import chunked_attention
+    q, k, v, do = _bwd_inputs(B, Sq, Sk, Hq, Hkv, D)
+    kw = dict(causal=causal, sliding_window=window)
+    tq, tk, tv = (_t(a).requires_grad_(True) for a in (q, k, v))
+    o = TREF.mha_reference(tq, tk, tv, **kw)
+    want = torch.autograd.grad(o, (tq, tk, tv), _t(do))
+    lse = TREF.mha_lse(_t(q), _t(k), **kw)
+    got = TREF.mha_backward_reference(_t(q), _t(k), _t(v), o.detach(), lse,
+                                      _t(do), **kw)
+
+    def f(q, k, v):
+        return jnp.vdot(chunked_attention(q, k, v, causal=causal, q_offset=0,
+                                          block_q=16, sliding_window=window),
+                        jnp.asarray(do))
+    jgrads = jax.grad(f, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    for g, w, j in zip(got, want, jgrads):
+        assert g.shape == w.shape and g.dtype == torch.float32
+        _close(g, w.numpy(), 2e-5)
+        _close(g, np.asarray(j), 2e-5)
+
+
+def test_mha_lse_is_the_softmax_normaliser():
+    q, k, v, _ = _bwd_inputs(2, 12, 12, 4, 2, 16)
+    lse = TREF.mha_lse(_t(q), _t(k), causal=True, sliding_window=5)
+    s = TREF._masked_scores(_t(q), _t(k), causal=True, sliding_window=5,
+                            q_offset=0)
+    p = torch.exp(s - lse.reshape(2, 2, 2, 12, 1))
+    np.testing.assert_allclose(p.sum(-1).numpy(), 1.0, rtol=1e-6)
+
+
+def test_flash_attention_gradient_on_the_cpu():
+    """On the CPU ``ops.flash_attention`` under grad is the plain version
+    under autograd; ``flash_attention_lse`` and ``flash_attention_bwd``
+    are the plain LSE and backward, and nothing launches."""
+    q, k, v, do = _bwd_inputs(1, 16, 16, 4, 2, 32)
+    kw = dict(causal=True, sliding_window=6)
+    ops.reset_launches()
+    tq, tk, tv = (_t(a).requires_grad_(True) for a in (q, k, v))
+    o = ops.flash_attention(tq, tk, tv, **kw)
+    want = torch.autograd.grad(o, (tq, tk, tv), _t(do))
+    o2, lse = ops.flash_attention_lse(_t(q), _t(k), _t(v), **kw)
+    assert torch.equal(o2, o.detach()) and lse.shape == (1, 4, 16)
+    got = ops.flash_attention_bwd(_t(q), _t(k), _t(v), o2, lse, _t(do), **kw)
+    for g, w in zip(got, want):
+        _close(g, w.numpy(), 2e-5)
+    assert ops.LAUNCHES == dict.fromkeys(ops.LAUNCHES, 0)
+    with pytest.raises(ValueError, match="lse"):
+        ops.flash_attention_bwd(_t(q), _t(k), _t(v), o2, lse[:, :, :3],
+                                _t(do), **kw)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv", [(1, 1, 700, 40, 10),
+                                            (4, 4, 64, 8, 8), (2, 2, 9, 2, 1)])
+def test_flash_plan_under_grad_never_splits(B, Sq, Sk, Hq, Hkv):
+    """The split path writes no row log-sum-exp, so a forward whose
+    gradient will be taken takes simt or wgmma."""
+    assert ops.flash_plan(B, Sq, Sk, Hq, Hkv, 64, torch.bfloat16,
+                          num_sms=132)[0] == "split"
+    path = ops.flash_plan(B, Sq, Sk, Hq, Hkv, 64, torch.bfloat16,
+                          num_sms=132, grad=True)[0]
+    assert path == ("wgmma" if Sq * (Hq // Hkv) >= ops.WGMMA_ROWS
+                    else "simt")
