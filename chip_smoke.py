@@ -152,7 +152,9 @@ Phases (any failure exits non-zero before the final line):
    cross-attention on the split path);
 5b. (the training phases run after serving's, so that phase 8's peak
    memory is serving's alone) attention's backward kernel
-   (``ops.flash_attention_bwd``: dQ, then dK / dV) against
+   (``ops.flash_attention_bwd``: dQ, then dK / dV, on the path
+   ``ops.flash_bwd_plan`` picks, printed a case; MiniCPM's and Phi-3's
+   bf16 shapes must take wgmma) against
    ``ref.mha_backward_reference`` on the forward kernel's o and LSE:
    MiniCPM-2B's training shape as phase 9 trains it (8 x 2,048, 36 / 36
    heads of 64, causal) in bf16 and f32, Phi-3's 40 / 10 heads of 128
@@ -163,8 +165,9 @@ Phases (any failure exits non-zero before the final line):
    and within 2x of SDPA's backward's max and mean error against the f32
    plain backward; CUDA-event and profiler times of the kernel, the
    plain version and SDPA's backward, the bound (2.5x the forward's
-   FLOPs; q, k, v, o, dO, dq, dk, dv and the LSE once), the kernel's
-   ptxas registers and spills;
+   FLOPs; q, k, v, o, dO, dq, dk, dv and the LSE once), the kernels'
+   ptxas registers, stack and spills (a wgmma kernel that spills
+   fails);
 6b. training card against CPU: reduced MiniCPM, Phi-3 and LLaVA in f32,
    the loss within 1e-4 and every gradient within 1e-4 of its largest
    entry, then three train steps (the second with ``microbatch=2``),
@@ -175,7 +178,8 @@ Phases (any failure exits non-zero before the final line):
    ``repro_torch.launch.train.train`` (WSD, remat): every loss finite and
    the last below the first, attention's forward launched 80 times a
    step (40 and 40 recomputed, all wgmma) and its backward 80 (40 x dQ
-   and dK / dV), no other kernel of the port; one line with the losses,
+   and dK / dV, all wgmma), no other kernel of the port; one line with
+   the losses,
    warm ms/step, tokens/s, model FLOP/s (6 N D without the embedding
    table, attention's backward 2.5x its forward, remat's recomputation
    left out) against 989 TFLOP/s, peak memory
@@ -206,6 +210,8 @@ import ctypes
 import dataclasses
 import gc
 import json
+import os
+import platform
 import re
 import subprocess
 import sys
@@ -277,6 +283,37 @@ def card_line() -> str:
     if out.returncode != 0 or not out.stdout.strip():
         fail(f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def host_line() -> str:
+    """The host's CPU model and the cores this process may use: the
+    host-paced numbers (decode steps, flow cells) depend on them.  Some
+    virtualized hosts report the model name as "unknown"; the vendor,
+    family and model numbers, clock and the board's product name still
+    tell hosts apart."""
+    cpu = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if not line.strip():
+                    break                      # the first processor only
+                key, _, val = line.partition(":")
+                cpu[key.strip()] = val.strip()
+    except OSError:
+        pass
+    try:
+        with open("/sys/devices/virtual/dmi/id/product_name") as f:
+            board = f.read().strip() or "unknown"
+    except OSError:
+        board = "unknown"
+    usable = (len(os.sched_getaffinity(0))
+              if hasattr(os, "sched_getaffinity") else os.cpu_count())
+    return (f"host: {cpu.get('model name', platform.machine())} "
+            f"({cpu.get('vendor_id', '?')} family "
+            f"{cpu.get('cpu family', '?')} model {cpu.get('model', '?')}, "
+            f"{cpu.get('cpu MHz', '?')} MHz), board {board}, "
+            f"{os.cpu_count()} logical cores, {usable} usable by this "
+            f"process")
 
 
 def time_ms(fn, reps: int = 200, warmup: int = 10) -> float:
@@ -1011,6 +1048,8 @@ def check_model_kernels(ops, ref, torch, np, rwkv_smem,
 
 
 TRAIN_ARCH, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = "minicpm_2b", 8, 8, 2048
+# phase 5b's cases whose backward must take the wgmma path
+WGMMA_BWD_CASES = ("minicpm train bf16", "phi3 train bf16")
 
 
 def check_attention_bwd(ops, ref, torch, np, ptxas: dict,
@@ -1073,6 +1112,11 @@ def check_attention_bwd(ops, ref, torch, np, ptxas: dict,
               f"{k} {v['registers']} / {v['stack_bytes']} / "
               f"{v['spill_bytes']}" for k, v in sorted(ents.items())),
           flush=True)
+    wg = {k: v for k, v in ents.items() if "wgmma" in k}
+    if len(wg) != 4 or any(v["spill_bytes"] or v["stack_bytes"]
+                           for v in wg.values()):
+        fail(f"flash_attention_bwd: the wgmma kernels (dQ and dK / dV at D "
+             f"64 and 128) must neither spill nor keep a stack frame: {wg}")
     out = {}
     cases = [  # (label, B, Sq, Sk, Hq, Hkv, D, dtype, causal, window)
         ("minicpm train bf16", TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 36, 36,
@@ -1109,8 +1153,14 @@ def check_attention_bwd(ops, ref, torch, np, ptxas: dict,
         ops.reset_launches()
         got = ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
         torch.cuda.synchronize()
-        if ops.LAUNCHES["flash_attention_bwd"] != 2:
-            fail(f"flash_attention_bwd {label}: launches {ops.LAUNCHES}")
+        bwd_path = next(p for p, n in ops.FLASH_BWD_PATHS.items() if n)
+        if ops.LAUNCHES["flash_attention_bwd"] != 2 or \
+                ops.FLASH_BWD_PATHS[bwd_path] != 2:
+            fail(f"flash_attention_bwd {label}: launches {ops.LAUNCHES}, "
+                 f"paths {ops.FLASH_BWD_PATHS}")
+        if label in WGMMA_BWD_CASES and bwd_path != "wgmma":
+            fail(f"flash_attention_bwd {label}: on the {bwd_path} path, "
+                 f"not wgmma")
         want = ref.mha_backward_reference(q, k, v, o, lse, do, **kw)
         e = rel(got, want)
         tol = 5e-2 if dt == torch.bfloat16 else 1e-4
@@ -1157,7 +1207,7 @@ def check_attention_bwd(ops, ref, torch, np, ptxas: dict,
                    flops=flops, bytes=nb, bound_ms=bms, bound_by=by,
                    max_abs_err=max(float((g.float() - w.float()).abs().max())
                                    for g, w in zip(got, want)),
-                   rel_err=e)
+                   rel_err=e, path=bwd_path)
         row["device_ms"] = device_us(kern, torch, reps,
                                      what=f"flash_attention_bwd {label}") / 1e3
         row["library_device_ms"] = device_us(
@@ -1168,7 +1218,8 @@ def check_attention_bwd(ops, ref, torch, np, ptxas: dict,
               f"{f' window {win}' if win else ''}: forward on the "
               f"{lse_path} path, LSE error {e_lse:.3g} (tol 1e-3), o "
               f"{'equal to' if serve_path == lse_path else 'not compared with'}"
-              f" the serving launch's ({serve_path}); relative error {e:.3g} "
+              f" the serving launch's ({serve_path}); backward on the "
+              f"{bwd_path} path, relative error {e:.3g} "
               f"(tol {tol}); kernel {row['ms']:.4f} ms, plain "
               f"{row['plain_ms']:.4f} ms, SDPA backward "
               f"{row['library_ms']:.4f} ms; device: kernel "
@@ -1779,6 +1830,7 @@ def train_path(C, TRAIN, STEP, OPT, ops, torch, np, card,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts, paths = dict(ops.LAUNCHES), dict(ops.FLASH_PATHS)
+    bwd_paths = dict(ops.FLASH_BWD_PATHS)
     n_params = sum(p.numel() for p in model.parameters())
     peak = torch.cuda.max_memory_allocated()
     if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
@@ -1788,9 +1840,11 @@ def train_path(C, TRAIN, STEP, OPT, ops, torch, np, card,
     per = TRAIN_STEPS * 2 * L
     want = dict.fromkeys(counts, 0)
     want.update(flash_attention=per, flash_attention_bwd=per)
-    if counts != want or paths != {"wgmma": per, "split": 0, "simt": 0}:
+    if counts != want or paths != {"wgmma": per, "split": 0, "simt": 0} \
+            or bwd_paths != {"wgmma": per, "simt": 0}:
         fail(f"train {TRAIN_ARCH}: launches {counts}, attention paths "
-             f"{paths}; want {want} on the wgmma path")
+             f"{paths}, backward paths {bwd_paths}; want {want} on the "
+             f"wgmma path")
     step_s = np.diff(stamps)[1:]           # steps 2.., warm
     warm = float(step_s.mean())
     tokens = TRAIN_BATCH * TRAIN_SEQ
@@ -1817,7 +1871,8 @@ def train_path(C, TRAIN, STEP, OPT, ops, torch, np, card,
           f"products) = {flops / warm / 1e12:.1f} TFLOP/s = "
           f"{100 * flops / warm / PEAK_FLOPS['bf16']:.1f} % of 989 TFLOP/s; "
           f"peak memory {peak / 1e9:.2f} GB; wall {wall:.1f} s; launches "
-          f"{counts}; attention paths {paths}; card {card}", flush=True)
+          f"{counts}; attention paths {paths}, backward paths {bwd_paths}; "
+          f"card {card}", flush=True)
     if profile:
         data_b = {k2: torch.as_tensor(v, device="cuda") for k2, v in
                   TRAIN.TokenStream(TRAIN.DataCfg(
@@ -1883,7 +1938,8 @@ def train_path(C, TRAIN, STEP, OPT, ops, torch, np, card,
           f" / {', '.join(f'{x:.6f}' for x in resumed)}, largest gap "
           f"{max(gaps):.3g} (tol 2e-4), bit-equal {full[3:] == resumed}",
           flush=True)
-    return dict(counts=counts, warm_ms=warm * 1e3, tokens_s=tokens / warm,
+    return dict(counts=counts, bwd_paths=bwd_paths, warm_ms=warm * 1e3,
+                tokens_s=tokens / warm,
                 model_flops_share=flops / warm / PEAK_FLOPS["bf16"],
                 peak_gb=peak / 1e9, losses=losses)
 
@@ -1979,6 +2035,7 @@ def main() -> None:
 
     # 1. card
     print(card_line(), flush=True)
+    print(host_line(), flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} "
           f"count {torch.cuda.device_count()}", flush=True)
@@ -2270,13 +2327,15 @@ def main() -> None:
     flash["launches_by_path"][f"train {TRAIN_ARCH}"] = \
         trained["counts"]["flash_attention"]
     bwd = next(r for r in rows if r["name"] == "flash_attention_bwd")
-    for key in ("device_ms", "library_device_ms", "rel_err"):
+    for key in ("device_ms", "library_device_ms", "rel_err", "path"):
         bwd[key] = nums["flash bwd minicpm train bf16"][key]
     for label in ("minicpm train f32", "phi3 train bf16"):
         key = label.replace(" ", "_")
         for k2 in ("ms", "device_ms", "library_ms", "library_device_ms",
-                   "plain_ms", "bound_ms"):
+                   "plain_ms", "bound_ms", "path"):
             bwd[f"{key}_{k2}"] = nums[f"flash bwd {label}"][k2]
+    bwd["launches_by_path"] = {f"train {TRAIN_ARCH} {p}": n
+                               for p, n in trained["bwd_paths"].items()}
     bwd["train_step"] = {k: trained[k] for k in (
         "warm_ms", "tokens_s", "model_flops_share", "peak_gb")}
     rank_row = next(r for r in rows if r["name"] == "tick_rank")

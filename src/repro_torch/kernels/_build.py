@@ -47,7 +47,8 @@ SIGNATURES = {
                          _I, _F, _I, _I, _I, _P, _P, _P), ()),
     "flash_attention_bwd": ("flash_attention_bwd_launch",
                             (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                             _I, _I, _I, _I, _I, _I, _I, _F, _I, _P), ()),
+                             _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P),
+                            ()),
     "rwkv6_chunked": ("rwkv6_chunked_launch",
                       (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                        _P), ()),

@@ -9,7 +9,8 @@ version in :mod:`repro_torch.kernels.ref` (tensors on the CPU, the
 analogue of Pallas interpret mode).  There is no fallback: a tensor on
 the card runs the kernel or raises.  ``LAUNCHES`` counts kernel launches
 per wrapper, so a run can show that it went through the kernels;
-``FLASH_PATHS`` and ``TICK_RANK_PATHS`` count the path each launch took.
+``FLASH_PATHS``, ``FLASH_BWD_PATHS`` and ``TICK_RANK_PATHS`` count the
+path each launch took.
 """
 from __future__ import annotations
 
@@ -27,10 +28,13 @@ LAUNCHES = dict.fromkeys(("flow_agg", "tick_rank", "red_ecn",
                           "rwkv6_chunked"), 0)
 # flash_attention launches by the path the kernel took (see flash_plan)
 FLASH_PATHS = dict.fromkeys(("wgmma", "split", "simt"), 0)
+# flash_attention_bwd launches by the path the kernel took (see
+# flash_bwd_plan)
+FLASH_BWD_PATHS = dict.fromkeys(("wgmma", "simt"), 0)
 # tick_rank and tick_rank_red_ecn launches by the path the kernel took
 # (see tick_rank_plan)
 TICK_RANK_PATHS = dict.fromkeys(("smem", "pairwise"), 0)
-_FLASH_CODES = {"simt": 0, "wgmma": 1, "split": 2}
+_FLASH_CODES = {"simt": 0, "wgmma": 1, "split": 2}   # both kernels' paths
 _FLOAT_CODES = {torch.float32: 0, torch.bfloat16: 1}
 WGMMA_ROWS = 64          # rows of the wgmma path's Q tile
 SPLIT_ROWS = 16          # most rows (Sq * G) the split path takes
@@ -43,6 +47,7 @@ _AGG_ROWS = {torch.int32: 4, torch.bool: 1, torch.uint8: 1}
 
 
 _COUNTERS = {"LAUNCHES": LAUNCHES, "FLASH_PATHS": FLASH_PATHS,
+             "FLASH_BWD_PATHS": FLASH_BWD_PATHS,
              "TICK_RANK_PATHS": TICK_RANK_PATHS}
 
 
@@ -363,6 +368,22 @@ def flash_plan(B: int, Sq: int, Sk: int, Hq: int, Hkv: int, D: int,
     return "simt", 0, 0
 
 
+def flash_bwd_plan(B: int, Sq: int, Sk: int, Hq: int, Hkv: int, D: int,
+                   dtype: torch.dtype) -> str:
+    """The backward kernel's path for these shapes: ``"wgmma"`` (bf16, D
+    of 64 or 128 and at least one 64-row tile, ``Sq * Hq / Hkv >=
+    WGMMA_ROWS``), else ``"simt"`` (f32, D 32, fewer rows).  Shapes
+    without rows or keys have no plan (the wrapper launches nothing for
+    them)."""
+    if min(B, Sq, Sk, Hq, Hkv) < 1:
+        raise ValueError(f"flash_bwd_plan: no work to plan for B={B}, "
+                         f"Sq={Sq}, Sk={Sk}, Hq={Hq}, Hkv={Hkv}")
+    if dtype == torch.bfloat16 and D in (64, 128) and \
+            Sq * (Hq // Hkv) >= WGMMA_ROWS:
+        return "wgmma"
+    return "simt"
+
+
 def _check_attention(q, k, v, q_offset: int, sliding_window: int):
     if not (q.ndim == k.ndim == v.ndim == 4):
         raise ValueError("q, k and v must be 4-D [B, S, H, D]")
@@ -482,10 +503,11 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     """Attention's gradient: ``(dq, dk, dv)`` in the inputs' dtype from q,
     o, do [B, Sq, Hq, D], k, v [B, Sk, Hkv, D] and the forward's row
     log-sum-exp lse (f32 [B, Hq, Sq]); query row i at position i.  On
-    the card two launches of ``flash_attention_bwd.cu`` (each counted):
-    dQ with ``rowsum(dO o O)``, then dK and dV, each kv head's group
-    summed in one block (no atomics: the same inputs give the same bits).
-    On the CPU :func:`ref.mha_backward_reference`."""
+    the card two launches of ``flash_attention_bwd.cu`` on the path
+    :func:`flash_bwd_plan` picks (each launch counted, by path too): dQ
+    with ``rowsum(dO o O)``, then dK and dV, each kv head's group summed
+    in one block (no atomics: the same inputs give the same bits).  On
+    the CPU :func:`ref.mha_backward_reference`."""
     _check_attention(q, k, v, 0, sliding_window)
     B, Sq, Hq, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
@@ -505,6 +527,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
+    path = flash_bwd_plan(B, Sq, Sk, Hq, Hkv, D, q.dtype)
     delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
     for stage in (0, 1):          # dQ (and delta), then dK / dV
         _launch("flash_attention_bwd", q.data_ptr(), k.data_ptr(),
@@ -512,7 +535,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                 delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                 dv.data_ptr(), B, Sq, Sk, Hq, Hkv, D, code,
                 int(bool(causal)), int(sliding_window), 1.0 / math.sqrt(D),
-                stage)
+                _FLASH_CODES[path], stage)
+        FLASH_BWD_PATHS[path] += 1
     return dq, dk, dv
 
 

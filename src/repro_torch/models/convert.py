@@ -102,13 +102,44 @@ def opt_from_jax(cfg: ModelCfg, state, model: LM):
                       err=None if state.err is None else tensors(state.err))
 
 
+def ref_layout(cfg: ModelCfg, names) -> dict:
+    """The reference's tree layout of the port's parameter ``names`` (or
+    any names of their layout: gradients, AdamW moments): ``blocks`` a
+    list over the scan unit's positions, ``enc_blocks`` one tree.  A leaf
+    stacked over units (encoder layers) holds the tuple of the port names
+    stacked into it, in order; any other leaf holds its name."""
+    _, u = scan_unit(cfg)
+
+    def put(tree, path, value):
+        for k in path[:-1]:
+            tree = tree.setdefault(k, {})
+        tree[path[-1]] = value
+    out, blocks, enc = {}, [{} for _ in range(u)], {}
+    for name in names:
+        parts = name.split(".")
+        if parts[0] == "blocks":
+            l = int(parts[1])
+            put(blocks[l % u], parts[2:] + [l // u], name)
+        elif parts[0] == "enc_blocks":
+            put(enc, parts[2:] + [int(parts[1])], name)
+        else:
+            out[name] = name
+
+    def stack(tree):
+        if all(isinstance(k, int) for k in tree):
+            return tuple(tree[i] for i in range(len(tree)))
+        return {k: stack(v) for k, v in tree.items()}
+    out["blocks"] = [stack(b) for b in blocks]
+    if enc:
+        out["enc_blocks"] = stack(enc)
+    return out
+
+
 def to_numpy_tree(model: LM, named: dict | None = None) -> dict:
     """The model's parameters, or ``named`` (tensors keyed by its
-    parameter names: gradients, AdamW moments), as the reference's tree:
-    ``blocks`` a list over the scan unit's positions of trees stacked over
-    units, ``enc_blocks`` stacked over encoder layers.  Leaves are numpy,
-    bf16 ones widened to f32 (exactly)."""
-    _, u = scan_unit(model.cfg)
+    parameter names: gradients, AdamW moments), as the reference's tree
+    (:func:`ref_layout`).  Leaves are numpy, bf16 ones widened to f32
+    (exactly)."""
     if named is None:
         named = dict(model.named_parameters())
 
@@ -116,29 +147,15 @@ def to_numpy_tree(model: LM, named: dict | None = None) -> dict:
         t = t.detach().cpu()
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
-    def put(tree, path, value):
-        for k in path[:-1]:
-            tree = tree.setdefault(k, {})
-        tree[path[-1]] = value
-    out, blocks, enc = {}, [{} for _ in range(u)], {}
-    for name, t in named.items():
-        parts = name.split(".")
-        if parts[0] == "blocks":
-            l = int(parts[1])
-            put(blocks[l % u], parts[2:] + [l // u], arr(t))
-        elif parts[0] == "enc_blocks":
-            put(enc, parts[2:] + [int(parts[1])], arr(t))
-        else:
-            out[name] = arr(t)
-
-    def stack(tree):
-        if all(isinstance(k, int) for k in tree):
-            return np.stack([tree[i] for i in range(len(tree))])
-        return {k: stack(v) for k, v in tree.items()}
-    out["blocks"] = [stack(b) for b in blocks]
-    if enc:
-        out["enc_blocks"] = stack(enc)
-    return out
+    def build(node):
+        if isinstance(node, dict):
+            return {k: build(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [build(v) for v in node]
+        if isinstance(node, tuple):
+            return np.stack([arr(named[n]) for n in node])
+        return arr(named[node])
+    return build(ref_layout(model.cfg, named))
 
 
 def cache_from_jax(cfg: ModelCfg, tree, *, device) -> dict:

@@ -643,15 +643,18 @@ def _grad_close(got, want, tol):
     (1, 128, 128, 4, 4, 64, True, 0), (2, 100, 100, 8, 2, 128, True, 0),
     (2, 77, 333, 4, 1, 32, False, 0), (1, 256, 256, 4, 2, 64, True, 64),
     (2, 65, 65, 14, 2, 128, True, 0), (1, 40, 90, 6, 3, 64, True, 0),
-    (2, 150, 150, 12, 12, 64, False, 0), (1, 33, 33, 2, 2, 32, False, 7)])
+    (2, 150, 150, 12, 12, 64, False, 0), (1, 33, 33, 2, 2, 32, False, 7),
+    (1, 20, 20, 4, 2, 64, True, 0)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_bwd_kernel(cuda, B, Sq, Sk, Hq, Hkv, D, causal,
                                     window, dtype):
     """The backward kernel (two launches) against the plain backward on
     the same inputs and the forward's own LSE: 1e-4 in f32, 5e-2 in bf16
-    (the outputs round to bf16), relative to each tensor's max; its
-    gradient through ``ops.flash_attention`` under autograd is the same
-    launches."""
+    (the outputs round to bf16), relative to each tensor's max; both
+    launches on the wgmma path for bf16 with D 64 or 128 and at least 64
+    rows (Sq * G), else on the simt path; its gradient through
+    ``ops.flash_attention`` under autograd is the same launches, and
+    twice the same bits."""
     dt = getattr(torch, dtype)
     q = _pair(RNG.normal(0, 1, (B, Sq, Hq, D)), dt, cuda)
     k = _pair(RNG.normal(0, 1, (B, Sk, Hkv, D)), dt, cuda)
@@ -665,6 +668,9 @@ def test_flash_attention_bwd_kernel(cuda, B, Sq, Sk, Hq, Hkv, D, causal,
     _close(lse, ref.mha_lse(q[0], k[0], **kw), 1e-4)
     got = ops.flash_attention_bwd(q[1], k[1], v[1], o, lse, do[1], **kw)
     assert ops.LAUNCHES["flash_attention_bwd"] == 2
+    path = ("wgmma" if dtype == "bfloat16" and D in (64, 128)
+            and Sq * (Hq // Hkv) >= 64 else "simt")
+    assert ops.FLASH_BWD_PATHS == {"wgmma": 0, "simt": 0, path: 2}
     want = ref.mha_backward_reference(q[0], k[0], v[0], o.cpu(), lse.cpu(),
                                       do[0], **kw)
     tol = 1e-4 if dtype == "float32" else 5e-2

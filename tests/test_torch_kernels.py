@@ -554,6 +554,30 @@ def test_flash_plan_rejects_empty_shapes(B, Sq, Sk, Hq, Hkv):
                        num_sms=H100_SMS)
 
 
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,dtype,want", [
+    (8, 2048, 2048, 36, 36, 64, "bfloat16", "wgmma"),   # MiniCPM-2B trained
+    (1, 2048, 2048, 40, 10, 128, "bfloat16", "wgmma"),  # Phi-3 trained
+    (2, 100, 300, 8, 2, 128, "bfloat16", "wgmma"),      # Sq != Sk
+    (1, 16, 16, 4, 1, 64, "bfloat16", "wgmma"),         # 64 rows, G = 4
+    (8, 2048, 2048, 36, 36, 64, "float32", "simt"),     # f32
+    (2, 77, 77, 8, 2, 64, "float32", "simt"),
+    (2, 100, 100, 8, 2, 32, "bfloat16", "simt"),        # D = 32
+    (1, 15, 15, 4, 1, 64, "bfloat16", "simt"),          # 60 rows
+    (1, 60, 200, 4, 4, 128, "bfloat16", "simt"),
+])
+def test_flash_bwd_plan_paths(B, Sq, Sk, Hq, Hkv, D, dtype, want):
+    assert ops.flash_bwd_plan(B, Sq, Sk, Hq, Hkv, D,
+                              getattr(torch, dtype)) == want
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv", [
+    (0, 2048, 2048, 36, 36), (8, 0, 2048, 36, 36), (8, 2048, 0, 36, 36),
+    (8, 2048, 2048, 0, 36), (8, 2048, 2048, 36, 0)])
+def test_flash_bwd_plan_rejects_empty_shapes(B, Sq, Sk, Hq, Hkv):
+    with pytest.raises(ValueError, match="no work"):
+        ops.flash_bwd_plan(B, Sq, Sk, Hq, Hkv, 64, torch.bfloat16)
+
+
 @pytest.mark.parametrize("B,Sq", [(0, 1), (0, 1024), (2, 0)])
 def test_flash_attention_empty_rows(B, Sq):
     """No rows: an empty output of q's shape and dtype, no launch."""

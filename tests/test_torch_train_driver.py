@@ -55,7 +55,7 @@ def test_checkpoint_atomic_keep_n(tmp_path):
     assert mgr.all_steps() == [20, 30]
     assert not list(tmp_path.glob("*.tmp"))
     meta = json.loads((tmp_path / "step_00000030" / "meta.json").read_text())
-    assert meta["step"] == 30 and meta["names"] == ["a", "b/c"]
+    assert meta["step"] == 30 and meta["paths"] == ["a", "b/c"]
     got = mgr.restore(30, tree)
     np.testing.assert_allclose(got["a"].numpy(), np.arange(4.0) * 30)
     np.testing.assert_allclose(got["b"]["c"].numpy(), np.full((2, 2), 30.0))
@@ -85,10 +85,11 @@ def test_checkpoint_bf16_model_and_state_round_trip(tmp_path):
             t.zero_()
     mgr.wait()
     meta = json.loads((tmp_path / "step_00000007" / "meta.json").read_text())
-    dtypes = dict(zip(meta["names"], meta["dtypes"]))
+    assert meta["treedef"].startswith("PyTreeDef(")
+    dtypes = dict(zip(meta["paths"], meta["dtypes"]))
     assert dtypes["0/embed"] == "bfloat16" and dtypes["1/m/embed"] == "float32"
     assert np.load(tmp_path / "step_00000007" / "leaves.npz")[
-        "0/embed"].dtype == np.uint16
+        f"leaf_{meta['paths'].index('0/embed')}"].dtype == np.uint16
     fresh = optim.adamw_init(dict(model.named_parameters()), compression=True)
     model2, opt2 = mgr.restore(7, (model, fresh))
     assert model2 is model and int(opt2.step) == 7
