@@ -50,8 +50,11 @@ SIGNATURES = {
                              _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P),
                             ()),
     "rwkv6_chunked": ("rwkv6_chunked_launch",
-                      (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                       _P), ()),
+                      (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                       _I, _P), ()),
+    "rwkv6_chunked_bwd": ("rwkv6_chunked_bwd_launch",
+                          (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                           _P, _P, _I, _I, _I, _I, _P), ()),
 }
 # entry points beside their library's own: name -> (library, C entry
 # point, argument types)

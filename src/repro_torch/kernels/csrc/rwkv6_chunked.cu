@@ -11,7 +11,11 @@
 // Every pairwise decay 2^(Lprev_t - L_s), s < t, is <= 1: the stable
 // difference form, never the 1/A matmul form.
 // r, k, v, w: [B, S, H, 64] (f32 or bf16); u: [H, 64] (same type);
-// s0: [B, H, 64, 64] f32.  y: [B, S, H, 64] f32; sout: [B, H, 64, 64] f32.
+// s0: [B, H, 64, 64] f32.  y: [B, S, H, 64] f32; sout: [B, H, 64, 64] f32;
+// states: null (serving) or [B, H, S / C, 64, 64] f32, the state at the
+// start of each chunk (the first is s0), which the backward kernel
+// (rwkv6_chunked_bwd.cu) reads; the state warps write it from the
+// registers that hold it, before the chunk's update.
 // C divides S and is at most 64; every pointer is 16-byte aligned.
 //
 // Replaces: src/repro/kernels/rwkv6_chunked.py, _rwkv6_kernel (one
@@ -119,8 +123,8 @@ __global__ void __launch_bounds__(THREADS, CP <= 16 ? 2 : 1)
 rwkv6_chunked_kernel(const T* __restrict__ r, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ w,
                      const T* __restrict__ u, const float* __restrict__ s0,
-                     float* __restrict__ y, float* __restrict__ sout, int S,
-                     int H, int C) {
+                     float* __restrict__ y, float* __restrict__ sout,
+                     float* __restrict__ states, int S, int H, int C) {
   using Lay = Layout<CP>;
   extern __shared__ __align__(16) float sm[];
   const int bh = blockIdx.x, b = bh / H, h = bh % H, tid = threadIdx.x;
@@ -361,6 +365,15 @@ rwkv6_chunked_kernel(const T* __restrict__ r, const T* __restrict__ k,
       }
     } else {
       // ---- state rows 4 rg.., columns j0.. and j1..: diag(AC) S + KD^T V
+      if (states != nullptr) {   // the chunk's start state, for training
+        float* sp0 = states + ((long long)bh * n + ci) * HD * HD;
+#pragma unroll
+        for (int ii = 0; ii < 4; ++ii) {
+          float* sp = sp0 + (4 * rg + ii) * HD;
+          st4(sp + j0, st[ii][0], st[ii][1], st[ii][2], st[ii][3]);
+          st4(sp + j1, st[ii][4], st[ii][5], st[ii][6], st[ii][7]);
+        }
+      }
       const float4 ac = ld4(AC + 4 * rg);
 #pragma unroll
       for (int ii = 0; ii < 4; ++ii)
@@ -400,8 +413,9 @@ rwkv6_chunked_kernel(const T* __restrict__ r, const T* __restrict__ k,
 
 template <typename T, int CP>
 int launch_cp(const void* r, const void* k, const void* v, const void* w,
-              const void* u, const void* s0, void* y, void* sout, int B,
-              int S, int H, int C, cudaStream_t stream) {
+              const void* u, const void* s0, void* y, void* sout,
+              void* states, int B, int S, int H, int C,
+              cudaStream_t stream) {
   const size_t bytes = Layout<CP>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
       rwkv6_chunked_kernel<T, CP>,
@@ -409,21 +423,25 @@ int launch_cp(const void* r, const void* k, const void* v, const void* w,
   if (err != cudaSuccess) return (int)err;
   rwkv6_chunked_kernel<T, CP><<<B * H, THREADS, bytes, stream>>>(
       (const T*)r, (const T*)k, (const T*)v, (const T*)w, (const T*)u,
-      (const float*)s0, (float*)y, (float*)sout, S, H, C);
+      (const float*)s0, (float*)y, (float*)sout, (float*)states, S, H, C);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch(const void* r, const void* k, const void* v, const void* w,
-           const void* u, const void* s0, void* y, void* sout, int B, int S,
-           int H, int C, cudaStream_t stream) {
+           const void* u, const void* s0, void* y, void* sout, void* states,
+           int B, int S, int H, int C, cudaStream_t stream) {
   if (C <= 16)
-    return launch_cp<T, 16>(r, k, v, w, u, s0, y, sout, B, S, H, C, stream);
+    return launch_cp<T, 16>(r, k, v, w, u, s0, y, sout, states, B, S, H, C,
+                            stream);
   if (C <= 32)
-    return launch_cp<T, 32>(r, k, v, w, u, s0, y, sout, B, S, H, C, stream);
+    return launch_cp<T, 32>(r, k, v, w, u, s0, y, sout, states, B, S, H, C,
+                            stream);
   if (C <= 48)
-    return launch_cp<T, 48>(r, k, v, w, u, s0, y, sout, B, S, H, C, stream);
-  return launch_cp<T, 64>(r, k, v, w, u, s0, y, sout, B, S, H, C, stream);
+    return launch_cp<T, 48>(r, k, v, w, u, s0, y, sout, states, B, S, H, C,
+                            stream);
+  return launch_cp<T, 64>(r, k, v, w, u, s0, y, sout, states, B, S, H, C,
+                          stream);
 }
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
@@ -441,15 +459,17 @@ extern "C" int rwkv6_chunked_smem_bytes(int C) {
 extern "C" int rwkv6_chunked_launch(const void* r, const void* k,
                                     const void* v, const void* w,
                                     const void* u, const void* s0, void* y,
-                                    void* sout, int B, int S, int H, int C,
-                                    int is_bf16, void* stream) {
+                                    void* sout, void* states, int B, int S,
+                                    int H, int C, int is_bf16, void* stream) {
   if (B == 0 || H == 0) return 0;
   if (C < 1 || C > HD || S % C != 0) return (int)cudaErrorInvalidValue;
   if (!(aligned16(r) && aligned16(k) && aligned16(v) && aligned16(w) &&
-        aligned16(s0) && aligned16(y) && aligned16(sout)))
+        aligned16(s0) && aligned16(y) && aligned16(sout) &&
+        aligned16(states)))
     return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = (cudaStream_t)stream;
-  return is_bf16 ? launch<__nv_bfloat16>(r, k, v, w, u, s0, y, sout, B, S,
-                                         H, C, s)
-                 : launch<float>(r, k, v, w, u, s0, y, sout, B, S, H, C, s);
+  return is_bf16 ? launch<__nv_bfloat16>(r, k, v, w, u, s0, y, sout, states,
+                                         B, S, H, C, s)
+                 : launch<float>(r, k, v, w, u, s0, y, sout, states, B, S, H,
+                                 C, s);
 }

@@ -1,6 +1,6 @@
-"""Wrappers of the eight CUDA kernels (four tick kernels, the tick's
-random draws, attention, attention's backward and the chunked RWKV-6
-time mix), and of the fused launch of two of them
+"""Wrappers of the nine CUDA kernels (four tick kernels, the tick's
+random draws, attention, attention's backward, the chunked RWKV-6 time
+mix and its backward), and of the fused launch of two of them
 (``tick_rank_red_ecn``: the rank and the RED/ECN stage on it).
 
 Each wrapper checks its inputs, then either launches its kernel on the
@@ -25,7 +25,7 @@ from repro_torch.kernels import ref as R
 LAUNCHES = dict.fromkeys(("flow_agg", "tick_rank", "red_ecn",
                           "tick_rank_red_ecn", "tick_draws", "spritz_select",
                           "flash_attention", "flash_attention_bwd",
-                          "rwkv6_chunked"), 0)
+                          "rwkv6_chunked", "rwkv6_chunked_bwd"), 0)
 # flash_attention launches by the path the kernel took (see flash_plan)
 FLASH_PATHS = dict.fromkeys(("wgmma", "split", "simt"), 0)
 # flash_attention_bwd launches by the path the kernel took (see
@@ -540,12 +540,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     return dq, dk, dv
 
 
-def rwkv6_chunked(r, k, v, w, u, wkv0, *, chunk: int = 64):
-    """Chunked RWKV-6 time mix.  r, k, v, w: [B, S, H, 64] and u: [H, 64],
-    all f32 or all bf16; wkv0: [B, H, 64, 64] f32.  ``min(chunk, S)``
-    must divide S (and be at most 64 on the card, where the tensors must
-    also start on a 16-byte boundary).  Returns (y
-    [B, S, H, 64] f32, final state [B, H, 64, 64] f32)."""
+def _check_rwkv(r, k, v, w, u, wkv0, chunk: int) -> int:
+    """The chunk ``min(chunk, S)`` after the shape checks."""
     if not (r.ndim == 4 and r.shape == k.shape == v.shape == w.shape):
         raise ValueError(f"r/k/v/w must share a 4-D shape, got "
                          f"{[tuple(t.shape) for t in (r, k, v, w)]}")
@@ -558,8 +554,14 @@ def rwkv6_chunked(r, k, v, w, u, wkv0, *, chunk: int = 64):
     C = min(chunk, S)
     if C < 1 or S % C:
         raise ValueError(f"chunk {C} does not divide S = {S}")
-    if _on_cpu(r, k, v, w, u, wkv0):
-        return R.rwkv6_chunked_reference(r, k, v, w, u, wkv0, chunk=C)
+    return C
+
+
+def _rwkv_forward(r, k, v, w, u, wkv0, C: int, states: bool):
+    """One launch of the chunked RWKV-6 kernel on the card: ``(y, wkv,
+    starts)``, the chunk-start states f32 [B, H, S / C, 64, 64] written
+    only with ``states`` (else None)."""
+    B, S, H, hd = r.shape
     code = _float_code("rwkv6_chunked", r, k, v, w, u)
     _dtype(wkv0, torch.float32, "wkv0")
     if C > 64:
@@ -569,7 +571,110 @@ def rwkv6_chunked(r, k, v, w, u, wkv0, *, chunk: int = 64):
                          "start on a 16-byte boundary")
     y = torch.empty((B, S, H, hd), dtype=torch.float32, device=r.device)
     sout = torch.empty_like(wkv0)
+    starts = (torch.empty((B, H, S // C, hd, hd), dtype=torch.float32,
+                          device=r.device) if states else None)
     _launch("rwkv6_chunked", r.data_ptr(), k.data_ptr(), v.data_ptr(),
             w.data_ptr(), u.data_ptr(), wkv0.data_ptr(), y.data_ptr(),
-            sout.data_ptr(), B, S, H, C, code)
-    return y, sout
+            sout.data_ptr(), None if starts is None else starts.data_ptr(),
+            B, S, H, C, code)
+    return y, sout, starts
+
+
+class _RWKV6Chunked(torch.autograd.Function):
+    """The chunked RWKV-6 time mix on the card with a gradient: the
+    forward kernel also writes each chunk's start state, the backward is
+    one launch of :func:`rwkv6_chunked_bwd`."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, wkv0, chunk):
+        y, sout, starts = _rwkv_forward(r, k, v, w, u, wkv0, chunk,
+                                        states=True)
+        ctx.save_for_backward(r, k, v, w, u, starts)
+        ctx.chunk = chunk
+        return y, sout
+
+    @staticmethod
+    def backward(ctx, dy, dwkv):
+        r, k, v, w, u, starts = ctx.saved_tensors
+        return (*rwkv6_chunked_bwd(r, k, v, w, u, starts, dy.contiguous(),
+                                   dwkv.contiguous(), chunk=ctx.chunk),
+                None)
+
+
+def rwkv6_chunked(r, k, v, w, u, wkv0, *, chunk: int = 64):
+    """Chunked RWKV-6 time mix.  r, k, v, w: [B, S, H, 64] and u: [H, 64],
+    all f32 or all bf16; wkv0: [B, H, 64, 64] f32.  ``min(chunk, S)``
+    must divide S (and be at most 64 on the card, where the tensors must
+    also start on a 16-byte boundary).  Returns (y
+    [B, S, H, 64] f32, final state [B, H, 64, 64] f32).
+
+    Differentiable: under grad with an input that requires it, on the
+    card the forward kernel also writes each chunk's start state and the
+    gradient is the backward kernel's (:func:`rwkv6_chunked_bwd`: f32
+    inputs and a chunk of at most 32); on the CPU autograd differentiates
+    the plain version."""
+    C = _check_rwkv(r, k, v, w, u, wkv0, chunk)
+    if _on_cpu(r, k, v, w, u, wkv0):
+        return R.rwkv6_chunked_reference(r, k, v, w, u, wkv0, chunk=C)
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (r, k, v, w, u, wkv0)):
+        return _RWKV6Chunked.apply(r, k, v, w, u, wkv0, C)
+    return _rwkv_forward(r, k, v, w, u, wkv0, C, states=False)[:2]
+
+
+def rwkv6_chunked_states(r, k, v, w, u, wkv0, *, chunk: int = 16):
+    """The forward of a differentiable call without autograd: ``(y, wkv,
+    states)``, states the chunk-start states f32 [B, H, S / C, 64, 64]
+    that :func:`rwkv6_chunked_bwd` takes.  One kernel launch on the card;
+    the plain version on the CPU."""
+    C = _check_rwkv(r, k, v, w, u, wkv0, chunk)
+    if _on_cpu(r, k, v, w, u, wkv0):
+        return R.rwkv6_chunked_reference(r, k, v, w, u, wkv0, chunk=C,
+                                         states=True)
+    return _rwkv_forward(r, k, v, w, u, wkv0, C, states=True)
+
+
+def rwkv6_chunked_bwd(r, k, v, w, u, states, dy, dwkv=None, *,
+                      chunk: int = 16):
+    """The chunked RWKV-6 time mix's gradient: ``(dr, dk, dv, dw, du,
+    dwkv0)`` from r, k, v, w, dy [B, S, H, 64] and u [H, 64], all f32,
+    the forward's chunk-start states f32 [B, H, S / C, 64, 64] (the first
+    is wkv0) and the final state's gradient ``dwkv`` [B, H, 64, 64] (None
+    for 0).  On the card one launch of ``rwkv6_chunked_bwd.cu`` (chunk at
+    most 32, every tensor on a 16-byte boundary): a block a (batch, head)
+    walking the chunks in reverse; du is summed from per-(batch, head)
+    shares in a fixed order, so the same inputs give the same bits.  On
+    the CPU :func:`ref.rwkv6_chunked_backward_reference`."""
+    if states.ndim != 5:
+        raise ValueError(f"states must be 5-D [B, H, n_chunks, 64, 64], got "
+                         f"shape {tuple(states.shape)}")
+    C = _check_rwkv(r, k, v, w, u, states[:, :, 0], chunk)
+    B, S, H, hd = r.shape
+    if tuple(states.shape) != (B, H, S // C, hd, hd) or \
+            dy.shape != r.shape or \
+            (dwkv is not None and tuple(dwkv.shape) != (B, H, hd, hd)):
+        raise ValueError(f"need states {(B, H, S // C, hd, hd)}, dy "
+                         f"{tuple(r.shape)} and dwkv {(B, H, hd, hd)}; got "
+                         f"{tuple(states.shape)}, {tuple(dy.shape)}, "
+                         f"{None if dwkv is None else tuple(dwkv.shape)}")
+    ts = (r, k, v, w, u, states, dy) + (() if dwkv is None else (dwkv,))
+    if _on_cpu(*ts):
+        return R.rwkv6_chunked_backward_reference(r, k, v, w, u, states, dy,
+                                                  dwkv, chunk=C)
+    for name, t in zip(("r", "k", "v", "w", "u", "states", "dy", "dwkv"), ts):
+        _dtype(t, torch.float32, name)
+    if C > 32:
+        raise ValueError(f"rwkv6_chunked_bwd kernel: chunk must be <= 32, "
+                         f"got {C}")
+    if any(t.data_ptr() % 16 for t in ts):
+        raise ValueError("rwkv6_chunked_bwd kernel: inputs must start on a "
+                         "16-byte boundary")
+    dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
+    dupart = torch.empty((B, H, hd), dtype=torch.float32, device=r.device)
+    ds0 = torch.empty((B, H, hd, hd), dtype=torch.float32, device=r.device)
+    _launch("rwkv6_chunked_bwd", r.data_ptr(), k.data_ptr(), v.data_ptr(),
+            w.data_ptr(), u.data_ptr(), states.data_ptr(), dy.data_ptr(),
+            None if dwkv is None else dwkv.data_ptr(), dr.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), dw.data_ptr(), dupart.data_ptr(),
+            ds0.data_ptr(), B, S, H, C)
+    return dr, dk, dv, dw, dupart.sum(0), ds0

@@ -188,7 +188,34 @@ def combine_partials(m, l, acc):
     return (w[..., None] * acc).sum(0) / den[..., None]
 
 
-def rwkv6_chunked_reference(r, k, v, w, u, wkv0, *, chunk: int = 16):
+def _rwkv_chunks(a, n: int, C: int):
+    """[B, S, H, hd] -> [n, B, C, H, hd]: the chunks of ``a``."""
+    B, _, H, hd = a.shape
+    return a.reshape(B, n, C, H, hd).transpose(0, 1)
+
+
+def _rwkv_decays(lwc):
+    """``(L, Lprev, L_C)`` of one chunk's log2 decays [B, C, H, hd]: the
+    prefix sums over the chunk, the same one token earlier (0 for the
+    first), and the chunk's total [B, H, hd]."""
+    L = torch.cumsum(lwc, 1)
+    Lprev = torch.cat([torch.zeros_like(L[:, :1]), L[:, :-1]], 1)
+    return L, Lprev, L[:, -1]
+
+
+def _pair_decays(L, Lprev):
+    """``2^(Lprev_t - L_s)`` [B, C(t), C(s), H, hd] for the pairs s < t,
+    0 elsewhere: the exponents of the other pairs are positive and are
+    never raised (they could overflow)."""
+    C = L.shape[1]
+    idx = torch.arange(C, device=L.device)
+    below = (idx[None, :] < idx[:, None])[None, :, :, None, None]
+    return torch.exp2((Lprev[:, :, None] - L[:, None, :])
+                      .masked_fill(~below, -math.inf))
+
+
+def rwkv6_chunked_reference(r, k, v, w, u, wkv0, *, chunk: int = 16,
+                            states: bool = False):
     """Chunked RWKV-6 recurrence in f32, in the CUDA kernel's arithmetic
     (the reference's ``models.ssm.rwkv6_chunked_jnp`` in the log2
     domain): per chunk, with ``L`` the prefix sum of ``log2(w)`` and
@@ -198,7 +225,10 @@ def rwkv6_chunked_reference(r, k, v, w, u, wkv0, *, chunk: int = 16):
     + P @ V`` and ``S' = diag(2^L_C) S + (k * 2^(L_C - L))^T V``.
 
     r, k, v, w: [B, S, H, hd]; u: [H, hd]; wkv0: [B, H, hd, hd].  Returns
-    (y [B, S, H, hd] f32, wkv_final f32)."""
+    (y [B, S, H, hd] f32, wkv_final f32), and with ``states`` also the
+    state at the start of each chunk, f32 [B, H, n_chunks, hd, hd] (the
+    first is wkv0), which :func:`rwkv6_chunked_backward_reference`
+    takes."""
     B, S, H, hd = r.shape
     C = min(chunk, S)
     if S % C:
@@ -206,29 +236,102 @@ def rwkv6_chunked_reference(r, k, v, w, u, wkv0, *, chunk: int = 16):
     n = S // C
     r, k, v, w, u = (a.float() for a in (r, k, v, w, u))
     log2w = torch.log2(w.clamp_min(1e-30))
-
-    def resh(a):
-        return a.reshape(B, n, C, H, hd).transpose(0, 1)
-    rc, kc, vc, lw = resh(r), resh(k), resh(v), resh(log2w)
+    rc, kc, vc, lw = (_rwkv_chunks(a, n, C) for a in (r, k, v, log2w))
     idx = torch.arange(C, device=r.device)
-    below = (idx[None, :] < idx[:, None])[None, :, :, None, None]
     diag = (idx[None, :] == idx[:, None])[None, :, :, None, None]
     S0 = wkv0.float()
-    ys = []
+    ys, starts = [], []
     for i in range(n):
-        rr, kk, vv, lwc = rc[i], kc[i], vc[i], lw[i]          # [B,C,H,hd]
-        L = torch.cumsum(lwc, 1)
-        Lprev = torch.cat([torch.zeros_like(L[:, :1]), L[:, :-1]], 1)
+        rr, kk, vv = rc[i], kc[i], vc[i]                      # [B,C,H,hd]
+        L, Lprev, LC = _rwkv_decays(lw[i])
+        starts.append(S0)
         y = torch.einsum("bthk,bhkv->bthv", rr * torch.exp2(Lprev), S0)
-        D = torch.exp2(Lprev[:, :, None] - L[:, None, :])    # [B,C,C,H,hd]
-        D = torch.where(below, D, torch.where(diag, u[None, None, None], 0.0))
+        D = _pair_decays(L, Lprev) + torch.where(diag, u[None, None, None],
+                                                 0.0)
         P = torch.einsum("bthc,bshc,btshc->btsh", rr, kk, D)
         y = y + torch.einsum("btsh,bshv->bthv", P, vv)
-        A_C = torch.exp2(L[:, -1])                            # [B,H,hd]
-        kdec = kk * torch.exp2(L[:, -1:] - L)
-        S0 = A_C[..., None] * S0 + torch.einsum("bshk,bshv->bhkv", kdec, vv)
+        kdec = kk * torch.exp2(LC[:, None] - L)
+        S0 = torch.exp2(LC)[..., None] * S0 + \
+            torch.einsum("bshk,bshv->bhkv", kdec, vv)
         ys.append(y)
-    return torch.stack(ys, 1).reshape(B, S, H, hd), S0
+    y = torch.stack(ys, 1).reshape(B, S, H, hd)
+    if states:
+        return y, S0, torch.stack(starts, 2)
+    return y, S0
+
+
+def rwkv6_chunked_backward_reference(r, k, v, w, u, states, dy, dwkv=None,
+                                     *, chunk: int = 16):
+    """The gradient of :func:`rwkv6_chunked_reference`, in f32, written
+    out chunk by chunk in reverse in the same log2 arithmetic (the
+    backward kernel's formula).  r, k, v, w, dy: [B, S, H, hd]; u: [H,
+    hd]; states: the forward's chunk-start states [B, H, n_chunks, hd,
+    hd] (``states[:, :, 0]`` is wkv0); dwkv: the gradient of the final
+    state [B, H, hd, hd], or None for 0.  Returns (dr, dk, dv, dw [B, S,
+    H, hd], du [H, hd], dwkv0 [B, H, hd, hd]), all f32.
+
+    Per chunk, dS the gradient of the chunk's end state and dP = dy v^T:
+    ``dr_t = 2^Lprev_t (S dy_t) + sum_{s<t} dP_ts k_s 2^(Lprev_t - L_s) +
+    dP_tt u k_t``; ``dk_s = sum_{t>s} dP_ts r_t 2^(Lprev_t - L_s) + dP_ss
+    u r_s + 2^(L_C - L_s) (dS v_s)``; ``dv_s = sum_{t>=s} P_ts dy_t +
+    (k_s 2^(L_C - L_s)) dS``; ``du = sum dP_tt r_t k_t``; the start
+    state's gradient ``diag(2^L_C) dS + (r 2^Lprev)^T dy``.  The decays
+    enter through ``log2 w``, whose gradient (per channel, times ln 2)
+    is the reverse prefix sum over the chunk of the terms each position
+    puts on the ``L_t`` (``-k_t`` times dk's inter-token and state
+    parts) and on the ``Lprev_t`` after it (``r_t`` times dr's), plus the
+    chunk total's term ``2^L_C (S . dS) + sum_s k_s 2^(L_C - L_s) (dS
+    v_s)``; only the end divides by ``w ln 2``.  ``w`` below 1e-30 has
+    no gradient (the forward clamps it there)."""
+    B, S, H, hd = r.shape
+    C = min(chunk, S)
+    if S % C:
+        raise ValueError(f"chunk {C} does not divide S = {S}")
+    n = S // C
+    r, k, v, w, u, dy = (a.float() for a in (r, k, v, w, u, dy))
+    log2w = torch.log2(w.clamp_min(1e-30))
+    rc, kc, vc, lw, dyc = (_rwkv_chunks(a, n, C)
+                           for a in (r, k, v, log2w, dy))
+    dS = (torch.zeros((B, H, hd, hd), dtype=torch.float32, device=r.device)
+          if dwkv is None else dwkv.float().clone())
+    idx = torch.arange(C, device=r.device)
+    lower = (idx[None, :] <= idx[:, None])[None, :, :, None]  # s <= t
+    du = torch.zeros((H, hd), dtype=torch.float32, device=r.device)
+    grads = [[None] * n for _ in range(4)]
+    for i in reversed(range(n)):
+        rr, kk, vv, dd = rc[i], kc[i], vc[i], dyc[i]          # [B,C,H,hd]
+        S0 = states[:, :, i].float()
+        L, Lprev, LC = _rwkv_decays(lw[i])
+        A = torch.exp2(LC)                                    # [B,H,hd]
+        D = _pair_decays(L, Lprev)                            # s < t only
+        P = torch.einsum("bthc,bshc,btshc->btsh", rr, kk, D)
+        bonus = (rr * u * kk).sum(-1)                         # [B,C,H]
+        dP = torch.einsum("bthv,bshv->btsh", dd, vv) * lower
+        dPd = torch.diagonal(dP, dim1=1, dim2=2).transpose(1, 2)  # [B,C,H]
+        inter = torch.exp2(Lprev) * torch.einsum("bthv,bhkv->bthk", dd, S0)
+        intra_r = torch.einsum("btsh,bshc,btshc->bthc", dP, kk, D)
+        intra_k = torch.einsum("btsh,bthc,btshc->bshc", dP, rr, D)
+        kdec = kk * torch.exp2(LC[:, None] - L)
+        sk = torch.exp2(LC[:, None] - L) * \
+            torch.einsum("bshv,bhkv->bshk", vv, dS)
+        grads[0][i] = inter + intra_r + dPd[..., None] * u * kk
+        grads[1][i] = intra_k + dPd[..., None] * u * rr + sk
+        Pd = P + torch.diag_embed(bonus.transpose(1, 2), dim1=1, dim2=2)
+        grads[2][i] = torch.einsum("btsh,bthv->bshv", Pd, dd) + \
+            torch.einsum("bshk,bhkv->bshv", kdec, dS)
+        du += (dPd[..., None] * rr * kk).sum((0, 1))
+        # log2 w's gradient over ln 2: xp on Lprev_t (to s < t), xl on L_t
+        # (to s <= t), the chunk total's term on every s
+        xp = rr * (inter + intra_r)
+        xl = -kk * (intra_k + sk)
+        tot = A * (S0 * dS).sum(-1) + (kk * sk).sum(1)        # [B,H,hd]
+        g = torch.flip(torch.cumsum(torch.flip(xl + xp, (1,)), 1), (1,))
+        grads[3][i] = (g - xp + tot[:, None]) * math.log(2.0)
+        dS = A[..., None] * dS + torch.einsum(
+            "bthk,bthv->bhkv", rr * torch.exp2(Lprev), dd)
+    dr, dk, dv, g2 = (torch.stack(g, 1).reshape(B, S, H, hd) for g in grads)
+    dw = torch.where(w >= _TINY, g2 / (w * math.log(2.0)), 0.0)
+    return dr, dk, dv, dw, du, dS
 
 
 def rwkv6_reference(r, k, v, w, u, wkv0):

@@ -121,6 +121,16 @@ class Block(nn.Module):
         return x + self.mlp(rms_norm(x, self.ln2, eps)), None
 
 
+def _run(blk: Block, remat: bool, *args, **kw):
+    """``blk(*args, **kw)``, under ``remat`` recomputed in the backward
+    instead of keeping its activations (the reference's
+    ``jax.checkpoint``)."""
+    if remat:
+        return checkpoint(blk, *args, **kw, use_reentrant=False,
+                          preserve_rng_state=False)
+    return blk(*args, **kw)
+
+
 class LM(nn.Module):
     """Embedding, ``n_layers`` blocks, final norm and output head (and for
     the enc-dec family ``n_enc_layers`` encoder blocks and their norm),
@@ -165,10 +175,12 @@ class LM(nn.Module):
     def _head(self, x):
         return rms_norm(x, self.ln_f, self.cfg.norm_eps) @ self.out
 
-    def _encode(self, enc_frames):
+    def _encode(self, enc_frames, remat: bool = False):
         """The enc-dec family's encoder over frame embeddings [B, Te, d]
         (reference ``_encode``): RoPE over the frame positions, whose
-        table rows equal the model's own; None for other families."""
+        table rows equal the model's own; None for other families.
+        ``remat`` recomputes each encoder block in the backward, as
+        :meth:`forward` does the decoder's."""
         if self.enc_blocks is None:
             return None
         if enc_frames is None:
@@ -178,7 +190,7 @@ class LM(nn.Module):
         B, Te, _ = e.shape
         epos = torch.arange(Te, device=e.device).expand(B, Te)
         for blk in self.enc_blocks:
-            e, _ = blk(e, self.rope, epos)
+            e, _ = _run(blk, remat, e, self.rope, epos)
         return rms_norm(e, self.enc_ln_f, self.cfg.norm_eps)
 
     def forward(self, tokens, *, prefix_embed=None, enc_frames=None,
@@ -199,18 +211,12 @@ class LM(nn.Module):
             x = torch.cat([prefix_embed.to(x.dtype), x], dim=1)
         B, S, _ = x.shape
         positions = torch.arange(S, device=x.device).expand(B, S)
-        enc_out = self._encode(enc_frames)
+        enc_out = self._encode(enc_frames, remat)
         aux = torch.zeros((), dtype=torch.float32, device=x.device) \
             if with_aux else None
         for blk in self.blocks:
-            if remat:
-                x, a = checkpoint(blk, x, self.rope, positions,
-                                  with_aux=with_aux, enc_out=enc_out,
-                                  use_reentrant=False,
-                                  preserve_rng_state=False)
-            else:
-                x, a = blk(x, self.rope, positions, with_aux=with_aux,
-                           enc_out=enc_out)
+            x, a = _run(blk, remat, x, self.rope, positions,
+                        with_aux=with_aux, enc_out=enc_out)
             if a is not None:
                 aux = aux + a
         logits = self._head(x)

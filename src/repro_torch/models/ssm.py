@@ -6,9 +6,12 @@ kernel for it.  Its parallel form scans 256-token chunks, each chunk's
 decays and drives built inside the loop and its states written over its
 drives, so no tensor spans the whole sequence's [S, d_in, d_state].
 
-RWKV-6 "Finch" (data-dependent decay): prefill (S > 1, S divisible by
-the chunk) runs the chunked recurrence through ``ops.rwkv6_chunked``;
-decode (or a ragged S) runs the exact per-token recurrence.
+RWKV-6 "Finch" (data-dependent decay): prefill and training (S > 1, S
+divisible by the chunk) run the chunked recurrence through
+``ops.rwkv6_chunked`` (under grad on the card its forward keeps each
+chunk's start state and its backward is the ``rwkv6_chunked_bwd``
+kernel); decode (or a ragged S) runs the exact per-token recurrence,
+whose torch ops autograd differentiates.
 """
 from __future__ import annotations
 

@@ -5,8 +5,8 @@
 functions of the model, as the reference's take the config and return
 functions of the parameter tree; the train step updates the model's
 parameters in place (the reference donates them).  Training covers the
-dense and VLM families; the others raise ``NotImplementedError``
-(:data:`TRAINABLE`).
+dense, VLM, enc-dec, MoE and RWKV families; the hybrid raises
+``NotImplementedError`` (:data:`TRAINABLE`).
 """
 from __future__ import annotations
 
@@ -16,14 +16,16 @@ from repro_torch.models.common import ModelCfg
 from repro_torch.models.lm import LM
 from repro_torch.train import optim
 
-TRAINABLE = ("dense", "vlm")
-# why each other family does not train yet (ROADMAP.md queue 1, item 6)
+TRAINABLE = ("dense", "vlm", "encdec", "moe", "rwkv")
+# why the other family does not train yet (ROADMAP.md queue 1, item 1,
+# "hybrid training")
 UNTRAINABLE = {
-    "moe": "the MoE dispatch writes its buffers in place (scatter_, "
-           "index_add_)",
-    "hybrid": "the Mamba scan updates its state in place (addcmul_)",
-    "rwkv": "rwkv6_chunked has no backward kernel",
-    "encdec": "the encoder-decoder is not wired for training",
+    "hybrid": "one mamba_moe layer of Jamba-1.5-Large holds 9.66 B "
+              "parameters, about 116 GB of bf16 weights, gradients and "
+              "f32 AdamW moments, so its training needs expert "
+              "parallelism over several cards; and the Mamba scan updates "
+              "its state in place (addcmul_), which needs a "
+              "differentiable form",
 }
 
 
@@ -32,7 +34,7 @@ def _check_trainable(cfg: ModelCfg) -> None:
         raise NotImplementedError(
             f"{cfg.name}: training the {cfg.family} family is not ported "
             f"yet ({UNTRAINABLE.get(cfg.family, 'unknown family')}; "
-            f"ROADMAP.md queue 1, item 6, training of the other families)")
+            f"ROADMAP.md queue 1, item 1, hybrid training)")
 
 
 class _Xent(torch.autograd.Function):
@@ -77,14 +79,17 @@ def make_loss_fn(cfg: ModelCfg, *, remat: bool = True, aux_weight=0.01):
     """``loss_fn(model, batch) -> (loss, {"lm_loss", "aux"})``: the LM
     loss on ``batch["tokens"]`` / ``batch["labels"]`` ([B, S] integer
     tensors; the VLM family also ``batch["prefix_embed"]``, whose
-    positions carry no loss) plus ``aux_weight`` times the MoE aux loss
-    (0 for the families that train)."""
+    positions carry no loss; the enc-dec family ``batch["enc_frames"]``
+    [B, Te, d], the encoder's input) plus ``aux_weight`` times the MoE
+    aux loss (0 for the families without experts)."""
     _check_trainable(cfg)
 
     def loss_fn(model: LM, batch):
         kw = {}
         if cfg.family == "vlm":
             kw["prefix_embed"] = batch["prefix_embed"]
+        if cfg.family == "encdec":
+            kw["enc_frames"] = batch["enc_frames"]
         logits, aux = model(batch["tokens"], with_aux=True, remat=remat,
                             **kw)
         if cfg.family == "vlm":   # prefix positions carry no LM loss
@@ -111,7 +116,11 @@ def make_train_step(cfg: ModelCfg, *, peak_lr=3e-4, schedule="cosine",
         loss, _ = loss_fn(model, batch)
         params = dict(model.named_parameters())
         grads = torch.autograd.grad(loss, [params[n] for n in names])
-        return loss.detach(), dict(zip(names, grads))
+        # the update scales the gradients in place: a broadcast view (the
+        # gradient of a sum, as of RWKV's wo row sums) gets memory of its
+        # own
+        return loss.detach(), {n: g.contiguous() for n, g in
+                               zip(names, grads)}
 
     def train_step(model: LM, opt_state: optim.AdamWState, batch):
         model.requires_grad_(True)

@@ -12,6 +12,12 @@ side takes one more train step, the one from the restored state; in the
 f32 config (all parameters f32) the two steps agree within
 ``tests/test_torch_train.py``'s limits.  In the bf16 config only the bits
 are compared: those limits are stated for f32.
+
+The same both ways for a reduced DeepSeek-MoE-16B (its experts stacked
+[E, d, f] in each layer's leaves) and a reduced Whisper-small (its
+encoder's blocks stacked as one tree, ``enc_blocks``) and a reduced
+RWKV-6-7B (its ``tmix`` / ``cmix`` subtrees), in f32, each followed by
+one more step on each side.
 """
 import dataclasses
 import json
@@ -37,6 +43,7 @@ from repro_torch.train import optim as TOPT  # noqa: E402
 from repro_torch.train import step as TSTEP  # noqa: E402
 from test_torch_train import (TOL, _batch, _flips, _jb, _near_zero,  # noqa: E402
                               _rel, _step_grads, _tb, _tree_close)
+import test_torch_train_families as TF  # noqa: E402
 
 REF_LEAVES, PORT_LEAVES = 49, 85
 KW = dict(schedule="cosine", warmup=2, total=20)
@@ -85,12 +92,18 @@ def _same_bits(model, opt, params, jo, tcfg):
     assert int(opt.step) == int(host[1].step)
 
 
-def _steps_agree(jcfg, tcfg, params, jo, jstep, model, opt):
-    """One more train step on each side from the same state: loss, gnorm
+def _steps_agree(jcfg, tcfg, params, jo, jstep, model, opt, batch=None):
+    """One more train step on each side from the same state (on
+    ``batch``, by default a MiniCPM batch): loss, gnorm
     and lr within 1e-4, parameters and moments within 1e-4 of each
     tensor's largest entry but for near-zero gradients and int8 boundary
-    flips (``tests/test_torch_train.py``)."""
-    batch = _batch(jcfg, B=4, S=16, seed=4)
+    flips (``tests/test_torch_train.py``: at most 1 in 1,000 such
+    elements; with ``batch`` given, a family's, the 1 in 1,000 bounds
+    those that moved apart and 2 lr their gap,
+    ``test_torch_train_families.moved_apart``)."""
+    family = batch is not None
+    if not family:
+        batch = _batch(jcfg, B=4, S=16, seed=4)
     before = int(opt.step)
     jg = _step_grads(jcfg, params, batch, 0)
     params, jo, jm = jstep(params, jo, _jb(batch))
@@ -100,8 +113,11 @@ def _steps_agree(jcfg, tcfg, params, jo, jstep, model, opt):
     assert int(opt.step) == int(jo.step) == before + 1
     skip = jax.tree.map(np.logical_or, _near_zero(jg), _flips(
         convert.to_numpy_tree(model, opt.err), jo.err))
-    assert sum(int(s.sum()) for s in jax.tree.leaves(skip)) <= \
-        sum(s.size for s in jax.tree.leaves(skip)) / 1000
+    if family:
+        TF.moved_apart(convert.to_numpy_tree(model), params, skip)
+    else:
+        assert sum(int(s.sum()) for s in jax.tree.leaves(skip)) <= \
+            sum(s.size for s in jax.tree.leaves(skip)) / 1000
     _tree_close(convert.to_numpy_tree(model), params, skip=skip)
     _tree_close(convert.to_numpy_tree(model, opt.m), jo.m, skip=skip)
     _tree_close(convert.to_numpy_tree(model, opt.v), jo.v, skip=skip)
@@ -171,3 +187,38 @@ def test_reference_layout_refuses_another_tree(tmp_path):
         model = _fresh(tcfg, seed=1)[0]
         mgr.restore(1, (model, TOPT.adamw_init(
             dict(model.named_parameters()))))
+
+
+@pytest.mark.parametrize("direction", ["reference to port",
+                                       "port to reference"])
+@pytest.mark.parametrize("arch", ["deepseek_moe_16b", "whisper_small",
+                                  "rwkv6_7b"])
+def test_family_checkpoint_crosses_the_packages(tmp_path, arch, direction):
+    """A reduced DeepSeek-MoE's, Whisper's and RWKV-6's training state
+    (f32, after one compressed step) through each package's checkpoint into the
+    other, bit for bit; then one more step on each side."""
+    jcfg, tcfg, host = TF._reference(arch)
+    jstep = jax.jit(JSTEP.make_train_step(jcfg, **KW))
+    params = jax.tree.map(jnp.asarray, host)
+    params, jo, _ = jstep(params, JOPT.adamw_init(params, compression=True),
+                          _jb(TF._batch(jcfg, seed=3)))
+    if direction == "reference to port":
+        JCheckpointManager(str(tmp_path), async_write=False).save(
+            1, (params, jo))
+        model, opt = M.CheckpointManager(tmp_path).restore(
+            1, _fresh(tcfg, seed=5))
+    else:
+        # the port's own state: the reference's carried over, then a step
+        h = jax.tree.map(np.asarray, (params, jo))
+        model = convert.from_jax_params(tcfg, h[0], device="cpu")
+        opt = convert.opt_from_jax(tcfg, h[1], model)
+        model, opt, _ = TSTEP.make_train_step(tcfg, **KW)(
+            model, opt, _tb(TF._batch(jcfg, seed=6)))
+        M.CheckpointManager(tmp_path, async_write=False).save(2, (model, opt))
+        like = (JLM.init_params(jax.random.PRNGKey(1), jcfg),
+                JOPT.adamw_init(params, compression=True))
+        params, jo = jax.tree.map(
+            jnp.asarray, JCheckpointManager(str(tmp_path)).restore(2, like))
+    _same_bits(model, opt, params, jo, tcfg)
+    _steps_agree(jcfg, tcfg, params, jo, jstep, model, opt,
+                 batch=TF._batch(jcfg, seed=4))

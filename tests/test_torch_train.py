@@ -223,8 +223,9 @@ def test_loss_and_grads_match_reference(arch, remat):
 
 
 def test_unported_families_raise():
-    for arch in ("deepseek_moe_16b", "jamba_1_5_large", "whisper_small",
-                 "rwkv6_7b"):
+    """The hybrid family (Jamba) does not train yet; the others do
+    (``tests/test_torch_train_families.py``)."""
+    for arch in ("jamba_1_5_large",):
         cfg = TC.get_reduced(arch)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TSTEP.make_loss_fn(cfg)
