@@ -182,7 +182,8 @@ Phases (any failure exits non-zero before the final line):
    non-zero wkv0 and a final state's gradient: every gradient within
    1e-4 of its largest entry, the same bits twice; CUDA-event and
    profiler times of the kernel and of the plain version, the bound, its
-   ptxas registers, stack and spills; at the training shape also the
+   ptxas registers, stack and spills (none allowed), its blocks an SM
+   (at least 2 at chunk 16); at the training shape also the
    forward kernel's device time with and without its states pointer;
 6b. training card against CPU: reduced MiniCPM, Phi-3, LLaVA,
    DeepSeek-MoE, Whisper (seeded frames [4, 64, d]) and RWKV-6 in f32,
@@ -1308,7 +1309,7 @@ def check_attention_bwd(ops, ref, torch, np, ptxas: dict,
     return out
 
 
-def check_rwkv_bwd(ops, ref, torch, np, ptxas: dict, smem,
+def check_rwkv_bwd(ops, ref, torch, np, ptxas: dict, smem, blocks,
                    dev="cuda") -> dict:
     """Phase 5b, RWKV-6: the chunked time mix's backward kernel
     (``ops.rwkv6_chunked_bwd``, one launch) against
@@ -1323,7 +1324,9 @@ def check_rwkv_bwd(ops, ref, torch, np, ptxas: dict, smem,
     launch.  Times: CUDA events and torch.profiler for the kernel and the
     plain version; no library call computes this function (the reference
     differentiates its plain chunked form with XLA).  ``smem(C)`` is the
-    kernel's dynamic shared memory at chunk C."""
+    kernel's dynamic shared memory at chunk C, ``blocks(C)`` the blocks
+    an SM holds (the occupancy calculator): the phase fails below 2 at
+    chunk 16, or on a stack frame or spills at chunk 16 or 32."""
     rng = np.random.default_rng(27)
     ents = {}          # by the chunk its instantiation pads to, "CP16"
     for name, ent in ptxas_entries(ptxas.get("rwkv6_chunked_bwd",
@@ -1338,6 +1341,15 @@ def check_rwkv_bwd(ops, ref, torch, np, ptxas: dict, smem,
               f"{k} {v['registers']} / {v['stack_bytes']} / "
               f"{v['spill_bytes']}" for k, v in sorted(ents.items())),
           flush=True)
+    if any(v["stack_bytes"] or v["spill_bytes"] for v in ents.values()):
+        fail(f"rwkv6_chunked_bwd: a stack frame or spills: {ents}")
+    resident = {cp: blocks(cp) for cp in (16, 32)}
+    print("kernel rwkv6_chunked_bwd residency: " + ", ".join(
+        f"CP{cp} {smem(cp)} B of dynamic shared memory a block, {nb} "
+        f"blocks an SM" for cp, nb in resident.items()), flush=True)
+    if resident[16] < 2:
+        fail(f"rwkv6_chunked_bwd: {resident[16]} blocks an SM at chunk 16, "
+             f"not 2")
 
     def t(a):
         return torch.as_tensor(a, dtype=torch.float32, device=dev)
@@ -1400,7 +1412,8 @@ def check_rwkv_bwd(ops, ref, torch, np, ptxas: dict, smem,
                    bound_by=by,
                    max_abs_err=max(float((g - w_).abs().max())
                                    for g, w_ in zip(got, want)),
-                   rel_err=max(rels.values()), smem_bytes=smem(c))
+                   rel_err=max(rels.values()), smem_bytes=smem(c),
+                   blocks_per_sm=resident[16 if c <= 16 else 32])
         row["device_ms"] = device_us(kern, torch, reps,
                                      what=f"rwkv6_chunked_bwd {label}") / 1e3
         row["plain_device_ms"] = device_us(
@@ -1429,7 +1442,8 @@ def check_rwkv_bwd(ops, ref, torch, np, ptxas: dict, smem,
               f"{row['plain_ms']:.4f} ms, device "
               f"{row['plain_device_ms']:.4f} ms; library call none; "
               f"{flops} FLOP, {nb} B, bound {bms:.4f} ms ({by}); dynamic "
-              f"shared memory {row['smem_bytes']} B a block{fwd}", flush=True)
+              f"shared memory {row['smem_bytes']} B a block, "
+              f"{row['blocks_per_sm']} blocks an SM{fwd}", flush=True)
         out[f"rwkv bwd {label}"] = row
         del r, k, v, w, dy, states, got, want, ins
         gc.collect()
@@ -2694,7 +2708,8 @@ def main() -> None:
     rwkv_bwd_lib = ctypes.CDLL(str(_build.build()["rwkv6_chunked_bwd"]))
     nums.update(check_rwkv_bwd(ops, KREF, torch, np,
                                _build.BUILD_INFO.get("ptxas", {}),
-                               rwkv_bwd_lib.rwkv6_chunked_bwd_smem_bytes))
+                               rwkv_bwd_lib.rwkv6_chunked_bwd_smem_bytes,
+                               rwkv_bwd_lib.rwkv6_chunked_bwd_blocks_per_sm))
     train_card_vs_cpu(C, LM, STEP, OPT, ops, torch, np)
     # 9. training: MiniCPM-2B whole, then the other families
     trained = train_path(C, TRAIN, STEP, OPT, ops, torch, np, card, profile)
@@ -2793,8 +2808,9 @@ def main() -> None:
                    "path"):
             bwd[f"{key}_{k2}"] = nums[f"flash bwd {label}"][k2]
     rbwd = next(r for r in rows if r["name"] == "rwkv6_chunked_bwd")
-    for key in ("device_ms", "plain_device_ms", "smem_bytes", "ptxas",
-                "rel_err", "fwd_device_ms", "fwd_states_device_ms"):
+    for key in ("device_ms", "plain_device_ms", "smem_bytes",
+                "blocks_per_sm", "ptxas", "rel_err", "fwd_device_ms",
+                "fwd_states_device_ms"):
         rbwd[key] = nums["rwkv6_chunked_bwd"][key]
     for label in ("strong decay chunk 32", "wkv0 and d wkv_final chunk 16"):
         key = label.replace(" ", "_")

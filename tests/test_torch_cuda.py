@@ -573,18 +573,29 @@ def test_rwkv6_chunked_kernel(cuda, B, S, H, chunk, lo, dtype):
     _close(sf, sf2, 1e-4)
 
 
-@pytest.mark.parametrize("B,S,H,chunk,lo,s0,fin", [
-    (1, 64, 1, 16, 0.7, 0.0, False), (2, 128, 2, 32, 0.3, 0.1, True),
-    (2, 48, 3, 16, 0.7, 0.1, True), (1, 48, 1, 24, 0.7, 0.0, False),
-    (2, 64, 2, 8, 0.7, 0.0, True)])
-def test_rwkv6_chunked_bwd_kernel(cuda, B, S, H, chunk, lo, s0, fin):
+@pytest.mark.parametrize("B,S,H,chunk,lo,s0,fin,tiny", [
+    (1, 64, 1, 16, 0.7, 0.0, False, False),
+    (2, 128, 2, 32, 0.3, 0.1, True, False),
+    (2, 48, 3, 16, 0.7, 0.1, True, False),
+    (1, 48, 1, 24, 0.7, 0.0, False, False),
+    (2, 64, 2, 8, 0.7, 0.0, True, False),
+    # w below 1e-30; a single chunk; B H = 300 blocks, more than two an
+    # SM hold resident; chunk 32 with wkv0 and d wkv_final
+    (1, 64, 2, 16, 0.7, 0.1, True, True),
+    (2, 16, 2, 16, 0.7, 0.1, True, False),
+    (3, 32, 100, 16, 0.7, 0.0, False, False),
+    (1, 64, 3, 32, 0.7, 0.1, True, False)])
+def test_rwkv6_chunked_bwd_kernel(cuda, B, S, H, chunk, lo, s0, fin, tiny):
     """The backward kernel on the forward kernel's chunk-start states
     against the plain backward on the CPU, each gradient within 1e-4 of
-    its largest entry; the same bits twice; and the same gradient
-    through autograd of ``ops.rwkv6_chunked`` (one forward launch with
-    the states, one backward launch)."""
+    its largest entry, finite; the same bits twice; dw exactly 0 where w
+    is below 1e-30 (``tiny``: once a chunk in every fifth channel); and
+    the same gradient through autograd of ``ops.rwkv6_chunked`` (one
+    forward launch with the states, one backward launch)."""
     raw = [RNG.normal(0, 0.5, (B, S, H, 64)) for _ in range(3)]
     raw.append(RNG.uniform(lo, 0.999 if lo > 0.5 else 0.6, (B, S, H, 64)))
+    if tiny:
+        raw[3][:, 3::chunk, :, ::5] = 1e-35
     raw.append(RNG.normal(0, 0.1, (H, 64)))
     raw.append(RNG.normal(0, s0, (B, H, 64, 64)))
     ins = [_pair(a, torch.float32, cuda) for a in raw]
@@ -610,6 +621,9 @@ def test_rwkv6_chunked_bwd_kernel(cuda, B, S, H, chunk, lo, s0, fin):
         assert g.shape == w.shape and bool(torch.isfinite(g).all()), name
         scale = max(float(w.abs().max()), 1e-30)
         assert float((g.cpu() - w).abs().max()) / scale <= 1e-4, name
+    if tiny:
+        below = ins[3][0] < 1e-30
+        assert bool(below.any()) and bool((got[3].cpu()[below] == 0).all())
     leaves = [g.clone().requires_grad_(True) for _, g in ins]
     ops.reset_launches()
     y2, sf2 = ops.rwkv6_chunked(*leaves, chunk=chunk)
