@@ -25,7 +25,12 @@ Phases (any failure exits non-zero before the final line):
    keys and two uniform draws) at the DF-1056 (F, M), ragged sizes and
    ticks and seeds up to 2**31 - 1; a CUDA graph that captured the fused
    launch and tick_draws, replayed at three ticks written to the tick's
-   device tensor, equal to the plain versions at each; CUDA-event times of
+   device tensor, equal to the plain versions at each; the draws made in
+   place (the fused launch with ``rng=``, spritz_select with ``rng=`` and
+   ``weighted_sample``) against tick_draws' plain version then the
+   consumer's, at the DF-1056 (F, M), ragged sizes, ticks 0 and 2**31 -
+   1, three seeds and in a graph replayed at three ticks, with the device
+   time of each beside its two-step form's; CUDA-event times of
    kernel, plain version and (flow_agg) ``index_add_``, and the device
    time of every tick kernel (the fused one beside tick_rank and red_ecn
    alone), of ``index_add_`` and of the engine's torch form of the rank
@@ -41,7 +46,10 @@ Phases (any failure exits non-zero before the final line):
    a read of the stop flag every ``STEPS_PER_READ`` steps; a run must
    replay fewer than that many steps past its last, and each replay
    launch flow_agg twice and the fused tick_rank_red_ecn (shared-memory
-   path), tick_draws and, for Spritz, spritz_select once, nothing else;
+   path, drawing the RED uniforms) once, for Spritz spritz_select and
+   for ugal_l weighted_sample once (drawing the path uniforms), no
+   tick_draws, nothing else; a line a scheme gives the launches a
+   replay;
 4c. the same four schemes as one ``engine.run_batch`` call, every lane
    equal to the golden record (which the reference's ``run_batch``
    wrote), with the same launches per replay;
@@ -55,13 +63,16 @@ Phases (any failure exits non-zero before the final line):
    schemes) and ``degraded`` (72 links at a quarter of line rate over the
    same window; ugal_l, flicr_w, ops_u, reps, spritz_spray_w).  Every run
    must report zero down and rate violations and finish every flow;
-   per replay of the captured step flow_agg launches twice, tick_draws
-   once, spritz_select once for the Spritz schemes and never for the
-   others; on ``midrun`` phase E is the fused launch once a replay
+   per replay of the captured step flow_agg launches twice, spritz_select
+   once for the Spritz schemes, weighted_sample once for valiant, ugal_l,
+   flicr_w, ops_u, ops_w and reps; on ``midrun`` phase E is the fused
+   launch once a replay and tick_draws never
    (shared-memory path) and the standalone tick_rank and red_ecn never
    launch; on ``degraded`` (a capacity plan) the standalone tick_rank
-   launches once a replay on its shared-memory path and the fused launch
-   and red_ecn never.  spritz_spray_w on ``midrun`` run as two segments
+   and tick_draws (``n_flows`` 0: the torch RED math reads unif) launch
+   once a replay, the rank on its shared-memory path, and the fused
+   launch and red_ecn never; a line a scheme gives the launches a
+   replay.  spritz_spray_w on ``midrun`` run as two segments
    (``until_tick`` 528, then ``resume``) must equal the unsegmented run,
    final carry included.  Warm steps/s for ugal_l, ops_u, reps and
    spritz_spray_w; then phase 4d's graph-against-eager check and timing
@@ -76,8 +87,9 @@ Phases (any failure exits non-zero before the final line):
    pass (the probe's ``BENCH_engine.json`` baseline included) and every
    row must equal the reference's record ``smoke_cells_golden.json``
    field by field, the wall-time fields excluded; per replay flow_agg
-   launches twice, tick_draws and one rank launch (fused, or standalone
-   under a capacity plan) once, spritz_select only on Spritz lanes.  One
+   launches twice and one rank launch (fused, or standalone with
+   tick_draws under a capacity plan) once, spritz_select only on Spritz
+   lanes and weighted_sample only on the sampling schemes' lanes.  One
    line a cell: rows, guards, steps, replays, graph captures, wall s,
    steps/s and the card's name and power limit;
 4f. flow-level engine: the smoke tier's three flow cells
@@ -192,8 +204,12 @@ Phases (any failure exits non-zero before the final line):
    time mix launching its forward kernel twice a layer, the forward and
    its recomputation, and its backward kernel once), then three train
    steps (the second with ``microbatch=2``),
-   each from the CPU's state: the parameters and AdamW's ``m`` / ``v``
-   within 1e-4 of each tensor's largest entry;
+   each from the CPU's state: before each, the gradient the step takes
+   within 1e-4 of each tensor's largest entry on every element; after
+   it, the parameters and AdamW's ``m`` / ``v`` within 1e-4 of each
+   tensor's largest entry but for elements in AdamW's amplifying regime
+   (a nonzero gradient within 1e-5 of its tensor's largest, or at most
+   100 x ``eps`` and past that tolerance), bounded apart;
 9. training: MiniCPM-2B whole (40 layers, 3,008,289,024 parameters in
    bf16, AdamW moments in f32) trained 8 steps of 8 x 2,048 tokens by
    ``repro_torch.launch.train.train`` (WSD, remat): every loss finite and
@@ -242,6 +258,7 @@ import copy
 import ctypes
 import dataclasses
 import gc
+import inspect
 import json
 import os
 import platform
@@ -274,6 +291,12 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
                    "src/repro/net/sim/engine.py:130"),
     "spritz_select": ("src/repro_torch/kernels/csrc/spritz_select.cu",
                       "src/repro/kernels/spritz_select.py:72"),
+    # spritz_select's kernel with every buffer front empty, drawing the
+    # tick's path uniforms itself: the weighted-sample schemes' sampler
+    # (the reference draws and samples with jax.random and XLA, not in a
+    # Pallas kernel)
+    "weighted_sample": ("src/repro_torch/kernels/csrc/spritz_select.cu",
+                        "src/repro/net/policies/base.py:151"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:78"),
     # attention's gradient (the reference trains through XLA's autodiff of
@@ -289,7 +312,7 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
                           "src/repro/models/ssm.py:129"),
 }
 TICK_KERNELS = ("flow_agg", "tick_rank", "red_ecn", "tick_rank_red_ecn",
-                "tick_draws", "spritz_select")
+                "tick_draws", "spritz_select", "weighted_sample")
 SERVE_ARCHS = {"phi3_medium_14b": "flash_attention",
                "rwkv6_7b": "rwkv6_chunked",
                "deepseek_moe_16b": "flash_attention",
@@ -801,7 +824,194 @@ def check_kernels(ops, ref, sorted_rank, torch, np, shapes,
         library_ms=None, bytes=nbytes(*args, *outs),
         device_us=device_us(lambda: ops.spritz_select(
             *args, explore_threshold=thr), torch, what="spritz_select"))
+    # the main path's numbers are the in-place forms'; the forms given
+    # the uniforms keep theirs as given_ms / given_device_us
+    for name, v in check_draws_in_place(ops, ref, torch, np, shapes, cu,
+                                        same, rank_red_plain, sel_inputs,
+                                        kw).items():
+        given = out.get(name)
+        if given:
+            v = {**given, **v, "given_ms": given["ms"],
+                 "given_device_us": given["device_us"],
+                 "max_abs_err": max(given["max_abs_err"], v["max_abs_err"])}
+        out[name] = v
     return out
+
+
+# the schemes that sample a weighted path per packet through
+# ops.weighted_sample (one launch a replay)
+SAMPLERS = ("valiant", "ugal_l", "flicr_w", "ops_u", "ops_w", "reps")
+
+
+def check_draws_in_place(ops, ref, torch, np, shapes, cu, same,
+                         rank_red_plain, sel_inputs, kw) -> dict:
+    """Phase 3, the draws made in place: the fused rank + RED/ECN launch
+    with ``rng=``, ``spritz_select`` with ``rng=`` and ``weighted_sample``
+    against the two-step form (tick_draws' plain version, then the
+    consumer's plain version) at the DF-1056 (F, M), ragged sizes, ticks
+    0 and 2**31 - 1 and several seeds, and a CUDA graph of the three
+    replayed at three ticks; each ``torch.equal``.  Returns each one's
+    numbers (the main path's form), with the device time of its two-step
+    form on the card (a tick_draws launch, then the consumer's launch on
+    the drawn uniforms; the weighted sample's torch form, as the engine
+    ran it before, beside it)."""
+    from repro_torch.net.policies.base import weighted_sample_rows
+    F, M, NP_, P = (shapes[k] for k in ("F", "M", "n_ports", "P"))
+    thr = shapes["explore_threshold"]
+    i32 = torch.int32
+    gen = np.random.default_rng(29)
+
+    def key(seed):
+        return cu(np.array([0, seed]), torch.int64)
+
+    def tick(t):
+        return cu(np.int64(t), i32).reshape(())
+
+    def draws(k, t, f, m):
+        return ref.tick_draws_reference(k, t, n_flows=f, n_cand=m)
+
+    band = int(kw["kmax"]) + 40     # tails give occupancies across RED's
+
+    def fused_inputs(m, n, t):
+        port = cu(gen.integers(-1, n + 2, m), i32)
+        t0 = min(t, 2**31 - 1 - band)                 # no int32 overflow
+        return port, port < n, cu(t0 + gen.integers(-40, band, n), i32)
+
+    def weights(f, p):
+        w = np.exp(gen.normal(0, 4, (f, p))) * (gen.random((f, p)) < 0.7)
+        w[gen.integers(0, f, 2)] = 0.0
+        return cu(w, torch.float32)
+
+    err = {"tick_rank_red_ecn": 0.0, "spritz_select": 0.0,
+           "weighted_sample": 0.0}
+    cases = [(seed, tt, f, m, n) for seed in (0, 7, 2**31 - 1)
+             for tt in (0, 2**31 - 1)
+             for f, m, n in ((F, M, NP_), (300, 17, NP_), (1, 1, NP_))]
+    cases += [(5, 70000, 33, 2000, 70000), (3, 40, 9, 0, NP_)]
+    for seed, tt, f, m, n in cases:
+        k, t = key(seed), tick(tt)
+        u_path, unif = draws(k, t, f, m)
+        port, enq, q = fused_inputs(m, n, tt)
+        kwn = dict(kw, n_ports=n)
+        label = f"seed {seed} t {tt} F {f} M {m} n_ports {n}"
+        err["tick_rank_red_ecn"] = max(err["tick_rank_red_ecn"], same(
+            f"tick_rank_red_ecn drawn in place, {label}",
+            ops.tick_rank_red_ecn(port, enq, q_tail=q, t=t, rng=k, **kwn),
+            rank_red_plain(port, enq, unif, q, t, n)))
+        for p in (P, 17):
+            w, _, front, count = sel_inputs(f, p, wide=True)
+            err["spritz_select"] = max(err["spritz_select"], same(
+                f"spritz_select drawn in place, {label} P {p}",
+                ops.spritz_select(w, None, front, count,
+                                  explore_threshold=thr, rng=k, t=t),
+                ref.spritz_select_reference(w, u_path[:, 0], front, count,
+                                            explore_threshold=thr)))
+            w = weights(f, p)
+            err["weighted_sample"] = max(err["weighted_sample"], same(
+                f"weighted_sample, {label} P {p}",
+                ops.weighted_sample(w, k, t),
+                ref.weighted_sample_reference(w, k, t)))
+
+    # a graph that captured the three reads each replay's tick
+    k, t = key(11), tick(0)
+    port, enq, q = fused_inputs(M, NP_, 70000)
+    w, _, front, count = sel_inputs(F, P)
+    ws = weights(F, P)
+
+    def step():
+        return (ops.tick_rank_red_ecn(port, enq, q_tail=q, t=t, rng=k, **kw),
+                ops.spritz_select(w, None, front, count,
+                                  explore_threshold=thr, rng=k, t=t),
+                ops.weighted_sample(ws, k, t))
+    step()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        g_fused, g_sel, g_ws = step()
+    for tt in (69990, 70000, 2**31 - 1):
+        t.fill_(tt)
+        graph.replay()
+        torch.cuda.synchronize()
+        u_path, unif = draws(k, t, F, M)
+        same(f"tick_rank_red_ecn drawn in place, captured, t {tt}", g_fused,
+             rank_red_plain(port, enq, unif, q, t, NP_))
+        same(f"spritz_select drawn in place, captured, t {tt}", g_sel,
+             ref.spritz_select_reference(w, u_path[:, 0], front, count,
+                                         explore_threshold=thr))
+        same(f"weighted_sample captured, t {tt}", g_ws,
+             ref.weighted_sample_reference(ws, k, t))
+    del graph
+
+    # times at the engine's shapes: the in-place form, its two-step form
+    # (tick_draws, then the consumer on the drawn uniforms).  The fused
+    # launch's work follows its data: the inputs above enqueue every
+    # entry with most occupancies in the RED band (every entry draws),
+    # the engine's tick enqueues ENGINE_ENQ of M, first (the compaction's
+    # order), and ENGINE_BAND of them fall in the band
+    # (tools/red_band_entries.py, a CPU count of phase 4's run); the
+    # fused launch is timed on both, the engine's first
+    t = tick(70000)
+    worst = (port, enq, q)
+    kmin = int(kw["kmin"])
+    n_enq = min(ENGINE_ENQ, M)
+    e_port = cu(np.concatenate([gen.integers(0, NP_, n_enq),
+                                np.full(M - n_enq, NP_)]), i32)
+    band = gen.random(NP_) < ENGINE_BAND / ENGINE_ENQ
+    e_q = cu(70000 + np.where(band, gen.integers(kmin + 1, band_top(kw),
+                                                 NP_),
+                              gen.integers(-40, kmin // 2 + 1, NP_)), i32)
+    port, enq, q = e_port, e_port < NP_, e_q
+    out = {}
+    fused = lambda: ops.tick_rank_red_ecn(port, enq, q_tail=q, t=t, rng=k,
+                                          **kw)
+    fused_two = lambda: ops.tick_rank_red_ecn(
+        port, enq, ops.tick_draws(k, t, n_flows=0, n_cand=M)[1], q, t, **kw)
+    sel = lambda: ops.spritz_select(w, None, front, count,
+                                    explore_threshold=thr, rng=k, t=t)
+    sel_two = lambda: ops.spritz_select(
+        w, ops.tick_draws(k, t, n_flows=F, n_cand=0)[0][:, 0], front,
+        count, explore_threshold=thr)
+    wsm = lambda: ops.weighted_sample(ws, k, t)
+    ws_two = lambda: weighted_sample_rows(
+        ops.tick_draws(k, t, n_flows=F, n_cand=0)[0], ws)
+    for name, one, two, plain, ins, outs in (
+            ("tick_rank_red_ecn", fused, fused_two,
+             lambda: rank_red_plain(port, enq, draws(k, t, 0, M)[1], q, t,
+                                    NP_),
+             (port, enq, q, k, t), fused()),
+            ("spritz_select", sel, sel_two,
+             lambda: ref.spritz_select_reference(
+                 w, draws(k, t, F, 0)[0][:, 0], front, count,
+                 explore_threshold=thr),
+             (w, front, count, k, t), sel()),
+            ("weighted_sample", wsm, ws_two,
+             lambda: ref.weighted_sample_reference(ws, k, t),
+             (ws, k, t), (wsm(),))):
+        out[name] = dict(
+            max_abs_err=err[name], ms=time_ms(one), plain_ms=time_ms(plain),
+            library_ms=None, bytes=nbytes(*ins, *outs),
+            device_us=device_us(one, torch, what=f"{name} drawn in place"),
+            two_step_ms=time_ms(two),
+            two_step_device_us=device_us(two, torch,
+                                         what=f"{name} two-step"))
+    port, enq, q = worst                    # every entry enqueued, in band
+    out["tick_rank_red_ecn"].update(
+        every_entry_device_us=device_us(fused, torch,
+                                        what="tick_rank_red_ecn every entry"),
+        every_entry_two_step_device_us=device_us(
+            fused_two, torch, what="tick_rank_red_ecn every entry two-step"))
+    return out
+
+
+# the engine's fused launch at DF-1056 (tools/red_band_entries.py on
+# spritz_spray_w's phase-4 run, CPU count): entries enqueued a step, and
+# of them in the RED band, both means rounded
+ENGINE_ENQ, ENGINE_BAND = 970, 13
+
+
+def band_top(kw) -> int:
+    """The first occupancy at or past kmax (exclusive bound of the band)."""
+    return int(kw["kmax"]) + 1
 
 
 def attention_work(q, k, *, causal, window, q_offset):
@@ -1626,12 +1836,16 @@ def train_card_vs_cpu(C, LM, step, optim, ops, torch, np) -> None:
     recomputation) and its backward once; then three train steps (the second with
     ``microbatch=2``), each from the CPU's state copied to the card:
     losses within 1e-4, and the parameters and ``m`` / ``v`` within 1e-4
-    of each tensor's largest entry.  TF32 is off, so
-    only summation orders differ; but Adam moves an element by about
-    ``lr * sign(g)``, so where a step's gradient is within 1e-5 of zero
-    (relative to its tensor's largest) and not 0, the two signs may
-    differ: such elements (from the CPU's gradient before each step, as
-    the step takes it: with microbatches the mean of its shards') are
+    of each tensor's largest entry.  Before each step the gradient the
+    step takes (with microbatches the mean of its shards') on the card
+    equals the CPU's within 1e-4 of each tensor's largest entry, every
+    element: that holds the kernels.  TF32 is off, so only summation
+    orders differ; but Adam moves an element by about ``lr * g / (|g| +
+    eps)``: where a step's gradient is within 1e-5 of zero (relative to
+    its tensor's largest) and not 0 the two signs may differ, and where
+    it is at most 100 x AdamW's ``eps`` a gap of ~1e-10 moves the step:
+    such elements (from the CPU's gradient before each step; those of
+    the second kind only where they are past the 1e-4 tolerance) are
     counted, at most 1 in 1,000 a step, and their parameters bounded by
     2 x the summed lr instead.  Such a flip moves a weight by ~lr, which
     would then reach every later gradient: hence each step's common
@@ -1658,6 +1872,8 @@ def train_card_vs_cpu(C, LM, step, optim, ops, torch, np) -> None:
             gap = gap.masked_fill(skip, 0)
         return float(gap.max()) / max(float(want.detach().abs().max()),
                                       1e-30)
+    # AdamW's eps (optim.adamw_update's default, as the step uses it)
+    eps = inspect.signature(optim.adamw_update).parameters["eps"].default
     for arch in TRAIN_CARD_VS_CPU:
         cfg = dataclasses.replace(C.get_reduced(arch), dtype=torch.float32)
         cpu = LM(cfg, device="cpu",
@@ -1710,20 +1926,24 @@ def train_card_vs_cpu(C, LM, step, optim, ops, torch, np) -> None:
                  f"error {e_grad:.3g} (tol 1e-4)")
         oc = optim.adamw_init(dict(cpu.named_parameters()))
         losses, lr_sum, e_state, n_near, near_gap = [], 0.0, 0.0, 0, 0.0
-        n_moved = 0
+        n_moved, e_step_grad = 0, 0.0
         total = sum(p.numel() for p in cpu.parameters())
         for mb in (0, 2, 0):
             fn = step.make_train_step(cfg, warmup=1, total=3, microbatch=mb)
             bc, bg = batch()
-            near = {}
-            for n, g in step_grads(loss_fn, cpu, bc, mb).items():
+            near, in_eps = {}, {}
+            step_g = step_grads(loss_fn, cpu, bc, mb)
+            for n, g in step_g.items():
                 a = g.abs()
                 near[n] = (a <= 1e-5 * a.max()) & (a > 0)
+                in_eps[n] = (a <= 100 * eps) & (a > 0)
             # each step from one state: the card's model and AdamW state
             # copied from the CPU's (a near-zero gradient's flipped sign
             # moves a weight by ~lr, which would reach every later
             # gradient and moment)
             gpu = copy.deepcopy(cpu).to("cuda")
+            for n, g in step_grads(loss_fn, gpu, bg, mb).items():
+                e_step_grad = max(e_step_grad, rel(g, step_g[n]))
             og = optim.AdamWState(m={k: t.cuda() for k, t in oc.m.items()},
                                   v={k: t.cuda() for k, t in oc.v.items()},
                                   step=oc.step.cuda())
@@ -1732,6 +1952,15 @@ def train_card_vs_cpu(C, LM, step, optim, ops, torch, np) -> None:
             losses.append(abs(float(mg["loss"]) - float(mc["loss"])))
             lr_sum += float(mc["lr"])
             own = dict(gpu.named_parameters())
+            for n, p in cpu.named_parameters():
+                # AdamW's eps regime joins the mask where it is past the
+                # tolerance, so the bounds count only those
+                past = torch.zeros_like(p, dtype=torch.bool)
+                for g, w in ((own[n], p), (og.m[n], oc.m[n]),
+                             (og.v[n], oc.v[n])):
+                    past |= (g.detach().cpu() - w.detach()).abs() > \
+                        1e-4 * w.detach().abs().max()
+                near[n] = near[n] | (in_eps[n] & past)
             n_near = max(n_near, sum(int(m.sum()) for m in near.values()))
             moved = 0
             for n, p in cpu.named_parameters():
@@ -1750,9 +1979,11 @@ def train_card_vs_cpu(C, LM, step, optim, ops, torch, np) -> None:
         # those of the elements that moved apart
         n_bound = n_near if arch in TRAIN_CARD_VS_CPU[:3] else n_moved
         if not (max(losses) <= 1e-4 and e_state <= 1e-4
+                and e_step_grad <= 1e-4
                 and n_bound <= total / 1000
                 and near_gap <= 2 * lr_sum + 1e-4):
             fail(f"{arch} reduced training: 3 steps, loss gaps {losses}, "
+                 f"each step's gradient {e_step_grad:.3g}, "
                  f"relative parameter / moment error {e_state:.3g} (tol "
                  f"1e-4); up to {n_near} of {total} near-zero gradients a "
                  f"step moved up to {near_gap:.3g} (limit "
@@ -1760,7 +1991,8 @@ def train_card_vs_cpu(C, LM, step, optim, ops, torch, np) -> None:
         print(f"card vs cpu {arch} reduced f32 training: loss {lg:.6f} "
               f"(CPU {lc:.6f}), relative gradient error {e_grad:.3g} over "
               f"{len(gc_)} tensors; 3 train steps (microbatch 0, 2, 0), "
-              f"each from the CPU's state: loss gaps {max(losses):.3g}, "
+              f"each from the CPU's state: gradients {e_step_grad:.3g} "
+              f"unmasked, loss gaps {max(losses):.3g}, "
               f"parameters and m / v {e_state:.3g} of each tensor's largest "
               f"(tol 1e-4); up to {n_near} of {total} elements a step with "
               f"a near-zero gradient, {n_moved} of them moved apart, by up "
@@ -2532,9 +2764,22 @@ def main() -> None:
           f"{agg['k2_device_us']:.2f} us; index_add_ (K 6 int32, its zero "
           f"fill included) {agg['library_device_us']:.2f} us a call",
           flush=True)
-    for name in ("spritz_select", "red_ecn", "tick_draws"):
+    for name in ("red_ecn", "tick_draws"):
         print(f"kernel {name} device time ({timed_by(name)}): "
               f"{nums[name]['device_us']:.2f} us a call", flush=True)
+    for name in ("tick_rank_red_ecn", "spritz_select", "weighted_sample"):
+        v = nums[name]
+        print(f"kernel {name} drawing in place: equal to tick_draws' then "
+              f"its plain version (DF-1056 and ragged sizes, ticks 0 and "
+              f"2**31 - 1, 3 seeds, a graph at 3 ticks); device time "
+              f"({timed_by(name + ' drawn in place')}) {v['device_us']:.2f}"
+              f" us a call against {v['two_step_device_us']:.2f} us for "
+              f"tick_draws then the "
+              + ("torch sample" if name == "weighted_sample" else
+                 "launch on the drawn uniforms")
+              + f" ({timed_by(name + ' two-step')}); wrapper "
+              f"{v['ms'] * 1e3:.2f} us against {v['two_step_ms'] * 1e3:.2f}",
+              flush=True)
     tick_ptx = {}
     for name, lib, pattern in (
             ("spritz_select", "spritz_select", "spritz_select_kernel"),
@@ -2551,6 +2796,7 @@ def main() -> None:
                           f"{v['stack_bytes']} / {v['spill_bytes']}"
                           for k, v in sorted(tick_ptx[name].items())),
               flush=True)
+    tick_ptx["weighted_sample"] = tick_ptx["spritz_select"]
     if any(v["stack_bytes"] or v["spill_bytes"]
            for v in tick_ptx["spritz_select"].values()):
         fail("spritz_select: a stack frame or spills in the ptxas report")
@@ -2563,9 +2809,10 @@ def main() -> None:
           f" a call on the device, {tr['torch_form_ms'] * 1e3:.2f} us "
           f"wrapper", flush=True)
     fu = nums["tick_rank_red_ecn"]
-    # the fused smem entry (kRed = true) of the tick_rank library
+    # the fused smem entry drawing unif in place (kRed, kDraw), the
+    # engine's, of the tick_rank library
     fu_ptx = next((v for k, v in tick_ptx["tick_rank"].items()
-                   if "tick_rank_smem_kernelILb1E" in k), None)
+                   if "tick_rank_smem_kernelILb1ELb1E" in k), None)
     if fu_ptx is None:
         fail("tick_rank_red_ecn: no ptxas report of its smem kernel")
     fu.update(registers=fu_ptx["registers"],
@@ -2574,8 +2821,13 @@ def main() -> None:
               static_smem_bytes=fu_ptx["smem_bytes"])
     print(f"kernel tick_rank_red_ecn at M {shapes['M']}, n_ports "
           f"{shapes['n_ports']}: path {fu['path']}, {fu['segs']} segments; "
-          f"device time ({timed_by('tick_rank_red_ecn')}) "
-          f"{fu['device_us']:.2f} us a call against tick_rank alone "
+          f"device time ({timed_by('tick_rank_red_ecn drawn in place')}) "
+          f"{fu['device_us']:.2f} us a call drawing unif at the engine's "
+          f"{ENGINE_ENQ} enqueues ({ENGINE_BAND} in the RED band), "
+          f"{fu['every_entry_device_us']:.2f} us with every entry enqueued "
+          f"and drawing (tick_draws then the given-unif launch "
+          f"{fu['every_entry_two_step_device_us']:.2f} us; given unif "
+          f"alone {fu['given_device_us']:.2f} us) against tick_rank alone "
           f"{tr['device_us']:.2f} + red_ecn alone "
           f"{nums['red_ecn']['device_us']:.2f} = "
           f"{tr['device_us'] + nums['red_ecn']['device_us']:.2f} us; "
@@ -2600,13 +2852,13 @@ def main() -> None:
         for k in launches:
             launches[k] += counts[k]
         check_golden(f"main {s}", res, golden[s], GOLD, np)
-        check_replays(f"main {s}", res, counts, rank_paths, E,
-                      s.startswith("spritz"), "tick_rank_red_ecn")
+        per = check_replays(f"main {s}", res, counts, rank_paths, E, s,
+                            "tick_rank_red_ecn")
         print(f"main {s}: equal to golden; ticks {res.ticks_simulated} "
               f"steps {res.steps_executed}, replays {res.replays}; wall "
               f"{wall:.3f} s ({res.steps_executed / wall:.1f} steps/s, first "
-              f"run, the capture included); launches {counts}; tick_rank "
-              f"paths {rank_paths}", flush=True)
+              f"run, the capture included); launches {counts}; a replay: "
+              f"{per}; tick_rank paths {rank_paths}", flush=True)
     # warm repeat, timed only (launches not counted)
     for s, spec in specs.items():
         torch.cuda.synchronize()
@@ -2631,7 +2883,7 @@ def main() -> None:
     wall = time.perf_counter() - t0
     counts = dict(ops.LAUNCHES)
     rank_paths = dict(ops.TICK_RANK_PATHS)
-    replays = {"all": 0, "spritz": 0}
+    replays = {"all": 0, "spritz": 0, "sampler": 0}
     for s, res in zip(GOLD.SCHEMES, batch):
         check_golden(f"batch {s}", res, golden[s], GOLD, np)
         if not 0 <= res.replays - res.steps_executed < E.STEPS_PER_READ:
@@ -2640,10 +2892,13 @@ def main() -> None:
         replays["all"] += res.replays
         if s.startswith("spritz"):
             replays["spritz"] += res.replays
+        if s in SAMPLERS:
+            replays["sampler"] += res.replays
     want = dict.fromkeys(KERNELS, 0)
     want.update(flow_agg=2 * replays["all"],
                 tick_rank_red_ecn=replays["all"],
-                tick_draws=replays["all"], spritz_select=replays["spritz"])
+                spritz_select=replays["spritz"],
+                weighted_sample=replays["sampler"])
     if counts != want or rank_paths != {"smem": replays["all"],
                                         "pairwise": 0}:
         fail(f"batch: launches {counts}, tick_rank paths {rank_paths}; want "
@@ -2761,15 +3016,25 @@ def main() -> None:
     # 1-byte rows (phase A). Both launch with no dynamic shared memory, so
     # ptxas's static figure is all the block holds.
     for row, key in ((next(r for r in rows if r["name"] == "spritz_select"),
-                      "spritz_select_kernelILi2E"),
+                      "spritz_select_kernelILi2ELb1ELb1E"),
+                     (next(r for r in rows
+                           if r["name"] == "weighted_sample"),
+                      "spritz_select_kernelILi2ELb1ELb0E"),
                      (agg, "flow_agg_kernelIhE")):
         ent = next(v for k, v in tick_ptx[row["name"]].items() if key in k)
         row.update(registers=ent["registers"],
                    stack_bytes=ent["stack_bytes"],
                    smem_bytes=ent["smem_bytes"])
-    for name in ("spritz_select", "red_ecn", "tick_draws"):
+    for name in ("spritz_select", "red_ecn", "tick_draws",
+                 "weighted_sample"):
         next(r for r in rows if r["name"] == name)["device_us"] = \
             nums[name]["device_us"]
+    for name in ("tick_rank_red_ecn", "spritz_select", "weighted_sample"):
+        next(r for r in rows if r["name"] == name).update(
+            {k: nums[name][k] for k in (
+                "two_step_device_us", "two_step_ms", "given_ms",
+                "given_device_us", "every_entry_device_us",
+                "every_entry_two_step_device_us") if k in nums[name]})
     next(r for r in rows if r["name"] == "tick_rank_red_ecn").update(
         {k: nums["tick_rank_red_ecn"][k] for k in (
             "device_us", "path", "segs", "registers", "stack_bytes",
@@ -2858,23 +3123,31 @@ def check_golden(label, res, want, GOLD, np) -> None:
              f"{int(np.sum(res.done))}/{len(res.done)}")
 
 
-def check_replays(label, res, counts, paths, E, spritz: bool,
-                  rank: str) -> None:
+def check_replays(label, res, counts, paths, E, scheme: str,
+                  rank: str) -> str:
     """The run replayed its captured step ``res.replays`` times, fewer
     than one read's batch past its last step, and each replay launched
-    flow_agg twice and ``rank``, tick_draws and (Spritz) spritz_select
-    once, ``rank`` on its shared-memory path; nothing else."""
+    flow_agg twice and ``rank`` once, on its shared-memory path; the
+    sampler once (spritz_select for Spritz, weighted_sample for
+    ``SAMPLERS``), both drawing the path uniforms in place; tick_draws
+    once only with the standalone rank (a capacity plan, whose torch
+    RED math reads unif), as the fused launch draws its own; nothing
+    else.  Returns the launches a replay, as text."""
     n, r = res.steps_executed, res.replays
     if not 0 <= r - n < E.STEPS_PER_READ:
         fail(f"{label}: {r} replays for {n} steps (reads every "
              f"{E.STEPS_PER_READ})")
     want = dict.fromkeys(counts, 0)
-    want.update({"flow_agg": 2 * r, rank: r, "tick_draws": r})
-    if spritz:
+    want.update({"flow_agg": 2 * r, rank: r,
+                 "tick_draws": r if rank == "tick_rank" else 0})
+    if scheme.startswith("spritz"):
         want["spritz_select"] = r
+    if scheme in SAMPLERS:
+        want["weighted_sample"] = r
     if counts != want or paths != {"smem": r, "pairwise": 0}:
         fail(f"{label}: launches {counts}, tick_rank paths {paths}; want "
              f"{want} on the smem path ({r} replays)")
+    return ", ".join(f"{k} {v // r}" for k, v in counts.items() if v)
 
 
 def graph_vs_eager(E, GOLD, spec, seed, label, torch) -> None:
@@ -2954,16 +3227,16 @@ def failover_path(GOLD, B, E, FF, ops, topo, flows, torch, np,
                 totals[k] += counts[k]
             check_golden(f"failover {plan} {s}", res, want["schemes"][s],
                          GOLD, np)
-            check_replays(f"failover {plan} {s}", res, counts, paths, E,
-                          s.startswith("spritz"),
-                          "tick_rank" if rate else "tick_rank_red_ecn")
+            per = check_replays(f"failover {plan} {s}", res, counts, paths,
+                                E, s,
+                                "tick_rank" if rate else "tick_rank_red_ecn")
             n = res.steps_executed
             print(f"failover {plan} {s}: equal to the record; ticks "
                   f"{res.ticks_simulated} steps {n}, replays {res.replays}; "
                   f"violations down 0 rate 0; wall {wall:.3f} s "
                   f"({n / wall:.1f} steps/s, first run, the capture "
-                  f"included); launches {counts}; tick_rank paths {paths}",
-                  flush=True)
+                  f"included); launches {counts}; a replay: {per}; "
+                  f"tick_rank paths {paths}", flush=True)
 
     # segments: spritz_spray_w on midrun cut at the end of the outage
     spec = specs["midrun", "spritz_spray_w"]
@@ -3081,12 +3354,18 @@ def matrix_path(GOLD, E, ops, torch, card: str) -> dict:
                              f" from the record in {diff}")
                 r = tally["replays"]
                 spritz = any(s.startswith("spritz") for s in cell.schemes)
-                if counts["tick_draws"] != r or counts["flow_agg"] != 2 * r \
+                sampler = any(s in SAMPLERS for s in cell.schemes)
+                # tick_draws only beside the standalone rank (a capacity
+                # plan); the fused launch and the samplers draw in place
+                if counts["tick_draws"] != counts["tick_rank"] \
+                        or counts["flow_agg"] != 2 * r \
                         or counts["tick_rank"] + \
                         counts["tick_rank_red_ecn"] != r \
                         or counts["red_ecn"] or not r \
                         or bool(counts["spritz_select"]) != spritz \
-                        or counts["spritz_select"] > r:
+                        or counts["spritz_select"] > r \
+                        or bool(counts["weighted_sample"]) != sampler \
+                        or counts["weighted_sample"] > r:
                     fail(f"{cid}: launches {counts} for {r} replays")
                 n = tally["steps"]
                 print(f"matrix {cid}: {len(rows)} rows equal to the record;"

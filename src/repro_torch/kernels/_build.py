@@ -40,8 +40,9 @@ SIGNATURES = {
     "red_ecn": ("red_ecn_launch", (_P, _P, _P, _P, _P, _P, _I, _F, _F, _I,
                                    _I, _P, _P, _P, _P, _P), EXACT),
     "tick_draws": ("tick_draws_launch", (_P, _P, _I, _I, _P, _P, _P), EXACT),
-    "spritz_select": ("spritz_select_launch", (_P, _P, _P, _P, _I, _I, _I,
-                                               _P, _P, _P, _P), EXACT),
+    "spritz_select": ("spritz_select_launch", (_P, _P, _P, _P, _P, _P, _I,
+                                               _I, _I, _P, _P, _P, _P),
+                      EXACT),
     "flash_attention": ("flash_attention_launch",
                         (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _I, _F, _I, _I, _I, _P, _P, _P), ()),
@@ -60,8 +61,10 @@ SIGNATURES = {
 # point, argument types)
 EXTRA_ENTRIES = {
     "tick_rank_red_ecn": ("tick_rank", "tick_rank_red_ecn_launch",
-                          (_P, _P, _P, _P, _P, _I, _F, _F, _I, _I, _I, _P,
-                           _P, _P, _P)),
+                          (_P, _P, _P, _P, _P, _P, _P, _I, _F, _F, _I, _I,
+                           _I, _P, _P, _P, _P)),
+    "weighted_sample": ("spritz_select", "weighted_sample_launch",
+                        (_P, _P, _P, _I, _I, _P, _P)),
 }
 
 _FUNCS: dict = {}

@@ -24,16 +24,44 @@ struct RedEcnOut {
   bool trim, mark;
 };
 
-__device__ __forceinline__ RedEcnOut red_ecn_one(int tail, int rank, bool enq,
-                                                 float unif, int t, int qsize,
-                                                 float kmin, float recip) {
+// Everything but the draw: occ, trim, slot, and in `mark` the accept
+// flag that the mark ands in; `pr` gets the clipped RED probability.
+__device__ __forceinline__ RedEcnOut red_ecn_stage(int tail, int rank,
+                                                   bool enq, int t,
+                                                   int qsize, float kmin,
+                                                   float recip, float& pr) {
   RedEcnOut o;
   o.occ = max(tail - t, 0) + rank;
   o.trim = enq && (o.occ >= qsize);
-  const bool accept = enq && !o.trim;
-  float pr = __fmul_rn(__fsub_rn(__int2float_rn(o.occ), kmin), recip);
+  o.mark = enq && !o.trim;                                   // accept
+  pr = __fmul_rn(__fsub_rn(__int2float_rn(o.occ), kmin), recip);
   pr = fminf(fmaxf(pr, 0.0f), 1.0f);
-  o.mark = accept && (unif < pr);
-  o.slot = accept ? max(tail, t) + rank + 1 : 0;
+  o.slot = o.mark ? max(tail, t) + rank + 1 : 0;
+  return o;
+}
+
+__device__ __forceinline__ RedEcnOut red_ecn_one(int tail, int rank, bool enq,
+                                                 float unif, int t, int qsize,
+                                                 float kmin, float recip) {
+  float pr;
+  RedEcnOut o = red_ecn_stage(tail, rank, enq, t, qsize, kmin, recip, pr);
+  o.mark = o.mark && (unif < pr);
+  return o;
+}
+
+// The same stage with the uniform drawn in place: draw() gives it, a
+// float in [0, 1), and is called only where it decides the mark (0 < pr
+// < 1): no uniform is below pr = 0, every one is below pr = 1.  Equal to
+// red_ecn_one on that uniform.
+template <class Draw>
+__device__ __forceinline__ RedEcnOut red_ecn_one_drawn(int tail, int rank,
+                                                       bool enq,
+                                                       const Draw& draw,
+                                                       int t, int qsize,
+                                                       float kmin,
+                                                       float recip) {
+  float pr;
+  RedEcnOut o = red_ecn_stage(tail, rank, enq, t, qsize, kmin, recip, pr);
+  o.mark = o.mark && (pr == 1.0f || (pr > 0.0f && draw() < pr));
   return o;
 }

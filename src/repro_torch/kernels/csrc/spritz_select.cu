@@ -28,35 +28,65 @@
 // stack frame).  The count is a ballot per register.  Adds and
 // multiplies are __fadd_rn/__fmul_rn and the file is built with
 // -fmad=false, so no step is contracted.
+//
+// The path draw in place (kDraw): u[f] is element f of the tick's k_path
+// draw (tick_draws.cuh: fold_in, split and the element, three threefry
+// blocks), made by the warp while its row's loads are in flight (every
+// row draws: waiting for the front to skip a used row's draw would put
+// the chain behind a second load); rng and t are read from device
+// memory, as a captured graph needs.  That replaces the engine's launch
+// of tick_draws.cu a tick.
+//
+// weighted_sample (kSelect false): the same kernel with every buffer
+// front empty, so ev is the sampled index; no front or count is read and
+// only ev is written.  It is the sampler of the schemes that draw a
+// weighted path per packet (valiant, ugal_l, flicr_w, ops_u, ops_w,
+// reps): the reference's weighted_sample_rows, src/repro/net/policies/
+// base.py:151, with its uniform on k_path, which the port otherwise runs
+// as ~40 torch launches after a tick_draws launch.
 #include <cuda_runtime.h>
+
+#include "tick_draws.cuh"
 
 #define SEL_WARPS 8      // rows (warps) a block
 #define SEL_MAX_REGS 8   // 32-entry registers a lane holds: P <= 256
 
 constexpr unsigned FULL = 0xffffffffu;
 
-template <int NR>
+// The inputs and outputs of one launch: u, or (kDraw) rng and t; front,
+// count, newcnt and used only with kSelect.
+struct SelArgs {
+  const float* w;
+  const float* u;
+  const long long* rng;
+  const int* t;
+  const int* front;
+  const int* count;
+  int F, P, explore_threshold;
+  int* ev;
+  int* newcnt;
+  bool* used;
+};
+
+template <int NR, bool kDraw, bool kSelect>
 __global__ void __launch_bounds__(32 * SEL_WARPS)
-    spritz_select_kernel(const float* __restrict__ w,
-                         const float* __restrict__ u,
-                         const int* __restrict__ front,
-                         const int* __restrict__ count, int F, int P,
-                         int explore_threshold, int* __restrict__ ev_out,
-                         int* __restrict__ newcnt_out,
-                         bool* __restrict__ used_out) {
+    spritz_select_kernel(const SelArgs a) {
   const int f = blockIdx.x * SEL_WARPS + (threadIdx.x >> 5);
-  if (f >= F) return;  // the whole warp leaves together
+  if (f >= a.F) return;  // the whole warp leaves together
+  const int P = a.P;
   const int lane = threadIdx.x & 31;
   const int j = lane & 15;     // position inside the 16-block
   const bool hi = lane >= 16;  // the register's second block
-  const float* row = w + (long long)f * P;
+  const float* row = a.w + (long long)f * P;
   float x[NR];
 #pragma unroll
   for (int i = 0; i < NR; ++i) {
     const int e = 32 * i + lane;
     x[i] = e < P ? __ldg(row + e) : 0.0f;
   }
-  const float uf = __ldg(u + f);
+  const float uf = kDraw ? tick_uniform(tick_key(a.rng, a.t, TICK_K_PATH),
+                                        (uint32_t)f)
+                         : __ldg(a.u + f);
 
   // in-block prefix c = ((x_0 + x_1) + ...) + x_j, sequential
   float c[NR];
@@ -97,39 +127,30 @@ __global__ void __launch_bounds__(32 * SEL_WARPS)
 
   if (lane == 0) {
     const int sampled = min(below, P - 1);
-    const int c0 = count[f];
-    const int fr = front[f];
-    const bool explore = c0 >= explore_threshold;
-    const bool used = !explore && fr >= 0;
-    ev_out[f] = used ? fr : sampled;
-    newcnt_out[f] = explore ? 0 : c0 + 1;
-    used_out[f] = used;
+    if constexpr (kSelect) {
+      const int c0 = a.count[f];
+      const int fr = a.front[f];
+      const bool explore = c0 >= a.explore_threshold;
+      const bool used = !explore && fr >= 0;
+      a.ev[f] = used ? fr : sampled;
+      a.newcnt[f] = explore ? 0 : c0 + 1;
+      a.used[f] = used;
+    } else {
+      a.ev[f] = sampled;
+    }
   }
 }
 
-template <int NR>
-static void launch(const void* w, const void* u, const void* front,
-                   const void* count, int F, int P, int explore_threshold,
-                   void* ev, void* newcnt, void* used, cudaStream_t stream) {
-  const int blocks = (F + SEL_WARPS - 1) / SEL_WARPS;
-  spritz_select_kernel<NR><<<blocks, 32 * SEL_WARPS, 0, stream>>>(
-      (const float*)w, (const float*)u, (const int*)front, (const int*)count,
-      F, P, explore_threshold, (int*)ev, (int*)newcnt, (bool*)used);
-}
-
-extern "C" int spritz_select_launch(const void* w, const void* u,
-                                    const void* front, const void* count,
-                                    int F, int P, int explore_threshold,
-                                    void* ev, void* newcnt, void* used,
-                                    void* stream) {
-  if (P < 1 || P > 32 * SEL_MAX_REGS) return (int)cudaErrorInvalidValue;
-  if (F > 0) {
-    cudaStream_t s = (cudaStream_t)stream;
-    switch ((P + 31) / 32) {
-#define SEL_CASE(n)                                                       \
-  case n:                                                                 \
-    launch<n>(w, u, front, count, F, P, explore_threshold, ev, newcnt,   \
-              used, s);                                                   \
+template <bool kDraw, bool kSelect>
+static int launch(const SelArgs& a, cudaStream_t s) {
+  if (a.P < 1 || a.P > 32 * SEL_MAX_REGS) return (int)cudaErrorInvalidValue;
+  if (a.F > 0) {
+    const int blocks = (a.F + SEL_WARPS - 1) / SEL_WARPS;
+    switch ((a.P + 31) / 32) {
+#define SEL_CASE(n)                                                      \
+  case n:                                                                \
+    spritz_select_kernel<n, kDraw, kSelect>                              \
+        <<<blocks, 32 * SEL_WARPS, 0, s>>>(a);                           \
     break;
       SEL_CASE(1) SEL_CASE(2) SEL_CASE(3) SEL_CASE(4)
       SEL_CASE(5) SEL_CASE(6) SEL_CASE(7) SEL_CASE(8)
@@ -137,4 +158,33 @@ extern "C" int spritz_select_launch(const void* w, const void* u,
     }
   }
   return (int)cudaGetLastError();
+}
+
+// Algorithm 1's choice for F rows.  Exactly one of u ([F] f32) and rng
+// (the carry's [2] int64 key, with t the tick in device memory: u drawn
+// in place on k_path) is non-null.
+extern "C" int spritz_select_launch(const void* w, const void* u,
+                                    const void* rng, const void* t,
+                                    const void* front, const void* count,
+                                    int F, int P, int explore_threshold,
+                                    void* ev, void* newcnt, void* used,
+                                    void* stream) {
+  if ((u == nullptr) == (rng == nullptr) || (rng && !t))
+    return (int)cudaErrorInvalidValue;
+  const SelArgs a{(const float*)w, (const float*)u, (const long long*)rng,
+                  (const int*)t, (const int*)front, (const int*)count, F, P,
+                  explore_threshold, (int*)ev, (int*)newcnt, (bool*)used};
+  return rng ? launch<true, true>(a, (cudaStream_t)stream)
+             : launch<false, true>(a, (cudaStream_t)stream);
+}
+
+// weighted_sample: ev[f] = the row's weighted sample on the tick's path
+// draw, element f of uniform(k_path, (F, 1)).
+extern "C" int weighted_sample_launch(const void* w, const void* rng,
+                                      const void* t, int F, int P, void* ev,
+                                      void* stream) {
+  const SelArgs a{(const float*)w, nullptr, (const long long*)rng,
+                  (const int*)t, nullptr, nullptr, F, P, 0, (int*)ev,
+                  nullptr, nullptr};
+  return launch<true, false>(a, (cudaStream_t)stream);
 }

@@ -17,35 +17,17 @@
 // a few 32-bit integer ops per element.  The launch dominates.
 // Design: one thread per element of either draw; each thread derives the
 // tick's keys itself (two threefry blocks on four words: cheaper than a
-// second launch or a barrier) and then its own 32 bits.  The rng and the
-// tick are read from device memory, so a captured graph draws each
-// replay's tick.
+// second launch or a barrier) and then its own 32 bits (tick_draws.cuh,
+// shared with the kernels that draw in place).  The rng and the tick are
+// read from device memory, so a captured graph draws each replay's tick.
+//
+// On the engine's path since the in-place draws, this launch runs only
+// under a capacity plan, with n_flows 0: there the engine's torch RED
+// math reads unif.  At full rate the fused rank + RED/ECN launch draws
+// unif and the samplers (spritz_select.cu) draw u_path themselves.
 #include <cuda_runtime.h>
-#include <stdint.h>
 
-__device__ __forceinline__ uint32_t rotl(uint32_t x, int r) {
-  return (x << r) | (x >> (32 - r));
-}
-
-// threefry2x32 with 20 rounds on counter (x0, x1), as _parity.threefry2x32.
-__device__ __forceinline__ uint2 threefry(uint32_t k0, uint32_t k1,
-                                          uint32_t x0, uint32_t x1) {
-  const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
-  const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
-  x0 += ks[0];
-  x1 += ks[1];
-#pragma unroll
-  for (int i = 0; i < 5; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      x0 += x1;
-      x1 = rotl(x1, rot[i % 2][j]) ^ x0;
-    }
-    x0 += ks[(i + 1) % 3];
-    x1 += ks[(i + 2) % 3] + (uint32_t)(i + 1);
-  }
-  return make_uint2(x0, x1);
-}
+#include "tick_draws.cuh"
 
 __global__ void tick_draws_kernel(const long long* __restrict__ rng,
                                   const int* __restrict__ t, int F, int M,
@@ -53,13 +35,10 @@ __global__ void tick_draws_kernel(const long long* __restrict__ rng,
                                   float* __restrict__ unif) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= F + M) return;
-  const uint2 key = threefry((uint32_t)__ldg(rng), (uint32_t)__ldg(rng + 1),
-                             0u, (uint32_t)__ldg(t));       // fold_in
   const bool path = i < F;
-  const uint2 sub = threefry(key.x, key.y, 0u, path ? 0u : 1u);  // split
-  const uint2 b = threefry(sub.x, sub.y, 0u, (uint32_t)(path ? i : i - F));
-  const float u =
-      __uint_as_float(((b.x ^ b.y) >> 9) | 0x3F800000u) - 1.0f;  // exact
+  const float u = tick_uniform(
+      tick_key(rng, t, path ? TICK_K_PATH : TICK_K_MARK),
+      (uint32_t)(path ? i : i - F));
   if (path)
     u_path[i] = u;
   else

@@ -1,7 +1,10 @@
 """Wrappers of the nine CUDA kernels (four tick kernels, the tick's
 random draws, attention, attention's backward, the chunked RWKV-6 time
-mix and its backward), and of the fused launch of two of them
-(``tick_rank_red_ecn``: the rank and the RED/ECN stage on it).
+mix and its backward), of the fused launch of two of them
+(``tick_rank_red_ecn``: the rank and the RED/ECN stage on it) and of
+``spritz_select``'s kernel without its buffer front
+(``weighted_sample``).  The fused launch and the samplers can draw the
+tick's uniforms themselves (``rng=``), as the engine's path does.
 
 Each wrapper checks its inputs, then either launches its kernel on the
 current CUDA stream (tensors on the card) or calls the kernel's plain
@@ -24,6 +27,7 @@ from repro_torch.kernels import ref as R
 
 LAUNCHES = dict.fromkeys(("flow_agg", "tick_rank", "red_ecn",
                           "tick_rank_red_ecn", "tick_draws", "spritz_select",
+                          "weighted_sample",
                           "flash_attention", "flash_attention_bwd",
                           "rwkv6_chunked", "rwkv6_chunked_bwd"), 0)
 # flash_attention launches by the path the kernel took (see flash_plan)
@@ -238,18 +242,31 @@ def red_ecn(eport, rank, enq, unif, q_tail, t, *, qsize: int,
     return occ, trim, mark, slot
 
 
-def tick_rank_red_ecn(port, enq, unif, q_tail, t, *, qsize: int,
-                      kmin: float, kmax: float, n_ports: int):
+def tick_rank_red_ecn(port, enq, unif=None, q_tail=None, t=None, *,
+                      rng=None, qsize: int, kmin: float, kmax: float,
+                      n_ports: int):
     """:func:`tick_rank` of ``port``, then :func:`red_ecn` on that rank
     (``eport`` = ``port``), in one launch that keeps only what the
-    engine reads.  port: [M] int32; enq: [M] bool; unif: [M] f32;
+    engine reads.  port: [M] int32; enq: [M] bool; exactly one of unif
+    ([M] f32) and rng (the carry's [2] int64 key: the launch draws
+    ``unif`` itself, as :func:`tick_draws` draws it at tick ``t``);
     q_tail: [n_ports] int32; t: an int or a 0-d int32 tensor on the
     inputs' device.  Returns (trim bool, mark bool, slot int32), each
     [M].  The launch takes :func:`tick_rank_plan`'s path."""
-    _check_candidates(n_ports, q_tail, port=port, enq=enq, unif=unif)
+    _one_of(unif=unif, rng=rng)
+    if q_tail is None or t is None:
+        raise ValueError("tick_rank_red_ecn needs q_tail and t")
+    if rng is None:
+        _check_candidates(n_ports, q_tail, port=port, enq=enq, unif=unif)
+    else:
+        _check_candidates(n_ports, q_tail, port=port, enq=enq)
+        _rng(rng)
     kw = dict(qsize=qsize, kmin=kmin, kmax=kmax, n_ports=n_ports)
     t = _tick(t, port.device)
-    if _on_cpu(port, enq, unif, q_tail):
+    if _on_cpu(port, enq, q_tail, unif if rng is None else rng):
+        if rng is not None:
+            unif = R.tick_draws_reference(rng, t, n_flows=0,
+                                          n_cand=port.shape[0])[1]
         rank = R.tick_rank_reference(port, n_ports=n_ports)
         return R.red_ecn_reference(port, rank, enq, unif, q_tail, t,
                                    **kw)[1:]
@@ -259,12 +276,35 @@ def tick_rank_red_ecn(port, enq, unif, q_tail, t, *, qsize: int,
     path, segs, _ = tick_rank_plan(M, n_ports)
     if path == "none":
         return trim, mark, slot
+    # drawing in place, the launch hands the tick's k_mark from warp 0 to
+    # the others through these 8 bytes
+    scratch = None if rng is None else torch.empty(
+        2, dtype=torch.int32, device=port.device)
     _launch("tick_rank_red_ecn", port.data_ptr(), enq.data_ptr(),
-            unif.data_ptr(), q_tail.data_ptr(), t.data_ptr(), int(qsize),
-            f32(kmin), red_recip(kmin, kmax), n_ports, M, segs,
-            trim.data_ptr(), mark.data_ptr(), slot.data_ptr())
+            _ptr(unif), _ptr(rng), _ptr(scratch), q_tail.data_ptr(),
+            t.data_ptr(), int(qsize), f32(kmin), red_recip(kmin, kmax),
+            n_ports, M, segs, trim.data_ptr(), mark.data_ptr(),
+            slot.data_ptr())
     TICK_RANK_PATHS[path] += 1
     return trim, mark, slot
+
+
+def _one_of(**given) -> None:
+    """Exactly one of the two keyword inputs is given (not None)."""
+    if sum(v is not None for v in given.values()) != 1:
+        raise ValueError(f"give exactly one of {' and '.join(given)}")
+
+
+def _ptr(t):
+    """A tensor's device address, or None (a null pointer) for None."""
+    return None if t is None else t.data_ptr()
+
+
+def _rng(rng) -> None:
+    """The carry's key: [2] int64 (uint32 words)."""
+    if tuple(rng.shape) != (2,):
+        raise ValueError(f"rng must be [2], got {tuple(rng.shape)}")
+    _dtype(rng, torch.int64, "rng")
 
 
 def tick_draws(rng, t, *, n_flows: int, n_cand: int):
@@ -274,9 +314,7 @@ def tick_draws(rng, t, *, n_flows: int, n_cand: int):
     (n_cand,))``, as ``jax.random`` draws them.  rng: [2] int64 (the
     carry's uint32 key words); t: an int or a 0-d int32 tensor on rng's
     device.  Returns (u_path [n_flows, 1] f32, unif [n_cand] f32)."""
-    if tuple(rng.shape) != (2,):
-        raise ValueError(f"rng must be [2], got {tuple(rng.shape)}")
-    _dtype(rng, torch.int64, "rng")
+    _rng(rng)
     if n_flows < 0 or n_cand < 0:
         raise ValueError(f"need n_flows, n_cand >= 0, got {n_flows}, "
                          f"{n_cand}")
@@ -293,36 +331,76 @@ def tick_draws(rng, t, *, n_flows: int, n_cand: int):
     return u_path, unif
 
 
-def spritz_select(w, u, buf_front, packet_count, *, explore_threshold: int):
-    """w: [F, P] f32 effective weights (P <= 256); u: [F] f32 uniforms;
-    buf_front: [F] int32 (-1 empty); packet_count: [F] int32.  Returns
-    (ev int32, new_count int32, used_buffer bool), each [F]."""
+def _check_rows(w) -> tuple[int, int]:
+    """The samplers' weights: [F, P] f32 with 1 <= P <= 256."""
     if w.ndim != 2:
         raise ValueError(f"w must be 2-D [F, P], got shape {tuple(w.shape)}")
-    if not (u.ndim == buf_front.ndim == packet_count.ndim == 1):
-        raise ValueError("u/buf_front/packet_count must be 1-D")
-    F, P = w.shape
-    if not (u.shape[0] == buf_front.shape[0] == packet_count.shape[0] == F):
-        raise ValueError(
-            f"ragged inputs: w rows {F}, u {u.shape[0]}, buf_front "
-            f"{buf_front.shape[0]}, packet_count {packet_count.shape[0]}")
     _dtype(w, torch.float32, "w")
-    _dtype(u, torch.float32, "u")
-    _dtype(buf_front, torch.int32, "buf_front")
-    _dtype(packet_count, torch.int32, "packet_count")
+    F, P = w.shape
     if not 1 <= P <= 256:
         raise ValueError(f"P must be in [1, 256], got {P}")
-    if _on_cpu(w, u, buf_front, packet_count):
+    return F, P
+
+
+def spritz_select(w, u, buf_front, packet_count, *, explore_threshold: int,
+                  rng=None, t=None):
+    """w: [F, P] f32 effective weights (P <= 256); exactly one of u ([F]
+    f32 uniforms) and rng (the carry's [2] int64 key, with t the tick:
+    the launch draws u itself, the tick's ``u_path`` as
+    :func:`tick_draws` draws it); buf_front: [F] int32 (-1 empty);
+    packet_count: [F] int32.  Returns (ev int32, new_count int32,
+    used_buffer bool), each [F]."""
+    _one_of(u=u, rng=rng)
+    F, P = _check_rows(w)
+    rows = dict(buf_front=buf_front, packet_count=packet_count)
+    if u is not None:
+        rows = dict(u=u, **rows)
+    if any(r.ndim != 1 for r in rows.values()):
+        raise ValueError(f"{'/'.join(rows)} must be 1-D")
+    if any(r.shape[0] != F for r in rows.values()):
+        raise ValueError(f"ragged inputs: w rows {F}, " + ", ".join(
+            f"{k} {r.shape[0]}" for k, r in rows.items()))
+    if u is not None:
+        _dtype(u, torch.float32, "u")
+    _dtype(buf_front, torch.int32, "buf_front")
+    _dtype(packet_count, torch.int32, "packet_count")
+    if rng is not None:
+        if t is None:
+            raise ValueError("spritz_select with rng needs t")
+        _rng(rng)
+        t = _tick(t, w.device)
+    if _on_cpu(w, buf_front, packet_count, u if rng is None else rng):
+        if rng is not None:
+            u = R.tick_draws_reference(rng, t, n_flows=F, n_cand=0)[0][:, 0]
         return R.spritz_select_reference(
             w, u, buf_front, packet_count,
             explore_threshold=explore_threshold)
     ev, newcnt = torch.empty_like(buf_front), torch.empty_like(buf_front)
     used = torch.empty(F, dtype=torch.bool, device=w.device)
-    _launch("spritz_select", w.data_ptr(), u.data_ptr(),
+    _launch("spritz_select", w.data_ptr(), _ptr(u), _ptr(rng), _ptr(t),
             buf_front.data_ptr(), packet_count.data_ptr(), F, P,
             int(explore_threshold), ev.data_ptr(), newcnt.data_ptr(),
             used.data_ptr())
     return ev, newcnt, used
+
+
+def weighted_sample(w, rng, t):
+    """Each row's weighted index on the tick's path draw, int32 [F]:
+    ``weighted_sample_rows(u_path, w)`` with ``u_path`` as
+    :func:`tick_draws` draws it at tick ``t``, drawn in the launch (the
+    ``spritz_select`` kernel with every buffer front empty).  w: [F, P]
+    f32 (P <= 256); rng: the carry's [2] int64 key; t: an int or a 0-d
+    int32 tensor on w's device."""
+    F, P = _check_rows(w)
+    _rng(rng)
+    t = _tick(t, w.device)
+    if _on_cpu(w, rng):
+        return R.weighted_sample_reference(w, rng, t)
+    ev = torch.empty(F, dtype=torch.int32, device=w.device)
+    if F:
+        _launch("weighted_sample", w.data_ptr(), rng.data_ptr(),
+                t.data_ptr(), F, P, ev.data_ptr())
+    return ev
 
 
 def _float_code(name: str, *ts: torch.Tensor) -> int:

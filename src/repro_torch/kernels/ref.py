@@ -1,4 +1,5 @@
-"""Plain torch versions of the eight kernels.
+"""Plain torch versions of the eight kernels (and of ``weighted_sample``,
+``spritz_select``'s kernel without its buffer front).
 
 Each tick kernel's version mirrors its oracle in ``repro.kernels.ref``
 operation for operation, so it is bit-identical to the reference on any
@@ -25,15 +26,28 @@ def spritz_select_reference(w, u, buf_front, packet_count, *,
                             explore_threshold: int):
     """Spritz Algorithm 1's selection core: weighted sample from the
     row prefix sum, explore counter, buffer front."""
-    csum = xla_cumsum_f32(w.float())
-    total = csum[:, -1]
-    uu = u * total.clamp_min(_TINY)
-    sampled = (csum < uu[:, None]).sum(1).clamp_max(w.shape[1] - 1)
+    sampled = _sample(w, u)
     explore = packet_count >= explore_threshold
     use_buffer = ~explore & (buf_front >= 0)
     ev = torch.where(use_buffer, buf_front, sampled.to(torch.int32))
     new_count = torch.where(explore, 0, packet_count + 1)
     return ev, new_count.to(torch.int32), use_buffer
+
+
+def _sample(w, u):
+    """Each row's weighted index on its uniform ``u`` [F]: the count of
+    prefix sums below ``u`` times the row total, at most P - 1."""
+    csum = xla_cumsum_f32(w.float())
+    uu = u * csum[:, -1].clamp_min(_TINY)
+    return (csum < uu[:, None]).sum(1).clamp_max(w.shape[1] - 1)
+
+
+def weighted_sample_reference(w, rng, t):
+    """The tick's path draw ``u_path`` (:func:`tick_draws_reference`),
+    then each row's weighted sample on it, int32 [F]: the reference's
+    ``weighted_sample_rows`` on the tick's ``k_path``."""
+    u_path = tick_draws_reference(rng, t, n_flows=w.shape[0], n_cand=0)[0]
+    return _sample(w, u_path[:, 0]).to(torch.int32)
 
 
 def tick_draws_reference(rng, t, *, n_flows: int, n_cand: int):

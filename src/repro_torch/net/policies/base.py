@@ -21,6 +21,7 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from repro_torch import _parity as PAR
+from repro_torch.kernels import ops as KOPS
 
 
 class PolicyTables(NamedTuple):
@@ -34,15 +35,19 @@ class PolicyTables(NamedTuple):
 
 
 class SendCtx(NamedTuple):
-    """Per-tick dynamic inputs to ``choose_path``."""
+    """Per-tick dynamic inputs to ``choose_path``.  The tick's path draw
+    is ``u``, or, with the engine's kernels on, made inside the sampler's
+    launch from ``rng`` and ``t`` (``u`` is then None): use
+    :func:`sample_path`."""
 
-    u: torch.Tensor            # [F, 1] f32 the tick's one path draw,
+    u: torch.Tensor | None     # [F, 1] f32 the tick's one path draw,
     #                            uniform(fold_in(base, t) -> k_path, (F, 1))
     t: torch.Tensor            # current tick, 0-d int32 on the device
     active: torch.Tensor       # [F] bool — flows that emit a packet this tick
     occ: torch.Tensor          # [n_ports] i32 analytic queue occupancy
     weights: torch.Tensor      # [F, P] lane sampling weights for this scheme
     static_path: torch.Tensor  # [F] lane ECMP/minimal static choice
+    rng: torch.Tensor          # [2] int64 the carry's base key (uint32 words)
 
 
 class FeedbackCtx(NamedTuple):
@@ -111,6 +116,16 @@ def weighted_sample_rows(u: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     csum = PAR.xla_cumsum_f32(w)
     uu = u * csum[:, -1:].clamp_min(PAR.f32(1e-30))
     return (csum < uu).sum(-1).clamp_max(w.shape[-1] - 1).to(torch.int32)
+
+
+def sample_path(ctx: SendCtx, w: torch.Tensor) -> torch.Tensor:
+    """``weighted_sample_rows`` of the tick's path draw over ``w`` [F,
+    P]: one ``weighted_sample`` launch that draws ``u`` itself when the
+    engine's kernels are on (``ctx.u`` is None), else the torch form on
+    ``ctx.u``.  Bit-equal either way."""
+    if ctx.u is None:
+        return KOPS.weighted_sample(w, ctx.rng, ctx.t)
+    return weighted_sample_rows(ctx.u, w)
 
 
 def all_explored(ref: torch.Tensor) -> torch.Tensor:

@@ -44,7 +44,7 @@ def _init_state(weights: torch.Tensor, static_path: torch.Tensor
 def _choose_path(state: FlicrState, cfg: FlicrConfig,
                  tables: PB.PolicyTables, ctx: PB.SendCtx):
     del tables
-    fresh = PB.weighted_sample_rows(ctx.u, ctx.weights)
+    fresh = PB.sample_path(ctx, ctx.weights)
     move = state.marks >= cfg.move_marks
     cur = torch.where(move, fresh, state.cur)
     new_state = FlicrState(cur=cur, marks=torch.where(move, 0, state.marks))

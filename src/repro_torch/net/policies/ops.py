@@ -17,7 +17,7 @@ def _no_cfg(spec):
 
 def _choose_path(state, cfg, tables: PB.PolicyTables, ctx: PB.SendCtx):
     del state, cfg, tables
-    path = PB.weighted_sample_rows(ctx.u, ctx.weights)
+    path = PB.sample_path(ctx, ctx.weights)
     return path, PB.all_explored(path), None
 
 

@@ -47,7 +47,7 @@ def _init_state(weights: torch.Tensor, static_path: torch.Tensor
 def _choose_path(state: RepsState, cfg: RepsConfig,
                  tables: PB.PolicyTables, ctx: PB.SendCtx):
     del cfg, tables
-    fresh = PB.weighted_sample_rows(ctx.u, ctx.weights)
+    fresh = PB.sample_path(ctx, ctx.weights)
     front = state.cache[:, 0]
     have = front >= 0
     path = torch.where(have, front, fresh)

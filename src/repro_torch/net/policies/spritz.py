@@ -89,12 +89,14 @@ def _take(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------- send
-def send_logic(state: SpritzState, cfg: SpritzConfig, u: torch.Tensor,
-               t: torch.Tensor, active: torch.Tensor
+def send_logic(state: SpritzState, cfg: SpritzConfig, u: torch.Tensor | None,
+               t: torch.Tensor, active: torch.Tensor, rng=None
                ) -> tuple[SpritzState, torch.Tensor, torch.Tensor]:
     """Algorithm 1 for every flow at once; ``u`` is the tick's [F, 1]
-    path draw.  State only changes for ``active`` flows.  Returns
-    (new_state, ev_index[F], explored[F])."""
+    path draw, or None with ``cfg.use_kernels``: then the kernel draws
+    it from ``rng`` (the carry's key) at tick ``t``.  State only changes
+    for ``active`` flows.  Returns (new_state, ev_index[F],
+    explored[F])."""
     w_eff = effective_weights(state, t)
     explore = state.packet_count >= cfg.explore_threshold
     buf_front = state.buffer[:, 0]
@@ -108,10 +110,15 @@ def send_logic(state: SpritzState, cfg: SpritzConfig, u: torch.Tensor,
         # blocked front is passed as -1 (empty), which gives the
         # use_buffer = ~explore & nonempty & ~blocked rule exactly
         front_eff = torch.where(front_blocked, -1, buf_front)
+        draw = dict(rng=rng, t=t) if u is None else {}
         ev, _, use_buffer = KOPS.spritz_select(
-            w_eff, u[:, 0], front_eff, state.packet_count,
-            explore_threshold=cfg.explore_threshold)
+            w_eff, None if u is None else u[:, 0], front_eff,
+            state.packet_count, explore_threshold=cfg.explore_threshold,
+            **draw)
     else:
+        if u is None:
+            raise ValueError("send_logic: the torch form needs the path "
+                             "draw u")
         sampled = PB.weighted_sample_rows(u, w_eff)
         use_buffer = ~explore & buf_nonempty & ~front_blocked
         ev = torch.where(use_buffer, buf_front, sampled)
@@ -267,7 +274,8 @@ def _init_state(weights: torch.Tensor, static_path: torch.Tensor
 
 def _choose_path(state: SpritzState, cfg: SpritzConfig,
                  tables: PB.PolicyTables, ctx: PB.SendCtx):
-    state, ev, explored = send_logic(state, cfg, ctx.u, ctx.t, ctx.active)
+    state, ev, explored = send_logic(state, cfg, ctx.u, ctx.t, ctx.active,
+                                     ctx.rng)
     return ev, explored, state
 
 

@@ -22,7 +22,7 @@ def _choose_static(state, cfg, tables: PB.PolicyTables, ctx: PB.SendCtx):
 
 def _choose_valiant(state, cfg, tables: PB.PolicyTables, ctx: PB.SendCtx):
     del state, cfg
-    path = PB.weighted_sample_rows(ctx.u, tables.valiant_w)
+    path = PB.sample_path(ctx, tables.valiant_w)
     return path, PB.all_explored(path), None
 
 

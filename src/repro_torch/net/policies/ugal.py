@@ -20,7 +20,7 @@ def _no_cfg(spec):
 
 def _choose_path(state, cfg, tables: PB.PolicyTables, ctx: PB.SendCtx):
     del state, cfg
-    cand = PB.weighted_sample_rows(ctx.u, tables.valiant_w)
+    cand = PB.sample_path(ctx, tables.valiant_w)
     fidx = torch.arange(tables.min_path.shape[0], device=cand.device)
     first_min = tables.path_ports[fidx, tables.min_path, 0]
     first_val = tables.path_ports[fidx, cand, 0]

@@ -409,9 +409,16 @@ def build_tick(spec: SimSpec, device=None):
             t = torch.tensor(int(t), dtype=_I32, device=dev)
         # the tick's two draws (the policies' path draw and the RED draw)
         # from positional per-tick keys, so skipping a tick leaves the
-        # stream intact: one launch under use_kernels, else tensor threefry
-        draws = KOPS.tick_draws if use_kernels else KREF.tick_draws_reference
-        u_path, unif = draws(c.rng, t, n_flows=F, n_cand=M)
+        # stream intact.  Under use_kernels the launches that read them
+        # draw them in place from c.rng and t (the samplers, the fused
+        # phase-E launch), so u_path stays None; only a capacity plan's
+        # torch RED math needs unif drawn here.  Else tensor threefry.
+        u_path = unif = None
+        if not use_kernels:
+            u_path, unif = KREF.tick_draws_reference(c.rng, t, n_flows=F,
+                                                     n_cand=M)
+        elif HAS_RATE:
+            unif = KOPS.tick_draws(c.rng, t, n_flows=0, n_cand=M)[1]
 
         # ------------- A0. failure timeline events (DESIGN.md §10) ----------
         (port_up, port_ivl, last_svc, fail_idx, q_tail0, pstate0,
@@ -520,7 +527,8 @@ def build_tick(spec: SimSpec, device=None):
 
         # path choice through the scheme's registered policy
         send_ctx = PB.SendCtx(u=u_path, t=t, active=have_slot, occ=occ,
-                              weights=weights, static_path=static_path)
+                              weights=weights, static_path=static_path,
+                              rng=c.rng)
         path_sel, explored, sub2 = pol.choose_path(
             policy.get(pol.family) if pol.family else None, cfg, tables,
             send_ctx)
@@ -579,10 +587,12 @@ def build_tick(spec: SimSpec, device=None):
         # RED/ECN marking and trim on it
         ivl_e = None
         if use_kernels and not HAS_RATE:
-            # one launch: rank, RED/ECN, trim and slot (full rate only)
+            # one launch: rank, RED draw, RED/ECN, trim and slot (full
+            # rate only)
             trim, mark, slot = KOPS.tick_rank_red_ecn(
-                cport, valid, unif, q_tail0, t, qsize=spec.qsize,
-                kmin=spec.kmin, kmax=spec.kmax, n_ports=NP_)
+                cport, valid, q_tail=q_tail0, t=t, rng=c.rng,
+                qsize=spec.qsize, kmin=spec.kmin, kmax=spec.kmax,
+                n_ports=NP_)
         else:
             rank = (KOPS.tick_rank(cport, n_ports=NP_) if use_kernels
                     else enqueue_rank(cport))

@@ -7,11 +7,13 @@ launches (``flow_agg`` two: its zero fill and the kernel) instead of the
 plain version's ops it runs here.  The step is the engine's gated step
 (``engine._Loop._step``); on a checkout whose engine has no ``_Loop``
 (before the device-side loop), the old driver's step: the horizon, the
-stop flag read back with it, and one tick.  The spec is spritz_spray_w on
-the DF(4,2,2) permutation, or on the 1,056-endpoint Dragonfly with
-``--df1056``; the count is taken at step 21.
+stop flag read back with it, and one tick.  The spec is ``--scheme``
+(spritz_spray_w by default) on the DF(4,2,2) permutation, or on the
+1,056-endpoint Dragonfly with ``--df1056``; the count is taken at step
+21.  A wrapper a checkout does not have is not counted.
 
-    PYTHONPATH=src python tools/count_step_launches.py [--df1056]
+    PYTHONPATH=src python tools/count_step_launches.py [--df1056] \
+        [--scheme ugal_l]
 
 A CPU count, not a device measurement: some ops launch nothing on the
 card (a CPU scalar) and the card's profiler counts memcpys too.
@@ -37,7 +39,8 @@ NO_LAUNCH = {"select", "slice", "view", "expand", "alias", "_reshape_alias",
              "split_with_sizes", "_unsafe_view", "lift_fresh", "new_empty",
              "empty_strided", "reshape", "narrow"}
 WRAPPER_LAUNCHES = {"flow_agg": 2, "tick_rank": 1, "tick_rank_red_ecn": 1,
-                    "spritz_select": 1, "tick_draws": 1}
+                    "spritz_select": 1, "tick_draws": 1,
+                    "weighted_sample": 1}
 
 
 class Count(TorchDispatchMode):
@@ -74,11 +77,12 @@ def count_wrappers(counter: Count) -> None:
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--df1056", action="store_true")
+    ap.add_argument("--scheme", default="spritz_spray_w")
     args = ap.parse_args()
     torch.set_num_threads(1)
     topo = make_dragonfly(8, 4, 4) if args.df1056 else make_dragonfly(4, 2, 2)
     spec = TB.build_spec(topo, permutation(topo, size_pkts=32, seed=1),
-                         "spritz_spray_w", n_ticks=1 << 14)
+                         args.scheme, n_ticks=1 << 14)
     counter = Count()
     count_wrappers(counter)
     cpu = torch.device("cpu")
@@ -105,7 +109,7 @@ def main() -> None:
             h, _ = torch.stack([hor(carry, t), done.to(torch.int32)]).tolist()
             tick(carry, h)
         what = "step (horizon, stop flag, tick)"
-    print(f"{what}: {counter.n} launches")
+    print(f"{args.scheme} {what}: {counter.n} launches")
     print("by op:", sorted(counter.ops.items(), key=lambda kv: -kv[1]))
 
 
