@@ -234,7 +234,41 @@ Phases (any failure exits non-zero before the final line):
    the plans give; RWKV-6's forward twice and its backward once a
    layer); one line a family with the losses, warm ms/step, tokens/s,
    model FLOP/s against 989 TFLOP/s, peak memory and the card;
-10. the script's wall time, a JSON line of kernel numbers, then the final
+10a. TP head alignment, one card: Phi-3-medium-14B's 40 / 10 heads
+   padded for tp 16 (``models/tp_align.py``: 64 / 16, 24 dead query
+   heads); at 2 layers in f32 the padded model's prefill logits and 8
+   decode steps equal the exact model's from the same seed within phase
+   7's tolerance; then whole in bf16 through phase 8's serving path, its
+   decode ms/step, prefill tokens/s, peak memory and attention paths
+   beside phase 8's exact model's;
+10b. expert parallelism over NCCL, with two or more cards visible (on one
+   it prints a line saying it did not run): 4 ranks with four cards,
+   else 2, spawned by ``torch.multiprocessing``, one a card; a rank that
+   fails, or a spawn past ``EP_TIMEOUT_S``, fails the phase.  Checks
+   (``EP_PLAN``): DeepSeek-MoE-16B's MoE layer (64 experts, d 2,048, f
+   1,408, top 6) in f32 on the all-to-all path, dropless equal to the
+   one-card layer within 1e-5 and at the config's capacity factor (tokens
+   dropped) to the plain per-rank oracle (``moe.ep_oracle``) within 1e-5
+   of the output's largest entry, aux within 1e-6; the f-split path at
+   Mixtral's d and f with 3 x W / 2 experts, both checks within 1e-5 of
+   the largest entry (f32 GEMMs over other row sets or f slices round
+   apart by a few ulp of it); Mixtral-8x7B at 4 of 32 layers in bf16 on the
+   mesh against one card from the same seed: in the dropless prefill
+   each MoE layer against the one-card layer on the same input (both
+   combining in f32, as the reference's EP does), and 8 decode steps'
+   logits, within 5e-2 (the prefill's logits are printed, not held:
+   ulp-level differences flip routing choices downstream); Mixtral-8x7B
+   whole (32 layers) served 8 requests through the ``Server`` on the
+   mesh, every rank the same
+   tokens: prefill tokens/s, decode ms/step, peak memory a card, the
+   flash_attention launches of each rank (``--profile``: the NCCL
+   kernels' device time in a prefill and a decode step, from each
+   rank's torch.profiler trace).  Rank 0 shares card 0 with this
+   process, which frees its cached memory first; each rank's
+   flash_attention launches join the kernel line's.  ``rehearse_ep``
+   (never called here) runs the same ranks over gloo on the CPU at the
+   reduced configs;
+11. the script's wall time, a JSON line of kernel numbers, then the final
    JSON line.
 
 ``--profile`` adds ``torch.profiler`` breakdowns of one warm engine
@@ -257,6 +291,7 @@ from __future__ import annotations
 import copy
 import ctypes
 import dataclasses
+import functools
 import gc
 import inspect
 import json
@@ -2063,27 +2098,32 @@ def prefill_vs_decode(C, LM, torch, np) -> None:
 
 
 def serve_path(arch, C, Server, step, ops, torch, np, card,
-               profile=False) -> dict:
+               profile=False, make_server=None, report=None) -> dict:
     """Phase 8: one published config in bf16 on the card (its depth cut
-    only where ``SERVE_LAYERS`` says): prefill 4 x 1,024 tokens (after
-    4 x Np patch embeddings for the VLM), then 8 requests through a
-    4-slot Server.  Launches are counted from just before the prefill to
-    just after the last request.  ``profile`` then traces one prefill and
-    8 decode steps."""
+    only where ``SERVE_LAYERS`` says; ``make_server``, when given, builds
+    the Server instead, phase 10a's padded model): prefill 4 x 1,024
+    tokens (after 4 x Np patch embeddings for the VLM), then 8 requests
+    through a 4-slot Server.  Launches are counted from just before the
+    prefill to just after the last request.  ``profile`` then traces one
+    prefill and 8 decode steps.  ``report``, when given, receives the
+    decode ms/step, prefill tokens/s, peak GB and attention paths."""
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     cut = SERVE_LAYERS.get(arch)
-    srv = Server(arch, device="cuda", slots=4, max_len=1024, reduced=False,
-                 seed=0, n_layers=cut)
+    srv = (make_server() if make_server is not None else
+           Server(arch, device="cuda", slots=4, max_len=1024,
+                  reduced=False, seed=0, n_layers=cut))
     torch.cuda.synchronize()
     cfg = srv.cfg
+    label = arch if cfg.head_maps is None else \
+        f"{arch} (heads padded to {cfg.n_heads} / {cfg.n_kv})"
     n_params = sum(p.numel() for p in srv.model.parameters())
     depth = (f"{cfg.n_layers} of its {C.get_config(arch).n_layers} layers "
              f"(depth cut, widths published)" if cut else
              f"{cfg.n_layers} layers (whole)")
-    print(f"serve {arch}: {depth}, d_model {cfg.d_model}, "
+    print(f"serve {label}: {depth}, d_model {cfg.d_model}, "
           f"{n_params} parameters ({cfg.param_count():.4g} by "
           f"ModelCfg.param_count), {cfg.dtype}, initialised on the card in "
           f"{time.perf_counter() - t0:.1f} s; memory "
@@ -2158,7 +2198,7 @@ def serve_path(arch, C, Server, step, ops, torch, np, card,
     peak = torch.cuda.max_memory_allocated()
     prefix = (f" after 4 x {cfg.n_patches} patch embeddings"
               if cfg.n_patches else "")
-    print(f"serve {arch}: prefill 4 x 1024 tokens{prefix} in "
+    print(f"serve {label}: prefill 4 x 1024 tokens{prefix} in "
           f"{walls[0]:.3f} s cold, {walls[1]:.3f} s warm = "
           f"{4096 / walls[1]:.1f} tokens/s ({positions / walls[1]:.1f} "
           f"positions/s); decode {stats['steps']} steps, "
@@ -2167,22 +2207,26 @@ def serve_path(arch, C, Server, step, ops, torch, np, card,
           f"tokens/s; peak memory {peak / 1e9:.2f} GB; launches {counts}; "
           f"attention paths prefill {prefill_paths} decode {decode_paths}"
           f"{drops}; card {card}", flush=True)
+    if report is not None:
+        report.update(ms_per_step=stats["ms_per_step"], peak_gb=peak / 1e9,
+                      prefill_tokens_s=4096 / walls[1],
+                      prefill_paths=prefill_paths, decode_paths=decode_paths)
     if arch == "mixtral_8x7b":
         long_prefill(srv, prefill, cfg, ops, torch, np, card)
     if profile:
-        profile_block(f"{arch} prefill 4 x 1024", lambda: prefill(batch),
+        profile_block(f"{label} prefill 4 x 1024", lambda: prefill(batch),
                       walls[1], torch, host_top=6)
 
         def decode8():
             for _ in range(8):
                 lg, srv.cache = srv.step(srv.cache, {"tokens": srv.tokens})
                 lg[:, -1, :cfg.vocab].argmax(-1).cpu()
-        profile_block(f"{arch} decode x 8", decode8,
+        profile_block(f"{label} decode x 8", decode8,
                       8 * stats["ms_per_step"] / 1e3, torch, host_top=6)
         syncs = [host_syncs(lambda: prefill(batch), torch),
                  host_syncs(lambda: srv.step(
                      srv.cache, {"tokens": srv.tokens}), torch)]
-        print(f"profile {arch}: host syncs in one prefill {syncs[0]}; in "
+        print(f"profile {label}: host syncs in one prefill {syncs[0]}; in "
               f"one decode step {syncs[1]}", flush=True)
     del srv, logits, prefill, inner, batch
     gc.collect()
@@ -2677,6 +2721,587 @@ def long_prefill(srv, prefill, cfg, ops, torch, np, card) -> None:
     del logits
 
 
+# Phase 10a: TP head alignment at Phi-3-medium-14B's published widths
+# (40 / 10 heads padded for tp 16 to 64 / 16, 24 dead query heads)
+ALIGN_ARCH, ALIGN_TP = "phi3_medium_14b", 16
+
+
+def padded_server(C, LM, TA, Server, step, torch):
+    """Phase 8's 4-slot ``Server`` holding ``ALIGN_ARCH`` whole with its
+    heads padded for ``ALIGN_TP``: the Server is built at one layer, then
+    its model, cache and serve step are replaced by the padded ``LM``
+    drawn from the same seed on the card (``tp_align`` expands the exact
+    model's draws)."""
+    srv = Server(ALIGN_ARCH, device="cuda", slots=4, max_len=1024,
+                 reduced=False, seed=0, n_layers=1)
+    del srv.model, srv.cache, srv.step
+    gc.collect()
+    torch.cuda.empty_cache()
+    srv.cfg = TA.aligned(C.get_config(ALIGN_ARCH), ALIGN_TP)
+    srv.model = LM(srv.cfg, device="cuda",
+                   generator=torch.Generator(device="cuda").manual_seed(0))
+    srv.cache = srv.model.init_cache(srv.slots, srv.max_len)
+    srv.step = step.make_serve_step(srv.model)
+    return srv
+
+
+def tp_align_path(C, LM, TA, Server, step, ops, torch, np, card,
+                  exact: dict | None, profile=False) -> dict:
+    """Phase 10a, one card: the padded Phi-3 at 2 layers in f32 against
+    the exact one from the same seed (prefill logits and 8 decode steps
+    within phase 7's ``FULL_WIDTH_TOL``), then whole in bf16 through
+    phase 8's serving path, its numbers beside phase 8's exact model's
+    (``exact``; None when phase 8 did not run).  Returns the launches of
+    the padded model's serving path."""
+    base = dataclasses.replace(C.get_config(ALIGN_ARCH), n_layers=2,
+                               dtype=torch.float32)
+    pad = TA.aligned(base, ALIGN_TP)
+    dead = sum(s < 0 for s in pad.head_maps[0])
+    if (pad.n_heads, pad.n_kv, dead) != (64, 16, 24):
+        fail(f"tp_align: {ALIGN_ARCH} at tp {ALIGN_TP} gave {pad.n_heads} / "
+             f"{pad.n_kv} heads, {dead} dead; want 64 / 16, 24")
+    models = [LM(c, device="cuda",
+                 generator=torch.Generator(device="cuda").manual_seed(0))
+              for c in (base, pad)]
+    B, S, steps = 2, 64, 8
+    toks = torch.as_tensor(np.random.default_rng(3).integers(
+        0, base.vocab, (B, S)), device="cuda")
+    with torch.no_grad():
+        full = [m(toks) for m in models]
+        caches = [m.init_cache(B, steps) for m in models]
+        e_dec = 0.0
+        for i in range(steps):
+            lg = [m.decode_step(toks[:, i:i + 1], c)[0]
+                  for m, c in zip(models, caches)]
+            e_dec = max(e_dec, float((lg[1] - lg[0]).abs().max()))
+    e_pre = float((full[1] - full[0]).abs().max())
+    if not (e_pre <= FULL_WIDTH_TOL and e_dec <= FULL_WIDTH_TOL):
+        fail(f"tp_align: padded {ALIGN_ARCH} differs from the exact model: "
+             f"prefill {e_pre:.3g}, decode {e_dec:.3g}")
+    print(f"tp_align {ALIGN_ARCH} 2 layers f32: {base.n_heads} / "
+          f"{base.n_kv} heads padded for tp {ALIGN_TP} to {pad.n_heads} / "
+          f"{pad.n_kv} ({dead} dead query heads); prefill [{B}, {S}] max "
+          f"logit error {e_pre:.3g}, {steps} decode steps {e_dec:.3g} "
+          f"against the exact model from the same seed (tol "
+          f"{FULL_WIDTH_TOL}; max |logit| {float(full[0].abs().max()):.3g})",
+          flush=True)
+    del models, full, caches, lg
+    gc.collect()
+    torch.cuda.empty_cache()
+    stats = {}
+    counts = serve_path(ALIGN_ARCH, C, Server, step, ops, torch, np, card,
+                        profile, report=stats, make_server=lambda:
+                        padded_server(C, LM, TA, Server, step, torch))
+    if exact:
+        print(f"tp_align {ALIGN_ARCH} whole bf16, padded against exact "
+              f"(phase 8, same call): decode {stats['ms_per_step']:.2f} "
+              f"against {exact['ms_per_step']:.2f} ms/step, prefill "
+              f"{stats['prefill_tokens_s']:.1f} against "
+              f"{exact['prefill_tokens_s']:.1f} tokens/s, peak memory "
+              f"{stats['peak_gb']:.2f} against {exact['peak_gb']:.2f} GB; "
+              f"attention at {ALIGN_TP * 4} / {ALIGN_TP} heads: prefill "
+              f"{stats['prefill_paths']}, decode {stats['decode_paths']}; "
+              f"card {card}", flush=True)
+    return counts
+
+
+# Phase 10b: expert parallelism over NCCL, one rank a card, on up to four
+# cards.  Each check's sizes, at the published widths; every rank holds
+# one mesh and compares it with the one-card module it builds on its own
+# card.
+EP_PLAN = {
+    # 1. the all-to-all path: DeepSeek-MoE-16B's layer (64 experts, d
+    # 2,048, f 1,408, top 6, 2 shared), f32; ``skew`` adds a direction
+    # every token shares, so that the config's capacity drops tokens
+    "a2a": {"arch": "deepseek_moe_16b", "B": 2, "S": 256, "skew": 1.0},
+    # 2. the f-split path at Mixtral's d 4,096 and f 14,336, with an
+    # expert count the ranks do not divide (6 over 4, 3 over 2), f32
+    "fshard": {"arch": "mixtral_8x7b", "B": 2, "S": 128, "skew": 1.0},
+    # 3. Mixtral-8x7B at 4 of its 32 layers, bf16, on the mesh against
+    # one card: the dropless prefill's logits and 8 decode steps
+    "cut": {"arch": "mixtral_8x7b", "layers": 4, "B": 4, "S": 1024,
+            "decode": 8},
+    # 4. Mixtral-8x7B whole through phase 8's serving path
+    "serve": {"arch": "mixtral_8x7b", "slots": 4, "max_len": 1024,
+              "prompt": 1024, "requests": 8, "gen": 64},
+}
+EP_TOL_F32, EP_TOL_BF16 = 1e-5, 5e-2
+EP_TIMEOUT_S = 600
+
+
+def with_capacity(model, factor: float) -> None:
+    """Every MoE layer of ``model`` at capacity factor ``factor``."""
+    for m in moe_layers(model):
+        m.me = dataclasses.replace(m.me, capacity_factor=factor)
+
+
+def combine_in_f32(model, on: bool) -> None:
+    """Every MoE layer of the one-card ``model`` combines its expert rows
+    in f32, as the EP paths do (the reference's ``_apply_moe_ep*``), or,
+    ``on`` false, casts its gates to the rows' dtype, as the dense path
+    does.  In bf16 the two differ by an ulp in some outputs, and over
+    layers that flips routing choices, so the mesh's prefill is held
+    against the one-card model with its own rule."""
+    for m in moe_layers(model):
+        if on:
+            m._dense = functools.partial(type(m)._dense, m, f32=True)
+        else:
+            m.__dict__.pop("_dense", None)
+
+
+def ep_layer(cfg, p, mesh, dev, M, torch, say, sync) -> dict:
+    """Checks 1 and 2: one MoE layer on the mesh against the same seed's
+    one-card layer, dropless, and at the config's capacity factor against
+    the plain per-rank oracle (``moe.ep_oracle`` on one card: output and
+    aux): within ``EP_TOL_F32`` of the output's largest entry, and with
+    whole experts dropless also absolutely."""
+    me, W = cfg.moe, mesh.shape["model"]
+    out = {"split": None}
+    for label, cf in (("dropless", float(me.n_experts)),
+                      ("own", me.capacity_factor)):
+        c = dataclasses.replace(cfg, moe=dataclasses.replace(
+            me, capacity_factor=cf))
+        g = [torch.Generator(device=dev).manual_seed(s) for s in (0, 0, 1)]
+        part = M.MoE(c, device=dev, generator=g[0], mesh=mesh)
+        one = M.MoE(c, device=dev, generator=g[1])
+        x = torch.randn((p["B"], p["S"], c.d_model), generator=g[2],
+                        device=dev)
+        x += p["skew"] * torch.randn(c.d_model, generator=g[2], device=dev)
+        y, aux = part(x, with_aux=True)
+        if label == "dropless":
+            want, _ = one(x)
+        else:
+            want, want_aux = M.ep_oracle(one, x, 1, W)
+            if me.n_shared:
+                want = want + one.shared(x)
+            out["aux_err"] = abs(float(aux) - float(want_aux))
+        err = float((y - want).abs().max())
+        scale = float(want.abs().max())
+        xt = M.rank_tokens(x, mesh)
+        cap = M.capacity(cf, me.top_k, xt.shape[0], me.n_experts)
+        keep = M.local_dispatch(xt, M.route(xt, part.router), me.top_k,
+                                cap, me.n_experts)[2]
+        drops = torch.tensor([int((~keep).sum())], device=dev)
+        torch.distributed.all_reduce(drops)
+        times = []
+        for fn in (lambda: part(x), lambda: one(x)):
+            fn()
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                fn()
+            sync()
+            times.append((time.perf_counter() - t0) / 3 * 1e3)
+        out[label] = {"err": err, "scale": scale, "drops": int(drops),
+                      "cap": cap, "mesh_ms": times[0], "one_ms": times[1]}
+        out["split"], out["rows"] = part.split, list(part.w_gate.shape)
+        # f32 GEMMs over other row sets (the oracle's blocks, the f
+        # slices' partial sums) round apart by a few ulp of the largest
+        # entry; dropless with whole experts each expert's GEMM has the
+        # one card's rows, so the absolute bound holds there too
+        exact = label == "dropless" and part.split == "experts"
+        if err > EP_TOL_F32 * scale or (exact and err > EP_TOL_F32):
+            raise RuntimeError(
+                f"EP layer {cfg.name} {label} ({part.split}): max error "
+                f"{err:.6g} from the one-card "
+                f"{'layer' if label == 'dropless' else 'oracle'}, largest "
+                f"entry {scale:.6g} (tol {EP_TOL_F32} of it"
+                f"{', and absolute' if exact else ''})")
+        del part, one, x, y, want
+    if out["own"]["drops"] == 0:
+        raise RuntimeError(f"EP layer {cfg.name}: the config's capacity "
+                           f"dropped nothing; the check needs drops")
+    if out["aux_err"] > 1e-6:
+        raise RuntimeError(f"EP layer {cfg.name}: aux {out['aux_err']:.3g} "
+                           f"from the oracle's")
+    say(f"EP layer {cfg.name} ({cfg.moe.n_experts} experts, d "
+        f"{cfg.d_model}, f {cfg.moe.d_ff_expert}, top {cfg.moe.top_k}) f32 "
+        f"[{p['B']}, {p['S']}] on {W} ranks, experts split by "
+        f"{out['split']} (rank block {out['rows']}): dropless max error "
+        f"{out['dropless']['err']:.3g} against the one-card layer (largest "
+        f"entry {out['dropless']['scale']:.3g}); capacity factor "
+        f"{cfg.moe.capacity_factor} (cap {out['own']['cap']} a rank) "
+        f"{out['own']['drops']} (token, expert) slots dropped over the "
+        f"ranks, max error {out['own']['err']:.3g} (largest entry "
+        f"{out['own']['scale']:.3g}) and aux error "
+        f"{out['aux_err']:.3g} against the per-rank oracle; a layer "
+        f"{out['own']['mesh_ms']:.3f} ms on the mesh, "
+        f"{out['own']['one_ms']:.3f} ms on one card")
+    return out
+
+
+def ep_cut(p, get, mesh, dev, LM, torch, np, say) -> dict:
+    """Check 3: the config at ``p["layers"]`` layers on the mesh against
+    the same seed's one-card model on this rank's card.  Prefill
+    (dropless): each MoE layer of the mesh against the one-card layer
+    fed the mesh layer's own input (combining in f32 as the EP paths do,
+    :func:`combine_in_f32`), within ``EP_TOL_BF16``.  The whole model's
+    logits are printed beside it but not held: the router's f32 GEMM
+    over 1/W of the rows rounds a few gates apart, the f32 combine keeps
+    that as a bf16 ulp in a few outputs, and with random routers such an
+    ulp flips near-tied top-2 choices in the layers after it, so the
+    logits move by O(1).  Decode, at the config's capacity factor (every
+    rank the global dispatch): logits within ``EP_TOL_BF16``."""
+    cfg = dataclasses.replace(get(p["arch"]), n_layers=p["layers"])
+    world = mesh.shape["model"]
+    models = [LM(cfg, mesh=mesh,
+                 generator=torch.Generator(device=dev).manual_seed(0)),
+              LM(cfg, device=dev,
+                 generator=torch.Generator(device=dev).manual_seed(0))]
+    toks = torch.as_tensor(np.random.default_rng(5).integers(
+        0, cfg.vocab, (p["B"], p["S"])), device=dev)
+    for model in models:
+        with_capacity(model, float(cfg.moe.n_experts))
+    combine_in_f32(models[1], True)
+    seen = []
+    hooks = [m.register_forward_hook(
+        lambda mod, inp, out: seen.append((inp[0], out[0])))
+        for m in moe_layers(models[0])]
+    full = [model(toks) for model in models]
+    for h in hooks:
+        h.remove()
+    e_layer = max(float((y - one(x)[0]).float().abs().max())
+                  for (x, y), one in zip(seen, moe_layers(models[1])))
+    combine_in_f32(models[1], False)
+    e_pre = float((full[0].float() - full[1].float()).abs().max())
+    scale = float(full[1].float().abs().max())
+    del full, seen
+    caches = []
+    for model in models:
+        with_capacity(model, cfg.moe.capacity_factor)
+        caches.append(model.init_cache(p["B"], p["decode"]))
+    e_dec = 0.0
+    for i in range(p["decode"]):
+        lg = [model.decode_step(toks[:, i:i + 1], c)[0]
+              for model, c in zip(models, caches)]
+        e_dec = max(e_dec, float((lg[0].float() - lg[1].float())
+                                 .abs().max()))
+    if not (e_layer <= EP_TOL_BF16 and e_dec <= EP_TOL_BF16):
+        raise RuntimeError(f"{cfg.name} at {p['layers']} layers on the mesh "
+                           f"against one card: an MoE layer on the same "
+                           f"input {e_layer:.3g}, decode {e_dec:.3g}")
+    say(f"{cfg.name} {p['layers']} of {get(p['arch']).n_layers} layers "
+        f"{cfg.dtype} on {world} ranks against one card, same seed: "
+        f"dropless prefill [{p['B']}, {p['S']}], each MoE layer against "
+        f"the one-card layer on its input, max error {e_layer:.3g} (the "
+        f"whole model's logits {e_pre:.3g} apart, largest {scale:.3g}, not "
+        f"held); {p['decode']} decode steps at capacity "
+        f"factor {cfg.moe.capacity_factor} {e_dec:.3g} (tol {EP_TOL_BF16})")
+    return {"prefill_err": e_pre, "layer_err": e_layer,
+            "decode_err": e_dec, "scale": scale}
+
+
+def ep_rank(rank, world, init, out_dir, profile, plan, backend="nccl"):
+    """One rank of phase 10b (spawned; rank 0 prints).  Its results go to
+    ``out_dir/rank<r>.json``; any failure raises, so the rank exits
+    non-zero."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch import configs as C
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import Server
+    from repro_torch.models import moe as M
+    from repro_torch.models.lm import LM
+    from repro_torch.train import step as STEP
+
+    on_card = backend == "nccl"
+    kw = {}
+    if on_card:
+        torch.cuda.set_device(rank)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        kw["device_id"] = torch.device("cuda", rank)
+    dist.init_process_group(backend, init_method=init, world_size=world,
+                            rank=rank, **kw)
+    mesh = make_mesh((1, world), ("data", "model"), backend=backend)
+    dev = mesh.device
+    get = C.get_reduced if plan.get("reduced") else C.get_config
+
+    def say(msg):
+        if rank == 0:
+            print(f"phase 10b: {msg}", flush=True)
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def peak_gb():
+        return torch.cuda.max_memory_allocated() / 1e9 if on_card else 0.0
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+    res = {}
+    with torch.no_grad():
+        # 1-2. one layer, each EP path
+        p = plan["a2a"]
+        cfg = dataclasses.replace(get(p["arch"]), dtype=torch.float32)
+        res["a2a"] = ep_layer(cfg, p, mesh, dev, M, torch, say, sync)
+        p = plan["fshard"]
+        cfg = get(p["arch"])
+        cfg = dataclasses.replace(cfg, dtype=torch.float32,
+                                  moe=dataclasses.replace(
+                                      cfg.moe, n_experts=3 * world // 2))
+        res["fshard"] = ep_layer(cfg, p, mesh, dev, M, torch, say, sync)
+        if (res["a2a"]["split"], res["fshard"]["split"]) != ("experts", "f"):
+            raise RuntimeError(f"EP paths taken: {res['a2a']['split']}, "
+                               f"{res['fshard']['split']}")
+        # 3. Mixtral at cut depth on the mesh against one card
+        res["cut"] = ep_cut(plan["cut"], get, mesh, dev, LM, torch, np, say)
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        # 4. the whole model served over the mesh
+        p = plan["serve"]
+        t0 = time.perf_counter()
+        srv = Server(p["arch"], slots=p["slots"], max_len=p["max_len"],
+                     reduced=bool(plan.get("reduced")), seed=0, mesh=mesh)
+        sync()
+        cfg = srv.cfg
+        n_local = sum(t.numel() for t in srv.model.parameters())
+        init_s, init_gb = time.perf_counter() - t0, peak_gb()
+        rng = np.random.default_rng(0)
+        batch = {"tokens": torch.as_tensor(rng.integers(
+            0, cfg.vocab, (p["slots"], p["prompt"])), device=dev)}
+        prefill = STEP.make_prefill_step(srv.model, p["max_len"])
+        sync()
+        ops.reset_launches()
+        walls = []
+        for _ in range(2):          # cold, then warm
+            t0 = time.perf_counter()
+            logits = prefill(batch)
+            sync()
+            walls.append(time.perf_counter() - t0)
+        if not bool(torch.isfinite(logits).all()):
+            raise RuntimeError("whole-model prefill logits not finite")
+        want = {}
+        for rid in range(p["requests"]):
+            prompt = rng.integers(0, cfg.vocab, size=rng.integers(4, 12))
+            srv.submit(rid, prompt, p["gen"])
+            want[rid] = p["gen"] + len(prompt)
+        stats = srv.run()
+        sync()
+        counts = dict(ops.LAUNCHES)
+        done = {r: len(t) for r, t in srv.done.items()}
+        if done != want:
+            raise RuntimeError(f"requests not all answered: {done}")
+        n_tok = sum(done.values())
+        res["serve"] = {
+            "arch": cfg.name, "layers": cfg.n_layers, "world": world,
+            "params_local": n_local, "init_s": init_s, "init_gb": init_gb,
+            "prefill_s": walls, "prefill_tokens_s":
+                p["slots"] * p["prompt"] / walls[1],
+            "steps": stats["steps"], "ms_per_step": stats["ms_per_step"],
+            "tokens_s": n_tok / stats["wall_s"], "peak_gb": peak_gb(),
+            "launches": counts, "flash_paths": dict(ops.FLASH_PATHS),
+            "tokens": {str(r): t for r, t in srv.done.items()}}
+        if profile and on_card:
+            res["serve"]["collective_us"] = ep_collectives(
+                prefill, batch, srv, torch)
+        say(f"{cfg.name} whole ({cfg.n_layers} layers, {n_local} "
+            f"parameters on this rank) served on {world} cards: prefill "
+            f"{p['slots']} x {p['prompt']} in {walls[0]:.3f} s cold, "
+            f"{walls[1]:.3f} s warm = {res['serve']['prefill_tokens_s']:.1f} "
+            f"tokens/s; decode {stats['steps']} steps, "
+            f"{stats['ms_per_step']:.2f} ms/step, "
+            f"{res['serve']['tokens_s']:.1f} tokens/s; peak memory "
+            f"{res['serve']['peak_gb']:.2f} GB on rank 0 (initialised in "
+            f"{init_s:.1f} s, {init_gb:.2f} GB); launches {counts}")
+        del srv, logits, prefill
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def ep_collectives(prefill, batch, srv, torch) -> dict:
+    """The collectives of ``srv``'s model on its mesh, in us: (1) each
+    collective of a layer alone at the step's shapes, through the MoE
+    module's own helpers, every rank lined up by a barrier, 20
+    back-to-back calls timed with CUDA events, and
+    its count a step; then (2) the NCCL kernels' device time in one warm
+    prefill and in 8 decode steps (a step's share), from torch.profiler
+    on this rank: an NCCL kernel runs from its launch until every rank
+    has joined, so this includes the waits on the other ranks."""
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import moe as M
+    mesh, cfg = srv.model.mesh, srv.cfg
+    moe = next(b.moe for b in srv.model.blocks if hasattr(b, "moe"))
+    me, d, W = cfg.moe, cfg.d_model, mesh.shape["model"]
+    group, layers = mesh.groups["model"], len(srv.model.blocks)
+    B, S = batch["tokens"].shape
+    cap_l = M.capacity(me.capacity_factor, me.top_k, B * S // W,
+                       me.n_experts)
+    cap_d = M.capacity(me.capacity_factor, me.top_k, srv.slots,
+                       me.n_experts)
+
+    def empty(*shape):
+        return torch.zeros(shape, dtype=cfg.dtype, device=mesh.device)
+    buf, blk = empty(me.n_experts, cap_l, d), empty(B, S // W, d)
+    if moe.split != "experts":
+        raise RuntimeError(f"collective timings: experts split by "
+                           f"{moe.split}; the served model splits them whole")
+    dec = empty(moe.w_gate.shape[0], cap_d, d)
+    calls = [("prefill all_to_all [E, cap, d]", 2,
+              lambda: M._all_to_all(buf, group)),
+             ("prefill all_gather of the output block", 1,
+              lambda: M._all_gather(blk, dist.group.WORLD)),
+             ("decode all_gather [E/W, cap, d]", 1,
+              lambda: M._all_gather(dec, group))]
+    out = {"alone": {}}
+    for name, per_layer, fn in calls:
+        fn()
+        torch.cuda.synchronize()
+        dist.barrier()
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(20):
+            fn()
+        b.record()
+        b.synchronize()
+        us = a.elapsed_time(b) / 20 * 1e3
+        out["alone"][name] = {"us": us, "a_step": per_layer * layers}
+
+    def decode8():
+        for _ in range(8):
+            lg, srv.cache = srv.step(srv.cache, {"tokens": srv.tokens})
+            lg[:, -1, :srv.cfg.vocab].argmax(-1).cpu()
+    for label, fn, n in (("prefill", lambda: prefill(batch), 1),
+                         ("decode", decode8, 8)):
+        if srv.cache["len"] + 8 >= srv.max_len:
+            srv.cache = srv.model.init_cache(srv.slots, srv.max_len)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kern = [e for e in prof.key_averages()
+                if getattr(e, "device_type", None) == DeviceType.CUDA]
+        nccl = [e for e in kern if "nccl" in e.key.lower()]
+        out[label] = {
+            "nccl_us_a_step": sum(e.self_device_time_total
+                                  for e in nccl) / n,
+            "all_us_a_step": sum(e.self_device_time_total
+                                 for e in kern) / n,
+            "nccl_calls_a_step": sum(e.count for e in nccl) / n}
+    return out
+
+
+def ep_path(profile, card, torch, plan=EP_PLAN, backend="nccl",
+            world=None) -> dict | None:
+    """Phase 10b: spawn one rank a card (``ep_rank``) and wait for all of
+    them, within ``EP_TIMEOUT_S``; a rank that exits non-zero, or a
+    spawn past its time, fails the phase.  Every rank must give the same
+    tokens.  Returns rank 0's results, or None with fewer than two
+    cards."""
+    import socket
+    import tempfile
+    if world is None:
+        n = torch.cuda.device_count()
+        world = 4 if n >= 4 else 2 if n >= 2 else 0
+        if world == 0:
+            print(f"phase 10b (expert parallelism over NCCL) did not run: "
+                  f"{n} card{'s' if n != 1 else ''} visible, and NCCL needs "
+                  f"one card a rank, so two or more", flush=True)
+            return None
+        gc.collect()
+        torch.cuda.empty_cache()
+    held = (f"; this process holds {torch.cuda.memory_reserved(0) / 1e9:.2f}"
+            f" GB reserved on card 0 beside rank 0" if backend == "nccl"
+            else "")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    ctx = torch.multiprocessing.get_context("spawn")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out_dir:
+        procs = [ctx.Process(target=ep_rank, args=(
+            r, world, f"tcp://localhost:{port}", out_dir, profile, plan,
+            backend)) for r in range(world)]
+        for p in procs:
+            p.start()
+        try:
+            deadline = time.monotonic() + EP_TIMEOUT_S
+            while any(p.is_alive() for p in procs):
+                bad = [r for r, p in enumerate(procs)
+                       if p.exitcode not in (None, 0)]
+                if bad:
+                    fail(f"phase 10b: rank {bad[0]} exited with "
+                         f"{procs[bad[0]].exitcode}")
+                if time.monotonic() > deadline:
+                    fail(f"phase 10b: ranks still running after "
+                         f"{EP_TIMEOUT_S} s")
+                time.sleep(0.5)
+            bad = [r for r, p in enumerate(procs) if p.exitcode != 0]
+            if bad:
+                fail(f"phase 10b: rank {bad[0]} exited with "
+                     f"{procs[bad[0]].exitcode}")
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                p.join()
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    wall = time.perf_counter() - t0
+    toks = [r["serve"]["tokens"] for r in ranks]
+    if any(t != toks[0] for t in toks):
+        fail("phase 10b: the ranks served different tokens")
+    flash = [r["serve"]["launches"].get("flash_attention", 0)
+             for r in ranks]
+    if backend == "nccl" and min(flash) == 0:
+        fail(f"phase 10b: flash_attention launches by rank {flash}")
+    s0 = ranks[0]["serve"]
+    print(f"phase 10b: {world} ranks over {backend}, {wall:.1f} s wall; "
+          f"{s0['arch']} whole on {world} cards, every rank the same "
+          f"{sum(len(t) for t in toks[0].values())} tokens; peak memory by "
+          f"rank {[round(r['serve']['peak_gb'], 2) for r in ranks]} GB; "
+          f"flash_attention launches by rank {flash}{held}; card {card}",
+          flush=True)
+    for r, res in enumerate(ranks):
+        if "collective_us" in res["serve"]:
+            c = res["serve"]["collective_us"]
+            print(f"phase 10b profile rank {r}: NCCL kernels' device time, "
+                  f"waits on the other ranks included: "
+                  f"{c['prefill']['nccl_us_a_step']:.1f} us of "
+                  f"{c['prefill']['all_us_a_step']:.1f} us in a prefill "
+                  f"({c['prefill']['nccl_calls_a_step']:.0f} NCCL kernels), "
+                  f"{c['decode']['nccl_us_a_step']:.1f} us of "
+                  f"{c['decode']['all_us_a_step']:.1f} us a decode step "
+                  f"({c['decode']['nccl_calls_a_step']:.0f} NCCL kernels); "
+                  f"alone (CUDA events, ranks lined up): "
+                  + "; ".join(f"{k} {v['us']:.1f} us x {v['a_step']} = "
+                              f"{v['us'] * v['a_step'] / 1e3:.3f} ms a step"
+                              for k, v in c["alone"].items()), flush=True)
+    return ranks[0]
+
+
+
+def rehearse_ep(world: int = 4) -> dict:
+    """Phase 10b's ranks over gloo on the CPU, at the reduced configs and
+    small shapes: the check of its orchestration before a call to
+    several cards (``python3 -c "import chip_smoke;
+    chip_smoke.rehearse_ep()"`` from the repo root, ``src`` on the
+    path).  Not part of the smoke run."""
+    import torch
+    plan = {"reduced": True,
+            "a2a": {**EP_PLAN["a2a"], "B": 2, "S": 16},
+            "fshard": {**EP_PLAN["fshard"], "B": 2, "S": 16},
+            "cut": {**EP_PLAN["cut"], "layers": 2, "B": 2, "S": 16,
+                    "decode": 3},
+            "serve": {**EP_PLAN["serve"], "max_len": 64, "prompt": 16,
+                      "requests": 4, "gen": 4}}
+    return ep_path(False, "cpu", torch, plan=plan, backend="gloo",
+                   world=world)
+
 def main() -> None:
     t_start = time.perf_counter()
     profile = "--profile" in sys.argv[1:]
@@ -2692,6 +3317,7 @@ def main() -> None:
         from repro_torch.launch.serve import Server
         from repro_torch.train import optim as OPT
         from repro_torch.models.lm import LM
+        from repro_torch.models import tp_align as TA
         from repro_torch.train import step as STEP
         from repro_torch.kernels import _build, ops
         from repro_torch.kernels import ref as KREF
@@ -2947,12 +3573,16 @@ def main() -> None:
     # 7. prefill against decode, full width
     prefill_vs_decode(C, LM, torch, np)
     # 8. serving path, full published configs
-    serve_launches = {}
+    serve_launches, serve_stats = {}, {}
     for arch, kernel in SERVE_ARCHS.items():
-        serve = (serve_encdec if C.get_config(arch).family == "encdec"
-                 else serve_path)
-        serve_launches[arch] = serve(arch, C, Server, STEP, ops, torch, np,
-                                     card, profile)[kernel]
+        if C.get_config(arch).family == "encdec":
+            counts = serve_encdec(arch, C, Server, STEP, ops, torch, np,
+                                  card, profile)
+        else:
+            counts = serve_path(arch, C, Server, STEP, ops, torch, np, card,
+                                profile,
+                                report=serve_stats.setdefault(arch, {}))
+        serve_launches[arch] = counts[kernel]
         launches[kernel] += serve_launches[arch]
     # the training phases come after serving's, so that what a backward
     # leaves behind (autograd's device thread keeps a cuBLAS workspace of
@@ -2976,8 +3606,18 @@ def main() -> None:
     for fam in families.values():
         for k, n in fam["counts"].items():
             launches[k] += n
+    # 10a. TP head alignment, one card; 10b. expert parallelism over NCCL,
+    # two cards or more
+    aligned_launches = tp_align_path(C, LM, TA, Server, STEP, ops, torch,
+                                     np, card, serve_stats.get(ALIGN_ARCH),
+                                     profile)["flash_attention"]
+    launches["flash_attention"] += aligned_launches
+    ep = ep_path(profile, card, torch)
+    if ep is not None:
+        launches["flash_attention"] += ep["serve"]["launches"][
+            "flash_attention"]
 
-    # 10. result lines
+    # 11. result lines
     rows = []
     for name, (src, replaces) in KERNELS.items():
         v = nums[name]
@@ -3047,6 +3687,13 @@ def main() -> None:
         if SERVE_ARCHS[a] == "flash_attention"}
     flash["launches_by_path"][f"train {TRAIN_ARCH}"] = \
         trained["counts"]["flash_attention"]
+    flash["launches_by_path"][f"{ALIGN_ARCH} heads padded for tp "
+                              f"{ALIGN_TP}"] = aligned_launches
+    if ep is not None:
+        s0 = ep["serve"]
+        flash["launches_by_path"][
+            f"{s0['arch']} whole on {s0['world']} cards, rank 0"] = \
+            s0["launches"]["flash_attention"]
     bwd = next(r for r in rows if r["name"] == "flash_attention_bwd")
     for key in ("device_ms", "library_device_ms", "rel_err", "path"):
         bwd[key] = nums["flash bwd minicpm train bf16"][key]

@@ -22,8 +22,11 @@ from repro_torch.train.step import make_serve_step
 
 class Server:
     """Slot-based continuous batching over a fixed decode batch.  Runs on
-    the card unless ``device`` names another; weights are drawn from a
-    ``torch.Generator`` seeded with ``seed`` on that device.  ``n_layers``
+    the card unless ``device`` names another (on a ``mesh``, the mesh's
+    device); weights are drawn from a ``torch.Generator`` seeded with
+    ``seed`` on that device, and on a ``mesh`` each rank keeps only its
+    MoE expert rows (``models.lm.LM``): every rank runs the same requests
+    and gives the same tokens.  ``n_layers``
     cuts the config's depth (its widths stay), for a model whose every
     layer does not fit the card.  The enc-dec family is refused: the
     reference's ``Server`` passes no frames, so its encoder has no
@@ -31,8 +34,9 @@ class Server:
 
     def __init__(self, arch: str, *, device=None, slots: int = 4,
                  max_len: int = 96, reduced: bool = True, seed: int = 0,
-                 n_layers: int | None = None):
-        dev = resolve_device(device)
+                 n_layers: int | None = None, mesh=None):
+        dev = resolve_device(device if device is not None or mesh is None
+                             else mesh.device)
         self.device = dev
         self.cfg = C.get_reduced(arch) if reduced else C.get_config(arch)
         if self.cfg.family == "encdec":
@@ -44,7 +48,7 @@ class Server:
         if n_layers is not None:
             self.cfg = dataclasses.replace(self.cfg, n_layers=n_layers)
         gen = torch.Generator(device=dev).manual_seed(seed)
-        self.model = LM(self.cfg, device=dev, generator=gen)
+        self.model = LM(self.cfg, device=dev, generator=gen, mesh=mesh)
         self.slots = slots
         self.max_len = max_len
         self.cache = self.model.init_cache(slots, max_len)

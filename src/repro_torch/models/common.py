@@ -4,8 +4,9 @@ The port of ``repro.models.common``.  Parameters live in ``nn.Module``s
 with the reference's names and layouts (``x @ w``, ``w`` stored
 [in, out]), so a reference parameter tree maps onto them one to one
 (``repro_torch.models.convert``).  Layers are modules, not a stacked
-scan.  The reference's sharding hints are no-ops without a mesh and are
-left out: multi-card serving is a later slice.
+scan.  The reference's sharding hints (``shard_hint``) are left out: the
+port splits only the MoE experts over a mesh (``models/moe.py``), and
+every other layer runs whole on every rank.
 """
 from __future__ import annotations
 
@@ -17,8 +18,7 @@ import torch
 from torch import nn
 
 from repro_torch.kernels import ops
-
-UNPORTED = 'not ported yet (ROADMAP.md queue 1, "The rest of the model zoo")'
+from repro_torch.models import tp_align
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,7 +55,10 @@ class ModelCfg:
     n_patches: int = 0
     norm_eps: float = 1e-5
     dtype: Any = torch.bfloat16
-    # TP head alignment (reference models/tp_align.py); not ported
+    # TP head alignment (models/tp_align.py): when set, n_heads / n_kv are
+    # the PADDED counts and head_maps = (q_src, kv_src, orig_heads,
+    # orig_kv) records how padded weights derive from the exact config's
+    # init
     head_maps: Any = None
 
     @property
@@ -151,20 +154,40 @@ class Attention(nn.Module):
 
     def __init__(self, cfg: ModelCfg, *, device, generator=None):
         super().__init__()
-        if cfg.head_maps is not None:
-            raise NotImplementedError(f"tp_align head padding: {UNPORTED}")
         self.cfg = cfg
+        if cfg.head_maps is None:
+            p = self._draw(cfg, device, generator)
+        else:
+            # padded heads (models/tp_align.py): the exact config's weights
+            # from the same stream, expanded (dead slots zero), as the
+            # reference's init_attn does
+            q_src, kv_src, oh, okv = cfg.head_maps
+            base = dataclasses.replace(cfg, n_heads=oh, n_kv=okv,
+                                       head_maps=None)
+            p = tp_align.expand_attn_params(
+                {k: v.data for k, v in
+                 self._draw(base, device, generator).items()},
+                q_src, kv_src, cfg.d_head)
+            p = {k: nn.Parameter(v, requires_grad=False)
+                 for k, v in p.items()}
+        for k, v in p.items():
+            setattr(self, k, v)
+
+    @staticmethod
+    def _draw(cfg: ModelCfg, device, generator) -> dict:
+        """``cfg``'s weights in the reference's order: wq, wk, wv, wo,
+        then the zero biases."""
         d, dq, dkv = cfg.d_model, cfg.d_qkv, cfg.n_kv * cfg.d_head
         s = float(1.0 / np.sqrt(d))
         kw = dict(dtype=cfg.dtype, device=device, generator=generator)
-        self.wq = param((d, dq), scale=s, **kw)
-        self.wk = param((d, dkv), scale=s, **kw)
-        self.wv = param((d, dkv), scale=s, **kw)
-        self.wo = param((dq, d), scale=s, **kw)
+        p = {"wq": param((d, dq), scale=s, **kw),
+             "wk": param((d, dkv), scale=s, **kw),
+             "wv": param((d, dkv), scale=s, **kw),
+             "wo": param((dq, d), scale=s, **kw)}
         if cfg.qkv_bias:
-            self.bq = param((dq,), fill=0.0, **kw)
-            self.bk = param((dkv,), fill=0.0, **kw)
-            self.bv = param((dkv,), fill=0.0, **kw)
+            for k, n in (("bq", dq), ("bk", dkv), ("bv", dkv)):
+                p[k] = param((n,), fill=0.0, **kw)
+        return p
 
     def forward(self, x, rope, positions, kv_cache=None, cache_len: int = 0,
                 causal: bool = True, xattn_kv=None):

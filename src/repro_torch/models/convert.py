@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.models.common import ModelCfg
 from repro_torch.models.lm import LM, scan_unit
+from repro_torch.models.moe import EXPERT_ROWS, MoE, local_rows
 from repro_torch.train.optim import AdamWState
 
 
@@ -67,9 +68,11 @@ def _port_names(cfg: ModelCfg, tree) -> dict:
     return flat
 
 
-def from_jax_params(cfg: ModelCfg, tree, *, device) -> LM:
-    """An ``LM`` holding the reference parameter tree ``tree``."""
-    model = LM(cfg, device=device)
+def from_jax_params(cfg: ModelCfg, tree, *, device=None, mesh=None) -> LM:
+    """An ``LM`` holding the reference parameter tree ``tree`` (a padded
+    config's tree, ``tp_align``, onto the padded model alike); on a
+    ``mesh``, each MoE expert weight's rank block only."""
+    model = LM(cfg, device=device, mesh=mesh)
     flat = _port_names(cfg, tree)
     own = dict(model.named_parameters())
     if own.keys() != flat.keys():
@@ -78,6 +81,10 @@ def from_jax_params(cfg: ModelCfg, tree, *, device) -> LM:
                          f"tree {sorted(flat.keys() - own.keys())}")
     for name, p in own.items():
         t = to_tensor(flat[name], device=p.device)
+        parent, _, leaf = name.rpartition(".")
+        if isinstance(model.get_submodule(parent), MoE) and \
+                leaf in EXPERT_ROWS and mesh is not None:
+            t = local_rows(cfg, leaf, t, mesh)
         if t.shape != p.shape or t.dtype != p.dtype:
             raise ValueError(f"{name}: tree has {tuple(t.shape)} {t.dtype}, "
                              f"the port {tuple(p.shape)} {p.dtype}")

@@ -6,6 +6,11 @@ Layers are a ``ModuleList`` (no stacked scan), layer ``i`` of kind
 ``block_kinds(cfg)[i % unit]``, so a depth that is not a whole number of
 the reference's scan units still builds (Jamba cut to 4 of its 8-layer
 unit).
+
+On a ``mesh`` (``repro_torch.launch.mesh``) every layer but the MoE's
+experts runs whole on every rank; the experts are split over 'model' and
+an MoE layer's output is gathered back whole (``models/moe.py``), so
+every rank carries the same activations and logits.
 """
 from __future__ import annotations
 
@@ -60,7 +65,8 @@ class Block(nn.Module):
     then an MLP or, with ``_moe``, an MoE; or RWKV time mix + channel mix
     (``rwkv``)."""
 
-    def __init__(self, cfg: ModelCfg, kind: str, *, device, generator=None):
+    def __init__(self, cfg: ModelCfg, kind: str, *, device, generator=None,
+                 mesh=None):
         super().__init__()
         self.cfg, self.kind = cfg, kind
         kw = dict(device=device, generator=generator)
@@ -81,7 +87,7 @@ class Block(nn.Module):
             self.ln3 = param((cfg.d_model,), torch.float32, device, None,
                              fill=1.0)
         if kind.endswith("_moe"):
-            self.moe = MoE(cfg, **kw)
+            self.moe = MoE(cfg, mesh=mesh, **kw)
         else:
             self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.dtype, **kw)
 
@@ -135,13 +141,20 @@ class LM(nn.Module):
     """Embedding, ``n_layers`` blocks, final norm and output head (and for
     the enc-dec family ``n_enc_layers`` encoder blocks and their norm),
     with the reference's parameter names and layouts.  Parameters are
-    drawn from ``generator`` on ``device`` (the card unless named)."""
+    drawn from ``generator`` on ``device`` (the mesh's device, else the
+    card, unless named), in the same order with or without a ``mesh``: on
+    one, each MoE layer keeps only this rank's expert rows, so a seed
+    gives the same model on one card or on several."""
 
-    def __init__(self, cfg: ModelCfg, *, device=None, generator=None):
+    def __init__(self, cfg: ModelCfg, *, device=None, generator=None,
+                 mesh=None):
         super().__init__()
         if cfg.family not in FAMILIES:
             raise ValueError(f"unknown family {cfg.family!r}")
+        if device is None and mesh is not None:
+            device = mesh.device
         dev = resolve_device(device)
+        self.mesh = mesh
         self.cfg = cfg
         d = cfg.d_model
         kw = dict(device=dev, generator=generator)
@@ -150,7 +163,7 @@ class LM(nn.Module):
         self.ln_f = param((d,), torch.float32, dev, None, fill=1.0)
         kinds = block_kinds(cfg)
         self.blocks = nn.ModuleList(
-            Block(cfg, kinds[i % len(kinds)], **kw)
+            Block(cfg, kinds[i % len(kinds)], mesh=mesh, **kw)
             for i in range(cfg.n_layers))
         self.enc_blocks = None
         if cfg.family == "encdec":

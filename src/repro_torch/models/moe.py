@@ -1,12 +1,33 @@
-"""Mixture-of-Experts feed-forward: the port of ``repro.models.moe``'s
-single-device path (capacity-based top-k dispatch, GShard style).
+"""Mixture-of-Experts feed-forward: the port of ``repro.models.moe``
+(capacity-based top-k dispatch, GShard style), on one device and over a
+mesh (``repro_torch.launch.mesh``).
 
 DeepSeekMoE's fine-grained experts (2 shared + 64 routed, top 6) and
 Mixtral's 8 experts (top 2).  Without a mesh the reference always takes
 ``_apply_moe_dense``: a sort-based dispatch into ``[E, cap, d]`` expert
-buffers, first come first kept in token order, overflow dropped.  The
-expert-parallel paths (``_apply_moe_ep``, ``_apply_moe_ep_fshard``) wait
-for multi-card serving (ROADMAP.md queue 1).
+buffers, first come first kept in token order, overflow dropped.
+
+On a mesh whose 'model' axis has ``tp > 1`` ranks, each rank keeps only
+its expert rows (whole experts over 'model' when ``E % tp == 0``, else an
+f slice of every expert: the rule ``launch.shardings`` writes for
+``moe/w_*``, and its tests hold the two equal) and ``apply_moe``'s
+path choice is ported with ``torch.distributed`` collectives in place of
+``shard_map`` (PORT.md, "Expert parallelism and the mesh"):
+
+- ``S % tp == 0`` (prefill): each rank dispatches its own tokens, the
+  block ``shard_map``'s ``P(dp, 'model', None)`` gives it, flattened in
+  (b, s) order, with ``cap`` from its own token count; then whole
+  experts all-to-all the ``[E, cap, d]`` buffers (``_apply_moe_ep``),
+  f slices all-gather them and sum the partial outputs back to their
+  senders in rank order (``_apply_moe_ep_fshard``); the output blocks are
+  all-gathered back to ``[B, S, d]`` on every rank and ``aux`` averaged
+  over the ranks; the combine runs in f32, as the reference's does there
+  (its gates are not cast), then casts to the model's dtype;
+- otherwise (decode) every rank makes the global dispatch of
+  ``_apply_moe_dense`` and computes its experts (all-gathered) or its f
+  slice (all-reduced), as GSPMD partitions the reference's dense path.
+
+The collectives have no backward here: the mesh paths refuse autograd.
 
 Exactness rules the dispatch keeps on every device:
 
@@ -21,10 +42,16 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models.common import MLP, ModelCfg, param
+
+EXPERT_ROWS = ("w_gate", "w_up", "w_down")
+NO_GRAD_ON_MESH = ('the MoE layer on a mesh has no backward yet (ROADMAP.md '
+                   'queue 1, "Hybrid training"): run it under '
+                   'torch.no_grad()')
 
 
 def capacity(capacity_factor: float, top_k: int, T: int,
@@ -89,50 +116,253 @@ def _aux(probs, counts, n_kept, n_exp: int):
     return n_exp * torch.sum(probs.mean(0) * ce)
 
 
+def _combine(ye, dst, keep, gate, k: int, f32: bool = False):
+    """Each token's kept expert rows of ``ye`` [E, cap, d], weighted by
+    its renormalised gates: [T, d].  The gates are cast to ``ye``'s dtype
+    (``_apply_moe_dense``), or with ``f32`` the sum runs in f32 (the EP
+    paths, whose f32 gates promote the product)."""
+    E, cap, d = ye.shape
+    flat = ye.reshape(E * cap, d)
+    ys = flat[torch.clamp(dst, max=E * cap - 1)] * \
+        keep[:, None].to(flat.dtype)
+    gk = (gate * keep).reshape(-1, k)
+    yk = ys.reshape(-1, k, d)
+    denom = torch.clamp(gk.sum(1, keepdim=True), min=1e-9)
+    if f32:
+        # elementwise, so each row's sum is the same bits whatever the
+        # token count (a GEMM may order its k products otherwise)
+        return (yk.float() * (gk / denom)[..., None]).sum(1)
+    return torch.einsum("tkd,tk->td", yk, (gk / denom).to(yk.dtype))
+
+
+def expert_split(cfg: ModelCfg, mesh) -> str | None:
+    """How the experts lie over ``mesh``'s 'model' axis: ``"experts"``
+    (whole experts, ``E % tp == 0``), ``"f"`` (an f slice of each) or
+    None (no mesh, or one rank on 'model')."""
+    if mesh is None or mesh.shape.get("model", 1) == 1:
+        return None
+    return "experts" if cfg.moe.n_experts % mesh.shape["model"] == 0 \
+        else "f"
+
+
+def expert_dim(cfg: ModelCfg, name: str, mesh) -> int | None:
+    """The dimension of expert weight ``name`` (``w_gate`` / ``w_up``
+    [E, d, f], ``w_down`` [E, f, d]) split over 'model': 0 (experts) or
+    the f dimension; None when nothing is split."""
+    split = expert_split(cfg, mesh)
+    if split is None:
+        return None
+    return 0 if split == "experts" else (1 if name == "w_down" else 2)
+
+
+def local_rows(cfg: ModelCfg, name: str, t, mesh):
+    """This rank's block of expert weight ``name``, whole tensor ``t``
+    (a view): its 'model' coordinate's slice of :func:`expert_dim`."""
+    dim = expert_dim(cfg, name, mesh)
+    if dim is None:
+        return t
+    n = mesh.shape["model"]
+    if t.shape[dim] % n:
+        raise ValueError(f"moe/{name} {tuple(t.shape)} does not split over "
+                         f"'model' of size {n}")
+    size = t.shape[dim] // n
+    return t.narrow(dim, mesh.coords["model"] * size, size)
+
+
+def rank_tokens(x, mesh):
+    """This rank's tokens of x [B, S, d] on the EP paths: the block
+    ``P(dp, 'model', None)`` gives it (batch over the data axes
+    row-major, sequence over 'model'), flattened in (b, s) order."""
+    B, S, d = x.shape
+    dp = tuple(a for a in ("pod", "data") if a in mesh.shape)
+    b = B // int(np.prod([mesh.shape[a] for a in dp]))
+    s = S // mesh.shape["model"]
+    return x[mesh.index(dp) * b:(mesh.index(dp) + 1) * b,
+             mesh.coords["model"] * s:(mesh.coords["model"] + 1) * s
+             ].reshape(-1, d)
+
+
+def _all_to_all(t, group):
+    """Block i of t's leading axis to rank i of ``group``; returns the
+    blocks received, in rank order, stacked the same way."""
+    t = t.contiguous()
+    out = torch.empty_like(t)
+    dist.all_to_all_single(out, t, group=group)
+    return out
+
+
+def _all_gather(t, group):
+    """[n, *t.shape]: every rank's ``t``, in rank order."""
+    n = dist.get_world_size(group)
+    out = t.new_empty((n * t.shape[0], *t.shape[1:]))
+    # one call into one buffer (torch 2.13 names it all_gather_single)
+    gather = getattr(dist, "all_gather_single",
+                     dist.all_gather_into_tensor)
+    gather(out, t.contiguous(), group=group)
+    return out.reshape(n, *t.shape)
+
+
+def _pmean(v, mesh):
+    """``v`` averaged over 'model', then over each data axis, as the
+    reference's ``pmean`` calls do."""
+    for a in ("model", "pod", "data"):
+        g = mesh.groups.get(a)
+        if g is not None:
+            dist.all_reduce(v, group=g)
+            v = v / mesh.shape[a]
+    return v
+
+
 class MoE(nn.Module):
     """Routed experts (and ``shared``, an MLP of ``n_shared`` experts'
     width, when ``n_shared > 0``) with the reference's names and layouts
     (``init_moe``): ``router`` [d, E] always f32, ``w_gate`` / ``w_up``
-    [E, d, f] and ``w_down`` [E, f, d] in ``cfg.dtype``."""
+    [E, d, f] and ``w_down`` [E, f, d] in ``cfg.dtype``.  On a ``mesh``
+    each expert weight is drawn whole, as on one device, and only this
+    rank's block is kept (:func:`local_rows`)."""
 
-    def __init__(self, cfg: ModelCfg, *, device, generator=None):
+    def __init__(self, cfg: ModelCfg, *, device, generator=None, mesh=None):
         super().__init__()
         me = self.me = cfg.moe
+        self.mesh = mesh
+        self.split = expert_split(cfg, mesh)
+        if self.split and mesh.axis_names[-1] != "model":
+            raise ValueError(f"mesh axes {mesh.axis_names}: want the data "
+                             f"axes, then 'model'")
         d, f = cfg.d_model, me.d_ff_expert
         s, s2 = float(1.0 / np.sqrt(d)), float(1.0 / np.sqrt(f))
         kw = dict(device=device, generator=generator)
         self.router = param((d, me.n_experts), torch.float32, scale=s, **kw)
-        self.w_gate = param((me.n_experts, d, f), cfg.dtype, scale=s, **kw)
-        self.w_up = param((me.n_experts, d, f), cfg.dtype, scale=s, **kw)
-        self.w_down = param((me.n_experts, f, d), cfg.dtype, scale=s2, **kw)
+        for name, shape, sc in (("w_gate", (me.n_experts, d, f), s),
+                                ("w_up", (me.n_experts, d, f), s),
+                                ("w_down", (me.n_experts, f, d), s2)):
+            w = param(shape, cfg.dtype, scale=sc, **kw)
+            if self.split:
+                w = nn.Parameter(local_rows(cfg, name, w.data, mesh).clone(),
+                                 requires_grad=False)
+            setattr(self, name, w)
         if me.n_shared:
             self.shared = MLP(d, f * me.n_shared, cfg.dtype, **kw)
 
     def forward(self, x, with_aux: bool = False):
-        """x: [B, S, d] -> (out [B, S, d], aux): ``apply_moe`` on its
-        dense path (reference ``_apply_moe_dense``).  ``aux``, the f32
-        load-balance loss, is computed only ``with_aux`` (else None)."""
+        """x: [B, S, d] -> (out [B, S, d], aux): ``apply_moe``.  ``aux``,
+        the f32 load-balance loss, is computed only ``with_aux`` (else
+        None)."""
         me = self.me
         B, S, d = x.shape
-        T, E = B * S, me.n_experts
-        xt = x.reshape(T, d)
+        if self.split is None:
+            out, aux = self._dense(x.reshape(B * S, d), with_aux)
+        else:
+            if torch.is_grad_enabled() and any(
+                    t.requires_grad for t in (x, self.router, self.w_gate)):
+                raise NotImplementedError(NO_GRAD_ON_MESH)
+            if S % self.mesh.shape["model"] == 0:
+                out, aux = self._ep(x, with_aux)
+            else:
+                out, aux = self._dense(x.reshape(B * S, d), with_aux)
+        out = out.reshape(B, S, d).to(x.dtype)
+        if me.n_shared:
+            out = out + self.shared(x)
+        return out, (aux if with_aux else None)
+
+    def _experts_of(self, buf):
+        return _experts(buf, self.w_gate, self.w_up, self.w_down)
+
+    def _dense(self, xt, with_aux: bool, f32: bool = False):
+        """The reference's ``_apply_moe_dense`` over every token ``xt``
+        [T, d]; on a mesh, as GSPMD partitions it (the decode path):
+        this rank's experts, all-gathered over 'model', or its f slice of
+        every expert, all-reduced.  ``f32`` combines in f32, as the EP
+        paths do (``ep_oracle``)."""
+        me = self.me
+        T, E = xt.shape[0], me.n_experts
         probs = route(xt, self.router)
         cap = capacity(me.capacity_factor, me.top_k, T, E)
         buf, dst, keep, gate, counts, _ = local_dispatch(
             xt, probs, me.top_k, cap, E)
-        ye = _experts(buf, self.w_gate, self.w_up, self.w_down)
-        flat = ye.reshape(E * cap, d)
-        ys = flat[torch.clamp(dst, max=E * cap - 1)] * \
-            keep[:, None].to(flat.dtype)
-        gk = (gate * keep).reshape(T, me.top_k)
-        yk = ys.reshape(T, me.top_k, d)
-        denom = torch.clamp(gk.sum(1, keepdim=True), min=1e-9)
-        out = torch.einsum("tkd,tk->td", yk, (gk / denom).to(yk.dtype))
-        out = out.reshape(B, S, d).to(x.dtype)
-        if me.n_shared:
-            out = out + self.shared(x)
+        if self.split == "experts":
+            n = self.w_gate.shape[0]
+            lo = self.mesh.coords["model"] * n
+            ye = _all_gather(self._experts_of(buf[lo:lo + n]),
+                             self.mesh.groups["model"]).reshape(E, cap, -1)
+        else:
+            ye = self._experts_of(buf)
+            if self.split == "f":
+                dist.all_reduce(ye, group=self.mesh.groups["model"])
+        out = _combine(ye, dst, keep, gate, me.top_k, f32)
         return out, (_aux(probs, counts, keep.sum(), E) if with_aux
                      else None)
+
+    def _ep(self, x, with_aux: bool):
+        """``_apply_moe_ep`` / ``_apply_moe_ep_fshard``: this rank's
+        tokens through its experts or f slice; the output blocks
+        all-gathered back to [B, S, d] (every rank the same) and ``aux``
+        averaged over the ranks."""
+        me, mesh = self.me, self.mesh
+        B, S, d = x.shape
+        E, tp, group = me.n_experts, mesh.shape["model"], \
+            mesh.groups["model"]
+        dp = [a for a in ("pod", "data") if a in mesh.shape]
+        n_dp = int(np.prod([mesh.shape[a] for a in dp]))
+        if B % n_dp:
+            raise ValueError(f"batch {B} does not split over the data "
+                             f"axes {dp} ({n_dp} ranks)")
+        xt = rank_tokens(x, mesh)
+        t = xt.shape[0]
+        probs = route(xt, self.router)
+        cap = capacity(me.capacity_factor, me.top_k, t, E)
+        buf, dst, keep, gate, counts, _ = local_dispatch(
+            xt, probs, me.top_k, cap, E)
+        if self.split == "experts":
+            # experts scatter over 'model', token chunks gather:
+            # recv[e, src * cap + c] = buf of rank src [own experts e, c]
+            n = E // tp
+            recv = _all_to_all(buf, group).reshape(tp, n, cap, d)
+            y = self._experts_of(recv.transpose(0, 1).reshape(n, tp * cap,
+                                                              d))
+            back = y.reshape(n, tp, cap, d).transpose(0, 1)
+            ye = _all_to_all(back, group).reshape(E, cap, d)
+        else:
+            # every expert on this rank's f slice of all ranks' buffers;
+            # the partial outputs go back to their senders, summed there
+            # in rank order
+            bufs = _all_gather(buf, group)               # [tp, E, cap, d]
+            y = self._experts_of(bufs.transpose(0, 1).reshape(E, tp * cap,
+                                                              d))
+            parts = _all_to_all(y.reshape(E, tp, cap, d).transpose(0, 1),
+                                group)
+            ye = parts[0].clone()
+            for i in range(1, tp):
+                ye += parts[i]
+        out = _combine(ye, dst, keep, gate, me.top_k, f32=True).to(x.dtype)
+        aux = (_pmean(_aux(probs, counts, keep.sum(), E), mesh)
+               if with_aux else None)
+        # every rank's block, in rank order: row-major over (dp, 'model')
+        blocks = _all_gather(out.reshape(B // n_dp, S // tp, d),
+                             dist.group.WORLD)
+        full = blocks.reshape(n_dp, tp, B // n_dp, S // tp, d)
+        return full.transpose(1, 2).reshape(B * S, d), aux
+
+
+def ep_oracle(moe: MoE, x, n_data: int, n_model: int):
+    """The plain per-rank semantics of the EP paths on one device: each
+    (data, model) block of x [B, S, d] (batch over ``n_data``, sequence
+    over ``n_model``) through the dense layer alone, ``cap`` from its own
+    tokens, combined in f32 as the EP paths combine; ``aux`` the blocks'
+    mean.  ``moe`` holds every expert whole (no mesh).  Shared experts
+    are not added."""
+    me = moe.me
+    B, S, d = x.shape
+    b, s = B // n_data, S // n_model
+    out = torch.empty(B, S, d, dtype=x.dtype, device=x.device)
+    aux = []
+    for i in range(n_data):
+        for j in range(n_model):
+            blk = x[i * b:(i + 1) * b, j * s:(j + 1) * s]
+            o, a = moe._dense(blk.reshape(-1, d), True, f32=True)
+            out[i * b:(i + 1) * b, j * s:(j + 1) * s] = o.reshape(b, s, d)
+            aux.append(a)
+    return out, torch.stack(aux).mean()
 
 
 def _topk_capacity(probs, k: int, cap: int):

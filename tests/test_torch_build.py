@@ -200,7 +200,8 @@ def test_port_imports_without_jax_or_reference():
               "exp.runner", "exp.__main__", "exp.flow", "exp.cross",
               "exp.report", "fabric", "fabric.flowsim", "fabric.bridge",
               "device", "core", "core.spritz", "train.optim",
-              "launch.train", "ckpt", "ckpt.manager", "data.pipeline"):
+              "launch.train", "ckpt", "ckpt.manager", "data.pipeline",
+              "launch.mesh", "launch.shardings", "models.tp_align"):
         assert f"repro_torch.{m}" in mods, m
 
 

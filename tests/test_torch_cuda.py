@@ -954,3 +954,106 @@ def test_train_step_on_card_equals_cpu(cuda, arch, microbatch):
         assert moved <= total / 1000
     assert ops.LAUNCHES["rwkv6_chunked_bwd" if cfg.family == "rwkv"
                         else "flash_attention_bwd"] > 0
+
+
+# ------------------------------------------- head alignment, EP over NCCL
+
+def test_tp_align_padded_model_on_card(cuda):
+    """Reduced Phi-3 padded for tp 16 equals the exact model from the same
+    seed on the card: the forward and 6 decode steps through the padded
+    cache, within 1e-4 (f32)."""
+    from repro_torch.models import tp_align
+    cfg = dataclasses.replace(C.get_reduced("phi3_medium_14b"),
+                              dtype=torch.float32)
+    pad = tp_align.aligned(cfg, 16)
+    assert pad.head_maps is not None and pad.n_kv % 16 == 0
+    exact, padded = (LM(c, device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(0))
+                     for c in (cfg, pad))
+    toks = torch.as_tensor(RNG.integers(0, cfg.vocab, (2, 12)), device=cuda)
+    with torch.no_grad():
+        assert float((padded(toks) - exact(toks)).abs().max()) <= 1e-4
+        ce, cp = exact.init_cache(2, 6), padded.init_cache(2, 6)
+        for i in range(6):
+            a, ce = exact.decode_step(toks[:, i:i + 1], ce)
+            b, cp = padded.decode_step(toks[:, i:i + 1], cp)
+            assert float((a - b).abs().max()) <= 1e-4
+
+
+_EP_RANK = r"""
+import dataclasses, json, os, sys
+import torch
+import torch.distributed as dist
+from repro_torch import configs as C
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models import moe as M
+from repro_torch.models.lm import LM
+
+d, rank, world = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+torch.cuda.set_device(rank)
+torch.backends.cuda.matmul.allow_tf32 = False
+dist.init_process_group("nccl", init_method="file://" + os.path.join(
+    d, "rdv"), world_size=world, rank=rank,
+    device_id=torch.device("cuda", rank))
+mesh = make_mesh((1, world), ("data", "model"), backend="nccl")
+dev = mesh.device
+out = {}
+with torch.no_grad():
+    base = dataclasses.replace(C.get_reduced("mixtral_8x7b"),
+                               dtype=torch.float32)
+    for E in (2 * world, 3 * world // 2):
+        cfg = dataclasses.replace(base, moe=dataclasses.replace(
+            base.moe, n_experts=E, capacity_factor=float(E)))
+        g = [torch.Generator(device=dev).manual_seed(s) for s in (0, 0, 1)]
+        part = M.MoE(cfg, device=dev, generator=g[0], mesh=mesh)
+        one = M.MoE(cfg, device=dev, generator=g[1])
+        for S in (16, 1):               # an EP path, then the decode path
+            x = torch.randn((4, S, cfg.d_model), generator=g[2], device=dev)
+            out[f"{part.split} S{S}"] = float(
+                (part(x)[0] - one(x)[0]).abs().max())
+        models = [LM(cfg, mesh=mesh, generator=torch.Generator(
+            device=dev).manual_seed(2)), LM(cfg, device=dev,
+            generator=torch.Generator(device=dev).manual_seed(2))]
+        toks = torch.randint(0, cfg.vocab, (2, 8), generator=g[2],
+                             device=dev)
+        out[f"{part.split} lm"] = float(
+            (models[0](toks) - models[1](toks)).abs().max())
+json.dump(out, open(os.path.join(d, f"rank{rank}.json"), "w"))
+dist.barrier()
+dist.destroy_process_group()
+"""
+
+
+def test_moe_ep_over_nccl_equals_one_card(cuda, tmp_path):
+    """The MoE layer and a reduced Mixtral on a (1, W) mesh over NCCL (W
+    = 4 with four cards, else 2), each path (whole experts, f slices; the
+    EP prefill and the decode path), equal the same seed's one-card
+    module on each rank within 1e-5 (f32, dropless)."""
+    import json
+    import os
+    import subprocess
+    import sys
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more CUDA devices")
+    world = 4 if n >= 4 else 2
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    procs = [subprocess.Popen([sys.executable, "-c", _EP_RANK, str(tmp_path),
+                               str(r), str(world)], cwd=root, env=env,
+                              stderr=subprocess.PIPE, text=True)
+             for r in range(world)]
+    try:
+        errs = [p.communicate(timeout=300)[1] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for p, err in zip(procs, errs):
+        assert p.returncode == 0, err[-3000:]
+    for r in range(world):
+        got = json.loads((tmp_path / f"rank{r}.json").read_text())
+        assert len(got) == 6
+        for k, e in got.items():
+            assert e <= 1e-5, (r, k, e)

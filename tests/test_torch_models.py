@@ -332,13 +332,6 @@ def test_every_config_builds(arch):
     assert sum(p.numel() for p in model.parameters()) == want
 
 
-def test_tp_align_head_maps_raise():
-    cfg = dataclasses.replace(TC.get_reduced("phi3_medium_14b"),
-                              head_maps=((0,), (0,), 4, 2))
-    with pytest.raises(NotImplementedError, match="The rest of the model zoo"):
-        TLM.LM(cfg, device="cpu")
-
-
 @pytest.mark.parametrize("arch", JC.ARCHS)
 def test_config_registry_matches_reference(arch):
     assert TC.ARCHS == JC.ARCHS and TC.SHAPES == JC.SHAPES
