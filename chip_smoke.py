@@ -268,7 +268,17 @@ Phases (any failure exits non-zero before the final line):
    flash_attention launches join the kernel line's.  ``rehearse_ep``
    (never called here) runs the same ranks over gloo on the CPU at the
    reduced configs;
-11. the script's wall time, a JSON line of kernel numbers, then the final
+11. the dry run against the card: each step phases 8-10 measured
+   (phase 9's MiniCPM-2B train step, phase 8's seven served models,
+   phase 10a's padded Phi-3, phase 10b's whole Mixtral on each rank)
+   estimated on the ``meta`` device by ``repro_torch.launch.dryrun``
+   for the same config, shapes and dtype, no model run of its own: the
+   estimate's static bytes (parameters, AdamW's state, cache; a rank's
+   share on the mesh) must equal the summed ``nbytes`` of the live
+   tensors on the card to the byte; the estimate's static + temp
+   against ``torch.cuda.max_memory_allocated`` and the train step's
+   FLOPs against ``work.family_flops`` are printed, one line a step;
+12. the script's wall time, a JSON line of kernel numbers, then the final
    JSON line.
 
 ``--profile`` adds ``torch.profiler`` breakdowns of one warm engine
@@ -306,9 +316,15 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (data sheet)
-PEAK_FLOPS = {"bf16": 989e12,  # dense tensor-core rate (data sheet)
-              "f32": 67e12}    # f32 outside the tensor cores
+# the kernels' work formulas, the card's peak rates and the bound: one
+# copy in the package (the dry run credits kernels on ``meta`` with them)
+try:
+    from repro_torch.kernels.work import (
+        HBM_BYTES_PER_S, PEAK_FLOPS, attention_bwd_work, attention_work,
+        bound_ms, family_flops, rwkv_bwd_flops, rwkv_flops)
+except ImportError as e:
+    sys.exit(f"chip_smoke: FAIL: cannot import the port (run from a "
+             f"checkout): {e}")
 KERNELS = {  # name -> (source, TPU kernel it replaces)
     "flow_agg": ("src/repro_torch/kernels/csrc/flow_agg.cu",
                  "src/repro/kernels/flow_agg.py:69"),
@@ -1049,68 +1065,6 @@ def band_top(kw) -> int:
     return int(kw["kmax"]) + 1
 
 
-def attention_work(q, k, *, causal, window, q_offset):
-    """(FLOPs, bytes) that one attention call needs: 4 D flops per
-    unmasked (query, key) pair (scores and weighted sum), q and o once,
-    and the keys and values that some query may see."""
-    B, Sq, Hq, D = q.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
-    pairs, k_lo, k_hi = 0, Sk, -1
-    for i in range(Sq):
-        pos = q_offset + i
-        hi = min(Sk - 1, pos) if causal else Sk - 1
-        lo = max(0, pos - window + 1) if window else 0
-        if hi >= lo:
-            pairs += hi - lo + 1
-            k_lo, k_hi = min(k_lo, lo), max(k_hi, hi)
-    keys = max(k_hi - k_lo + 1, 0)
-    elem = q.element_size()
-    flops = 4 * B * Hq * D * pairs
-    nbytes_ = elem * (2 * B * Sq * Hq * D + 2 * B * keys * Hkv * D)
-    return flops, nbytes_
-
-
-def rwkv_flops(B, S, H, C):
-    """FLOPs of the chunked RWKV-6 time mix (head size 64): per chunk the
-    inter-chunk product, the strictly-lower scores and their weighted
-    sum, the bonus and the state update; each exp counted as one."""
-    hd, n = 64, B * H * (S // C)
-    low = C * (C - 1) // 2
-    per_chunk = (2 * C * hd * hd            # (r * A) @ S
-                 + 4 * low * hd             # scores: r*k*exp(.) and sum
-                 + 2 * low * hd             # scores @ v
-                 + 5 * C * hd               # bonus
-                 + 3 * C * hd + 2 * C * hd  # logw, rdec, kdec
-                 + 2 * C * hd * hd + 2 * hd * hd)   # state update
-    return n * per_chunk
-
-
-def rwkv_bwd_flops(B, S, H, C):
-    """FLOPs of the chunked RWKV-6 time mix's backward (head size 64): per
-    chunk dP and the scores (with their decays), dr's and dk's
-    inter-token sums, the products with the start state and its gradient
-    (dr's S dy, dk's dS v, dv's kdec dS, the gradient's update, S . dS),
-    dv's scores product, the decay scan and the per-position terms; each
-    exp counted as one."""
-    hd, n = 64, B * H * (S // C)
-    low = C * (C - 1) // 2
-    per_chunk = (2 * (low + C) * hd        # dP
-                 + 4 * low * hd + 3 * C * hd   # scores and the bonus
-                 + 2 * 4 * low * hd         # dr's and dk's inter-token sums
-                 + 4 * 2 * C * hd * hd      # S dy, dS v, kdec dS, the update
-                 + 3 * hd * hd              # S . dS, the update's scale
-                 + 2 * (low + C) * hd       # dv's scores product
-                 + 12 * C * hd)             # scan, decays, terms, dw, du
-    return n * per_chunk
-
-
-def bound_ms(flops, nbytes_, kind):
-    t_ops = flops / PEAK_FLOPS[kind] * 1e3
-    t_bytes = nbytes_ / HBM_BYTES_PER_S * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops > t_bytes
-                                 else "bytes")
-
-
 def check_model_kernels(ops, ref, torch, np, rwkv_smem,
                         dev="cuda") -> dict:
     """Phase 5: flash attention and chunked RWKV-6 against their plain
@@ -1508,10 +1462,7 @@ def check_attention_bwd(ops, ref, torch, np, ptxas: dict,
                 f"mean {float(a.mean()):.3g} (SDPA {float(c.mean()):.3g})"
                 for n, a, c in zip(("dq", "dk", "dv"), ek, es))
             del o32, want32, ek, es
-        fwd_flops, _ = attention_work(q, k, causal=causal, window=win,
-                                      q_offset=0)
-        flops = int(2.5 * fwd_flops)
-        nb = 4 * nbytes(q) + 4 * nbytes(k) + nbytes(lse)
+        flops, nb = attention_bwd_work(q, k, causal=causal, window=win)
         bms, by = bound_ms(flops, nb, "bf16" if dt == torch.bfloat16
                            else "f32")
         reps = 3 if sq * sk >= 500_000 else 20
@@ -2107,6 +2058,7 @@ def serve_path(arch, C, Server, step, ops, torch, np, card,
     prefill to just after the last request.  ``profile`` then traces one
     prefill and 8 decode steps.  ``report``, when given, receives the
     decode ms/step, prefill tokens/s, peak GB and attention paths."""
+    from repro_torch.launch.dryrun import placed_bytes
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2210,7 +2162,10 @@ def serve_path(arch, C, Server, step, ops, torch, np, card,
     if report is not None:
         report.update(ms_per_step=stats["ms_per_step"], peak_gb=peak / 1e9,
                       prefill_tokens_s=4096 / walls[1],
-                      prefill_paths=prefill_paths, decode_paths=decode_paths)
+                      prefill_paths=prefill_paths, decode_paths=decode_paths,
+                      cfg=cfg, peak_bytes=peak,
+                      static_bytes=placed_bytes(srv.model, cache=srv.cache)[
+                          "placed_bytes"])
     if arch == "mixtral_8x7b":
         long_prefill(srv, prefill, cfg, ops, torch, np, card)
     if profile:
@@ -2235,7 +2190,7 @@ def serve_path(arch, C, Server, step, ops, torch, np, card,
 
 
 def serve_encdec(arch, C, Server, step, ops, torch, np, card,
-                 profile=False) -> dict:
+                 profile=False, report=None) -> dict:
     """Phase 8 for the enc-dec family, which the ``Server`` refuses (the
     reference's passes no frames): the whole published config in bf16,
     4 x ``WHISPER_FRAMES`` seeded frame embeddings in place of the conv
@@ -2246,6 +2201,7 @@ def serve_encdec(arch, C, Server, step, ops, torch, np, card,
     the encoder again (as the reference's does): its attention on the
     wgmma path, the decoder's self- and cross-attention on the split
     path."""
+    from repro_torch.launch.dryrun import placed_bytes
     from repro_torch.models.lm import LM
     gc.collect()
     torch.cuda.empty_cache()
@@ -2309,6 +2265,10 @@ def serve_encdec(arch, C, Server, step, ops, torch, np, card,
         fail(f"{arch}: decode attention paths {decode_paths} (want {want})"
              f", cache length {cache['len']}")
     peak = torch.cuda.max_memory_allocated()
+    if report is not None:
+        report.update(cfg=cfg, peak_bytes=peak,
+                      static_bytes=placed_bytes(model, cache=cache)[
+                          "placed_bytes"])
     ms = 1e3 * wall / steps
     print(f"serve {arch}: prefill {B} x {St} tokens over {B} x {Te} frames "
           f"in {walls[0]:.3f} s cold, {walls[1]:.3f} s warm = "
@@ -2377,6 +2337,7 @@ def train_path(C, TRAIN, STEP, OPT, ops, torch, np, card,
     straight steps against 3 steps, a checkpoint and a resume to 6, the
     losses within 2e-4.  Launches are counted from just before the
     ``train`` call to just after it."""
+    from repro_torch.launch.dryrun import placed_bytes
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2396,6 +2357,7 @@ def train_path(C, TRAIN, STEP, OPT, ops, torch, np, card,
     bwd_paths = dict(ops.FLASH_BWD_PATHS)
     n_params = sum(p.numel() for p in model.parameters())
     peak = torch.cuda.max_memory_allocated()
+    static = placed_bytes(model, opt)["placed_bytes"]
     if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
         fail(f"train {TRAIN_ARCH}: losses {losses}")
     if not losses[-1] < losses[0]:
@@ -2495,7 +2457,8 @@ def train_path(C, TRAIN, STEP, OPT, ops, torch, np, card,
     return dict(counts=counts, bwd_paths=bwd_paths, warm_ms=warm * 1e3,
                 tokens_s=tokens / warm,
                 model_flops_share=flops / warm / PEAK_FLOPS["bf16"],
-                peak_gb=peak / 1e9, losses=losses)
+                peak_gb=peak / 1e9, losses=losses, peak_bytes=peak,
+                static_bytes=static)
 
 
 # phase 9's other families, at their published widths: arch -> (layers on
@@ -2508,44 +2471,6 @@ def train_path(C, TRAIN, STEP, OPT, ops, torch, np, card,
 TRAIN_FAMILIES = {"whisper_small": (None, 8, WHISPER_TEXT, WHISPER_FRAMES),
                   "deepseek_moe_16b": (4, 4, 2048, 0),
                   "rwkv6_7b": (8, 4, 2048, 0)}
-
-
-def family_flops(model, cfg, B, S, Te, torch) -> tuple:
-    """Model FLOPs of one train step: 6 N D over the weights that enter a
-    product (not the embedding table, a gather; not RWKV-6's mixing
-    coefficients ``t_mix``, elementwise, nor its ``wo``, whose row sums
-    scale the channels; MoE routed experts at ``top_k / n_experts`` of
-    their parameters, the active share; the encoder's weights over the
-    frames, the rest over the tokens), plus attention's forward and its
-    backward at 2.5x the forward and the RWKV-6 time mix's forward and
-    backward kernels' FLOPs; remat's recomputation not counted.  Returns
-    (FLOPs, parameters in products)."""
-    n_gemm, flops = 0, 0.0
-    for name, p in model.named_parameters():
-        if p.ndim < 2 or name == "embed" or name.endswith(("t_mix",
-                                                           "tmix.wo")):
-            continue
-        n = p.numel()
-        if ".moe.w_" in name:
-            n = n * cfg.moe.top_k / cfg.moe.n_experts
-        n_gemm += n
-        flops += 6 * n * B * (Te if name.startswith("enc_blocks") else S)
-
-    def attn(sq, sk, causal):
-        q = torch.empty((B, sq, cfg.n_heads, cfg.d_head), device="meta")
-        k = torch.empty((B, sk, cfg.n_kv, cfg.d_head), device="meta")
-        return 3.5 * attention_work(q, k, causal=causal, window=0,
-                                    q_offset=0)[0]
-    if cfg.family == "rwkv":
-        H = cfg.d_model // 64
-        flops += cfg.n_layers * (rwkv_flops(B, S, H, 16)
-                                 + rwkv_bwd_flops(B, S, H, 16))
-    elif cfg.family == "encdec":
-        flops += cfg.n_enc_layers * attn(Te, Te, False) + cfg.n_layers * (
-            attn(S, S, True) + attn(S, Te, False))
-    else:
-        flops += cfg.n_layers * attn(S, S, True)
-    return flops, int(n_gemm)
 
 
 def train_family(arch, C, LM, STEP, OPT, TRAIN, ops, torch, np, card,
@@ -2624,7 +2549,7 @@ def train_family(arch, C, LM, STEP, OPT, TRAIN, ops, torch, np, card,
              f"backward paths {bwd_paths}; want {want}, {want_paths}, "
              f"{want_bwd}")
     warm = float(np.diff(stamps)[1:].mean())
-    flops, n_gemm = family_flops(model, cfg, B, S, Te, torch)
+    flops, n_gemm = family_flops(model, cfg, B, S, Te)
     depth = (f"{cfg.n_layers} + {cfg.n_enc_layers} layers (whole)"
              if cfg.family == "encdec" else
              f"{cfg.n_layers} of {C.get_config(arch).n_layers} layers")
@@ -2746,13 +2671,15 @@ def padded_server(C, LM, TA, Server, step, torch):
 
 
 def tp_align_path(C, LM, TA, Server, step, ops, torch, np, card,
-                  exact: dict | None, profile=False) -> dict:
+                  exact: dict | None, profile=False,
+                  report: dict | None = None) -> dict:
     """Phase 10a, one card: the padded Phi-3 at 2 layers in f32 against
     the exact one from the same seed (prefill logits and 8 decode steps
     within phase 7's ``FULL_WIDTH_TOL``), then whole in bf16 through
     phase 8's serving path, its numbers beside phase 8's exact model's
     (``exact``; None when phase 8 did not run).  Returns the launches of
-    the padded model's serving path."""
+    the padded model's serving path; ``report``, when given, receives
+    serve_path's report of the padded model."""
     base = dataclasses.replace(C.get_config(ALIGN_ARCH), n_layers=2,
                                dtype=torch.float32)
     pad = TA.aligned(base, ALIGN_TP)
@@ -2788,7 +2715,7 @@ def tp_align_path(C, LM, TA, Server, step, ops, torch, np, card,
     del models, full, caches, lg
     gc.collect()
     torch.cuda.empty_cache()
-    stats = {}
+    stats = {} if report is None else report
     counts = serve_path(ALIGN_ARCH, C, Server, step, ops, torch, np, card,
                         profile, report=stats, make_server=lambda:
                         padded_server(C, LM, TA, Server, step, torch))
@@ -3000,6 +2927,7 @@ def ep_rank(rank, world, init, out_dir, profile, plan, backend="nccl"):
     import torch.distributed as dist
     from repro_torch import configs as C
     from repro_torch.kernels import ops
+    from repro_torch.launch.dryrun import placed_bytes
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.serve import Server
     from repro_torch.models import moe as M
@@ -3061,6 +2989,7 @@ def ep_rank(rank, world, init, out_dir, profile, plan, backend="nccl"):
         sync()
         cfg = srv.cfg
         n_local = sum(t.numel() for t in srv.model.parameters())
+        static = placed_bytes(srv.model, cache=srv.cache)["placed_bytes"]
         init_s, init_gb = time.perf_counter() - t0, peak_gb()
         rng = np.random.default_rng(0)
         batch = {"tokens": torch.as_tensor(rng.integers(
@@ -3095,6 +3024,8 @@ def ep_rank(rank, world, init, out_dir, profile, plan, backend="nccl"):
                 p["slots"] * p["prompt"] / walls[1],
             "steps": stats["steps"], "ms_per_step": stats["ms_per_step"],
             "tokens_s": n_tok / stats["wall_s"], "peak_gb": peak_gb(),
+            "peak_bytes": (torch.cuda.max_memory_allocated() if on_card
+                           else 0), "static_bytes": static,
             "launches": counts, "flash_paths": dict(ops.FLASH_PATHS),
             "tokens": {str(r): t for r, t in srv.done.items()}}
         if profile and on_card:
@@ -3260,6 +3191,8 @@ def ep_path(profile, card, torch, plan=EP_PLAN, backend="nccl",
     if backend == "nccl" and min(flash) == 0:
         fail(f"phase 10b: flash_attention launches by rank {flash}")
     s0 = ranks[0]["serve"]
+    s0["by_rank"] = [{k: r["serve"][k] for k in ("static_bytes", "peak_bytes")}
+                     for r in ranks]
     print(f"phase 10b: {world} ranks over {backend}, {wall:.1f} s wall; "
           f"{s0['arch']} whole on {world} cards, every rank the same "
           f"{sum(len(t) for t in toks[0].values())} tokens; peak memory by "
@@ -3283,6 +3216,105 @@ def ep_path(profile, card, torch, plan=EP_PLAN, backend="nccl",
                               for k, v in c["alone"].items()), flush=True)
     return ranks[0]
 
+
+def dryrun_serve(DR, cfg, slots, max_len, prompt, mesh=None,
+                 cache_in_prefill=True) -> dict:
+    """The dry run of phase 8's serving of ``cfg`` on ``meta``: a rank's
+    static bytes (the parameters, its expert rows on ``mesh``, and the
+    cache of ``slots`` x ``max_len``) and the larger temp of the prefill
+    of ``slots`` x ``prompt`` tokens and of a decode step at a full
+    cache; with ``cache_in_prefill`` (the ``Server``, whose cache exists
+    before the prefill) the total is static + that temp, else (phase 8's
+    enc-dec path, which makes its cache after the prefill) the parameters
+    + the larger of the prefill's temp and the cache + the decode's."""
+    model, _, cache = DR.build(cfg, "decode", slots, max_len, mesh)
+    placed = DR.placed_bytes(model, cache=cache)
+    world = 1 if mesh is None else mesh.size
+    pre = DR.step_cost(cfg, model, "prefill", DR.input_specs(
+        cfg, ("serve", prompt, slots, "prefill")), seq=prompt, world=world)
+    dec = DR.step_cost(cfg, model, "decode", DR.input_specs(
+        cfg, ("serve", max_len, slots, "decode")), cache=cache, world=world)
+    if cache_in_prefill:
+        total = placed["placed_bytes"] + max(pre["peak_bytes"],
+                                             dec["peak_bytes"])
+    else:
+        total = placed["param_bytes"] + max(
+            pre["peak_bytes"], placed["cache_bytes"] + dec["peak_bytes"])
+    return dict(static=placed["placed_bytes"], total=total,
+                flops=pre["flops_corrected"], params=placed["params"])
+
+
+def dryrun_vs_card(C, DR, card, trained, served, padded, ep) -> None:
+    """Phase 11: each step that phases 8-10 measured, estimated by the dry
+    run (``repro_torch.launch.dryrun``) on the ``meta`` device for the
+    same config, shapes and dtype, beside the card's own figures from
+    those phases' runs (no model runs here): the estimate's static bytes
+    (parameters, AdamW's state, cache; on the mesh the rank's share)
+    must equal the summed ``nbytes`` of the live tensors on the card, to
+    the byte; the estimate's total (static + the step's temp) against
+    ``torch.cuda.max_memory_allocated`` and, for the train step, its
+    FLOPs against ``work.family_flops`` are printed, not held."""
+    t0 = time.perf_counter()
+
+    def line(label, est, static, peak, extra=""):
+        if est["static"] != static:
+            fail(f"dry run {label}: static {est['static']} B estimated, "
+                 f"{static} B live on the card")
+        print(f"dry run {label}: static {est['static']} B estimated == "
+              f"{static} B live on the card; estimate static + temp "
+              f"{est['total'] / 1e9:.2f} GB against peak {peak / 1e9:.2f} GB"
+              f" (ratio {est['total'] / peak:.3f}){extra}; card {card}",
+              flush=True)
+    # 9. MiniCPM-2B's train step, 8 x 2,048
+    cfg = C.get_config(TRAIN_ARCH)
+    model, opt, _ = DR.build(cfg, "train", TRAIN_BATCH, TRAIN_SEQ)
+    placed = DR.placed_bytes(model, opt)
+    cost = DR.step_cost(cfg, model, "train", DR.input_specs(
+        cfg, ("train", TRAIN_SEQ, TRAIN_BATCH, "train")), opt=opt)
+    rule, _ = family_flops(model, cfg, TRAIN_BATCH, TRAIN_SEQ, 0)
+    line(f"train {TRAIN_ARCH} {TRAIN_BATCH} x {TRAIN_SEQ}",
+         dict(static=placed["placed_bytes"],
+              total=placed["placed_bytes"] + cost["peak_bytes"]),
+         trained["static_bytes"], trained["peak_bytes"],
+         f"; {cost['flops_corrected']:.4g} FLOPs a step ("
+         f"{cost['flops_dots']:.4g} in products, remat's recomputation "
+         f"included) against {rule:.4g} by work.family_flops (ratio "
+         f"{cost['flops_corrected'] / rule:.3f})")
+    del model, opt
+    # 8. the served models (4 x 1,024 prefill, 4 slots); 10a. the padded
+    # Phi-3
+    for arch, rep in list(served.items()) + [(f"{ALIGN_ARCH} padded",
+                                              padded)]:
+        if not rep:
+            continue
+        cfg = rep["cfg"]
+        if cfg.family == "encdec":
+            est = dryrun_serve(DR, cfg, 4, WHISPER_TEXT, WHISPER_TEXT,
+                               cache_in_prefill=False)
+            shape = f"{4} x {WHISPER_TEXT} over 4 x {WHISPER_FRAMES} frames"
+        else:
+            est = dryrun_serve(DR, cfg, 4, 1024, 1024)
+            shape = "4 x 1024, 4 slots"
+        line(f"serve {arch} ({cfg.n_layers} layers) {shape}", est,
+             rep["static_bytes"], rep["peak_bytes"],
+             f"; prefill {est['flops']:.4g} FLOPs")
+    # 10b. whole Mixtral on each rank of the mesh
+    if ep is not None:
+        s0, p = ep["serve"], EP_PLAN["serve"]
+        from repro_torch.launch.mesh import Mesh
+        mesh = Mesh({"data": 1, "model": s0["world"]})
+        est = dryrun_serve(DR, C.get_config(p["arch"]), p["slots"],
+                           p["max_len"], p["prompt"], mesh)
+        if est["params"] != s0["params_local"]:
+            fail(f"dry run {p['arch']} on {s0['world']} ranks: "
+                 f"{est['params']} parameters a rank estimated, "
+                 f"{s0['params_local']} on the card")
+        for r, got in enumerate(s0["by_rank"]):
+            line(f"serve {p['arch']} whole on {s0['world']} cards, rank {r}"
+                 f" ({est['params']} parameters a rank)", est,
+                 got["static_bytes"], got["peak_bytes"])
+    wall = time.perf_counter() - t0
+    print(f"dry run: phase 11 in {wall:.1f} s on the host", flush=True)
 
 
 def rehearse_ep(world: int = 4) -> dict:
@@ -3313,6 +3345,7 @@ def main() -> None:
     try:
         from repro_torch import configs as C
         from repro_torch import data as GOLD
+        from repro_torch.launch import dryrun as DR
         from repro_torch.launch import train as TRAIN
         from repro_torch.launch.serve import Server
         from repro_torch.train import optim as OPT
@@ -3577,7 +3610,8 @@ def main() -> None:
     for arch, kernel in SERVE_ARCHS.items():
         if C.get_config(arch).family == "encdec":
             counts = serve_encdec(arch, C, Server, STEP, ops, torch, np,
-                                  card, profile)
+                                  card, profile,
+                                  report=serve_stats.setdefault(arch, {}))
         else:
             counts = serve_path(arch, C, Server, STEP, ops, torch, np, card,
                                 profile,
@@ -3608,16 +3642,20 @@ def main() -> None:
             launches[k] += n
     # 10a. TP head alignment, one card; 10b. expert parallelism over NCCL,
     # two cards or more
+    padded = {}
     aligned_launches = tp_align_path(C, LM, TA, Server, STEP, ops, torch,
                                      np, card, serve_stats.get(ALIGN_ARCH),
-                                     profile)["flash_attention"]
+                                     profile, report=padded)[
+                                         "flash_attention"]
     launches["flash_attention"] += aligned_launches
     ep = ep_path(profile, card, torch)
     if ep is not None:
         launches["flash_attention"] += ep["serve"]["launches"][
             "flash_attention"]
+    # 11. the dry run's estimates of those steps against the card
+    dryrun_vs_card(C, DR, card, trained, serve_stats, padded, ep)
 
-    # 11. result lines
+    # 12. result lines
     rows = []
     for name, (src, replaces) in KERNELS.items():
         v = nums[name]

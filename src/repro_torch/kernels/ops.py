@@ -10,7 +10,14 @@ Each wrapper checks its inputs, then either launches its kernel on the
 current CUDA stream (tensors on the card) or calls the kernel's plain
 version in :mod:`repro_torch.kernels.ref` (tensors on the CPU, the
 analogue of Pallas interpret mode).  There is no fallback: a tensor on
-the card runs the kernel or raises.  ``LAUNCHES`` counts kernel launches
+the card runs the kernel or raises.  The model kernels' wrappers
+(attention, RWKV-6 and their backwards) also take tensors on the
+``meta`` device, the dry run's (``launch/dryrun.py``): they return empty
+``meta`` outputs with the shapes, dtypes and scratch buffers of the card
+path, launch nothing and credit the call's work from
+:mod:`repro_torch.kernels.work` (the plain versions would materialise
+scores and per-token loops the kernels never hold).  The tick kernels
+refuse ``meta``.  ``LAUNCHES`` counts kernel launches
 per wrapper, so a run can show that it went through the kernels;
 ``FLASH_PATHS``, ``FLASH_BWD_PATHS`` and ``TICK_RANK_PATHS`` count the
 path each launch took.
@@ -24,6 +31,7 @@ import torch
 from repro_torch._parity import f32, red_recip
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as R
+from repro_torch.kernels import work
 
 LAUNCHES = dict.fromkeys(("flow_agg", "tick_rank", "red_ecn",
                           "tick_rank_red_ecn", "tick_draws", "spritz_select",
@@ -44,6 +52,7 @@ WGMMA_ROWS = 64          # rows of the wgmma path's Q tile
 SPLIT_ROWS = 16          # most rows (Sq * G) the split path takes
 SPLIT_KEYS = 64          # a split holds a multiple of this many keys
 SMEM_OPTIN = 232_448     # dynamic shared memory a block may opt in to (sm_90)
+H100_SMS = 132           # the H100 SXM's SMs: the split plan on ``meta``
 TICK_RANK_SEGS = 16      # most segments of tick_rank's smem path (its warps)
 TICK_RANK_BALANCE = 96   # segments ~ sqrt(this * M / buckets): walk vs passes
 # row types the flow_agg kernel reads, by their size in bytes
@@ -83,19 +92,26 @@ def add_launches(per_replay: dict, replays: int) -> None:
             counts[k] += n * replays
 
 
-def _on_cpu(*ts: torch.Tensor) -> bool:
+def _where(*ts: torch.Tensor, meta: bool = False) -> str:
+    """``"cpu"`` (the plain version), ``"cuda"`` (the kernel; inputs
+    contiguous) or, with ``meta``, ``"meta"`` (shapes only: the dry
+    run's); any other device, or a mix, raises."""
     devs = {t.device for t in ts}
     if len(devs) != 1:
         raise ValueError(f"inputs on several devices: {sorted(map(str, devs))}")
     dev = devs.pop()
-    if dev.type == "cpu":
-        return True
+    if dev.type == "cpu" or (meta and dev.type == "meta"):
+        return dev.type
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     for t in ts:
         if not t.is_contiguous():
             raise ValueError("CUDA kernel inputs must be contiguous")
-    return False
+    return "cuda"
+
+
+def _on_cpu(*ts: torch.Tensor) -> bool:
+    return _where(*ts) == "cpu"
 
 
 def _dtype(t: torch.Tensor, want: torch.dtype, name: str) -> None:
@@ -488,10 +504,11 @@ def _flash_forward(q, k, v, *, causal: bool, sliding_window: int,
     if D not in (32, 64, 128):
         raise ValueError(f"flash_attention kernel: D must be 32, 64 or 128, "
                          f"got {D}")
+    meta = q.is_meta
     path, split_len, n_split = flash_plan(
         B, Sq, Sk, Hq, Hkv, D, q.dtype, causal=causal, q_offset=q_offset,
-        num_sms=torch.cuda.get_device_properties(q.device)
-        .multi_processor_count, grad=lse)
+        num_sms=H100_SMS if meta else torch.cuda.get_device_properties(
+            q.device).multi_processor_count, grad=lse)
     o = torch.empty_like(q)
     rowlse = (torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
               if lse else None)
@@ -499,6 +516,13 @@ def _flash_forward(q, k, v, *, causal: bool, sliding_window: int,
     if path == "split":
         scratch = torch.empty(B * Hkv * n_split * Sq * (Hq // Hkv) * (D + 2),
                               dtype=torch.float32, device=q.device)
+    if meta:
+        flops, nb = work.attention_work(q, k, causal=causal,
+                                        window=sliding_window,
+                                        q_offset=q_offset)
+        work.credit("flash_attention", flops,
+                    nb + (4 * B * Hq * Sq if lse else 0))
+        return o, rowlse
     _launch("flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
             o.data_ptr(), B, Sq, Sk, Hq, Hkv, D, code, int(bool(causal)),
             int(sliding_window), int(q_offset), 1.0 / math.sqrt(D),
@@ -548,10 +572,10 @@ def flash_attention(q, k, v, *, causal: bool = True, sliding_window: int = 0,
     _check_attention(q, k, v, q_offset, sliding_window)
     kw = dict(causal=causal, sliding_window=sliding_window,
               q_offset=int(q_offset))
-    on_cpu = _on_cpu(q, k, v)
+    where = _where(q, k, v, meta=True)
     if q.numel() == 0:                       # no rows: nothing to launch
         return torch.empty_like(q)
-    if on_cpu:
+    if where == "cpu":
         return R.mha_reference(q, k, v, **kw)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         if q_offset:
@@ -570,7 +594,7 @@ def flash_attention_lse(q, k, v, *, causal: bool = True,
     (never the split path); the plain versions on the CPU."""
     _check_attention(q, k, v, 0, sliding_window)
     kw = dict(causal=causal, sliding_window=sliding_window)
-    if _on_cpu(q, k, v):
+    if _where(q, k, v, meta=True) == "cpu":
         return (R.mha_reference(q, k, v, **kw),
                 R.mha_lse(q, k, **kw))
     return _flash_forward(q, k, v, **kw, q_offset=0, lse=True)
@@ -595,7 +619,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                          f"{(B, Hq, Sq)}; got {tuple(o.shape)}, "
                          f"{tuple(do.shape)}, {tuple(lse.shape)}")
     kw = dict(causal=causal, sliding_window=sliding_window)
-    if _on_cpu(q, k, v, o, lse, do):
+    if _where(q, k, v, o, lse, do, meta=True) == "cpu":
         return R.mha_backward_reference(q, k, v, o, lse, do, **kw)
     code = _float_code("flash_attention_bwd", q, k, v, o, do)
     _dtype(lse, torch.float32, "lse")
@@ -607,6 +631,10 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
         return dq, dk.zero_(), dv.zero_()
     path = flash_bwd_plan(B, Sq, Sk, Hq, Hkv, D, q.dtype)
     delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    if q.is_meta:
+        work.credit("flash_attention_bwd", *work.attention_bwd_work(
+            q, k, causal=causal, window=sliding_window))
+        return dq, dk, dv
     for stage in (0, 1):          # dQ (and delta), then dK / dV
         _launch("flash_attention_bwd", q.data_ptr(), k.data_ptr(),
                 v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
@@ -651,6 +679,12 @@ def _rwkv_forward(r, k, v, w, u, wkv0, C: int, states: bool):
     sout = torch.empty_like(wkv0)
     starts = (torch.empty((B, H, S // C, hd, hd), dtype=torch.float32,
                           device=r.device) if states else None)
+    if r.is_meta:
+        work.credit("rwkv6_chunked", work.rwkv_flops(B, S, H, C),
+                    sum(t.numel() * t.element_size()
+                        for t in (r, k, v, w, u, wkv0, y, sout)
+                        + (() if starts is None else (starts,))))
+        return y, sout, starts
     _launch("rwkv6_chunked", r.data_ptr(), k.data_ptr(), v.data_ptr(),
             w.data_ptr(), u.data_ptr(), wkv0.data_ptr(), y.data_ptr(),
             sout.data_ptr(), None if starts is None else starts.data_ptr(),
@@ -692,7 +726,7 @@ def rwkv6_chunked(r, k, v, w, u, wkv0, *, chunk: int = 64):
     inputs and a chunk of at most 32); on the CPU autograd differentiates
     the plain version."""
     C = _check_rwkv(r, k, v, w, u, wkv0, chunk)
-    if _on_cpu(r, k, v, w, u, wkv0):
+    if _where(r, k, v, w, u, wkv0, meta=True) == "cpu":
         return R.rwkv6_chunked_reference(r, k, v, w, u, wkv0, chunk=C)
     if torch.is_grad_enabled() and any(t.requires_grad
                                        for t in (r, k, v, w, u, wkv0)):
@@ -706,7 +740,7 @@ def rwkv6_chunked_states(r, k, v, w, u, wkv0, *, chunk: int = 16):
     that :func:`rwkv6_chunked_bwd` takes.  One kernel launch on the card;
     the plain version on the CPU."""
     C = _check_rwkv(r, k, v, w, u, wkv0, chunk)
-    if _on_cpu(r, k, v, w, u, wkv0):
+    if _where(r, k, v, w, u, wkv0, meta=True) == "cpu":
         return R.rwkv6_chunked_reference(r, k, v, w, u, wkv0, chunk=C,
                                          states=True)
     return _rwkv_forward(r, k, v, w, u, wkv0, C, states=True)
@@ -736,7 +770,7 @@ def rwkv6_chunked_bwd(r, k, v, w, u, states, dy, dwkv=None, *,
                          f"{tuple(states.shape)}, {tuple(dy.shape)}, "
                          f"{None if dwkv is None else tuple(dwkv.shape)}")
     ts = (r, k, v, w, u, states, dy) + (() if dwkv is None else (dwkv,))
-    if _on_cpu(*ts):
+    if _where(*ts, meta=True) == "cpu":
         return R.rwkv6_chunked_backward_reference(r, k, v, w, u, states, dy,
                                                   dwkv, chunk=C)
     for name, t in zip(("r", "k", "v", "w", "u", "states", "dy", "dwkv"), ts):
@@ -750,6 +784,11 @@ def rwkv6_chunked_bwd(r, k, v, w, u, states, dy, dwkv=None, *,
     dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
     dupart = torch.empty((B, H, hd), dtype=torch.float32, device=r.device)
     ds0 = torch.empty((B, H, hd, hd), dtype=torch.float32, device=r.device)
+    if r.is_meta:
+        work.credit("rwkv6_chunked_bwd", work.rwkv_bwd_flops(B, S, H, C),
+                    sum(t.numel() * t.element_size() for t in
+                        ts + (dr, dk, dv, dw, dupart, ds0)))
+        return dr, dk, dv, dw, dupart.sum(0), ds0
     _launch("rwkv6_chunked_bwd", r.data_ptr(), k.data_ptr(), v.data_ptr(),
             w.data_ptr(), u.data_ptr(), states.data_ptr(), dy.data_ptr(),
             None if dwkv is None else dwkv.data_ptr(), dr.data_ptr(),

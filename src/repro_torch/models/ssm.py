@@ -21,6 +21,7 @@ from torch import nn
 
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as R
+from repro_torch.kernels import work
 from repro_torch.models.common import ModelCfg, param
 
 HD = 64     # RWKV-6 head size, fixed as in the reference
@@ -85,7 +86,15 @@ class Mamba(nn.Module):
             dtc = dt[:, sl, :, None]                         # [B, C, 1, 1]
             decay = torch.exp(dtc * A)                       # [B, C, d_in, ds]
             hs = (dtc * Bm[:, sl, None, :]) * xcf[:, sl, :, None]
-            for t in range(hs.shape[1]):
+            if hs.is_meta:
+                # the dry run: the token loop's work credited in one go
+                # (a FLOP an element; h, the decay and the drive read,
+                # the state written), not run a token at a time
+                n = hs.numel()
+                work.credit("mamba_scan", n, 4 * n * hs.element_size(),
+                            products=False)
+                h = hs[:, -1]
+            for t in range(0 if hs.is_meta else hs.shape[1]):
                 hs[:, t].addcmul_(decay[:, t], h)
                 h = hs[:, t]
             ys.append(torch.einsum("bcen,bcn->bce", hs, Cm[:, sl]))
