@@ -56,6 +56,8 @@ SIGNATURES = {
     "rwkv6_chunked_bwd": ("rwkv6_chunked_bwd_launch",
                           (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                            _P, _P, _I, _I, _I, _I, _P), ()),
+    "mamba_scan": ("mamba_scan_launch",
+                   (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P), ()),
 }
 # entry points beside their library's own: name -> (library, C entry
 # point, argument types)
@@ -65,6 +67,8 @@ EXTRA_ENTRIES = {
                            _I, _P, _P, _P, _P)),
     "weighted_sample": ("spritz_select", "weighted_sample_launch",
                         (_P, _P, _P, _I, _I, _P, _P)),
+    "mamba_scan_bwd": ("mamba_scan", "mamba_scan_bwd_launch",
+                       (_P,) * 18 + (_I, _I, _I, _I, _P)),
 }
 
 _FUNCS: dict = {}

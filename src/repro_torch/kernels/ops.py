@@ -1,6 +1,7 @@
-"""Wrappers of the nine CUDA kernels (four tick kernels, the tick's
+"""Wrappers of the eleven CUDA kernels (four tick kernels, the tick's
 random draws, attention, attention's backward, the chunked RWKV-6 time
-mix and its backward), of the fused launch of two of them
+mix and its backward, Mamba's selective scan and its backward), of the
+fused launch of two of them
 (``tick_rank_red_ecn``: the rank and the RED/ECN stage on it) and of
 ``spritz_select``'s kernel without its buffer front
 (``weighted_sample``).  The fused launch and the samplers can draw the
@@ -11,8 +12,9 @@ current CUDA stream (tensors on the card) or calls the kernel's plain
 version in :mod:`repro_torch.kernels.ref` (tensors on the CPU, the
 analogue of Pallas interpret mode).  There is no fallback: a tensor on
 the card runs the kernel or raises.  The model kernels' wrappers
-(attention, RWKV-6 and their backwards) also take tensors on the
-``meta`` device, the dry run's (``launch/dryrun.py``): they return empty
+(attention, RWKV-6, the Mamba scan and their backwards) also take
+tensors on the ``meta`` device, the dry run's (``launch/dryrun.py``):
+they return empty
 ``meta`` outputs with the shapes, dtypes and scratch buffers of the card
 path, launch nothing and credit the call's work from
 :mod:`repro_torch.kernels.work` (the plain versions would materialise
@@ -37,7 +39,8 @@ LAUNCHES = dict.fromkeys(("flow_agg", "tick_rank", "red_ecn",
                           "tick_rank_red_ecn", "tick_draws", "spritz_select",
                           "weighted_sample",
                           "flash_attention", "flash_attention_bwd",
-                          "rwkv6_chunked", "rwkv6_chunked_bwd"), 0)
+                          "rwkv6_chunked", "rwkv6_chunked_bwd",
+                          "mamba_scan", "mamba_scan_bwd"), 0)
 # flash_attention launches by the path the kernel took (see flash_plan)
 FLASH_PATHS = dict.fromkeys(("wgmma", "split", "simt"), 0)
 # flash_attention_bwd launches by the path the kernel took (see
@@ -55,6 +58,8 @@ SMEM_OPTIN = 232_448     # dynamic shared memory a block may opt in to (sm_90)
 H100_SMS = 132           # the H100 SXM's SMs: the split plan on ``meta``
 TICK_RANK_SEGS = 16      # most segments of tick_rank's smem path (its warps)
 TICK_RANK_BALANCE = 96   # segments ~ sqrt(this * M / buckets): walk vs passes
+MAMBA_STATES = 16        # d_state the Mamba scan kernel takes
+MAMBA_CHANNELS = 64      # channels a block of its backward (the partials)
 # row types the flow_agg kernel reads, by their size in bytes
 _AGG_ROWS = {torch.int32: 4, torch.bool: 1, torch.uint8: 1}
 
@@ -795,3 +800,148 @@ def rwkv6_chunked_bwd(r, k, v, w, u, states, dy, dwkv=None, *,
             dk.data_ptr(), dv.data_ptr(), dw.data_ptr(), dupart.data_ptr(),
             ds0.data_ptr(), B, S, H, C)
     return dr, dk, dv, dw, dupart.sum(0), ds0
+
+
+def _check_mamba(x, dt, A, Bm, Cm, h0) -> tuple:
+    """(B, S, E, N) after the shape checks."""
+    if x.ndim != 3:
+        raise ValueError(f"x must be [B, S, E], got {tuple(x.shape)}")
+    B, S, E = x.shape
+    N = A.shape[-1] if A.ndim == 2 else -1
+    want = {"dt": (B, S), "A": (E, N), "Bm": (B, S, N), "Cm": (B, S, N),
+            "h0": (B, E, N)}
+    got = {"dt": dt, "A": A, "Bm": Bm, "Cm": Cm, "h0": h0}
+    bad = [f"{k} {tuple(t.shape)} (want {want[k]})" for k, t in got.items()
+           if tuple(t.shape) != want[k]]
+    if bad or S < 1:
+        raise ValueError(f"mamba_scan: x {tuple(x.shape)}: " + ", ".join(
+            bad or ["S must be >= 1"]))
+    return B, S, E, N
+
+
+def _check_mamba_card(N: int, *ts) -> None:
+    for name, t in zip(("x", "dt", "A", "Bm", "Cm", "h0"), ts):
+        _dtype(t, torch.float32, name)
+    if N != MAMBA_STATES:
+        raise ValueError(f"mamba_scan kernel: d_state must be "
+                         f"{MAMBA_STATES}, got {N}")
+
+
+def _mamba_forward(x, dt, A, Bm, Cm, h0, states: bool):
+    """One launch of the scan's kernel on the card (or, on ``meta``, its
+    outputs and its work credited): ``(y, hT, checkpoints)``, the
+    checkpoints [B, ceil(S / 16), E, N] written only with ``states``."""
+    B, S, E, N = _check_mamba(x, dt, A, Bm, Cm, h0)
+    _check_mamba_card(N, x, dt, A, Bm, Cm, h0)
+    y = torch.empty_like(x)
+    hT = torch.empty_like(h0)
+    ck = (torch.empty((B, -(-S // R.MAMBA_SEGMENT), E, N),
+                      dtype=torch.float32, device=x.device)
+          if states else None)
+    if x.is_meta:
+        f, n_exp, nb = work.mamba_scan_work(B, S, E, N, states=states)
+        work.credit("mamba_scan", f + n_exp, nb, products=False)
+        return y, hT, ck
+    _launch("mamba_scan", x.data_ptr(), dt.data_ptr(), A.data_ptr(),
+            Bm.data_ptr(), Cm.data_ptr(), h0.data_ptr(), y.data_ptr(),
+            hT.data_ptr(), None if ck is None else ck.data_ptr(), B, S, E)
+    return y, hT, ck
+
+
+class _MambaScan(torch.autograd.Function):
+    """The scan on the card with a gradient: the forward kernel also
+    writes its checkpoint states, the backward is one call of
+    :func:`mamba_scan_bwd`."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, h0):
+        y, hT, ck = _mamba_forward(x, dt, A, Bm, Cm, h0, states=True)
+        ctx.save_for_backward(x, dt, A, Bm, Cm, ck)
+        ctx.set_materialize_grads(False)
+        return y, hT
+
+    @staticmethod
+    def backward(ctx, dy, dhT):
+        x, dt, A, Bm, Cm, ck = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x)
+        return mamba_scan_bwd(x, dt, A, Bm, Cm, ck, dy.contiguous(),
+                              None if dhT is None else dhT.contiguous())
+
+
+def mamba_scan(x, dt, A, Bm, Cm, h0):
+    """Mamba's selective scan: ``h_t = exp(dt_t A) h_{t-1} + (dt_t B_t)
+    x_t``, ``y_t = sum_n h_t C_t``.  x: [B, S, E]; dt: [B, S]; A: [E, N];
+    Bm, Cm: [B, S, N]; h0: [B, E, N]; all f32 (N = 16 on the card).
+    Returns (y [B, S, E], final state [B, E, N]).
+
+    Differentiable in every input: under grad on the card the forward
+    kernel also writes the state before every 16th token and the
+    gradient is the backward kernel's (:func:`mamba_scan_bwd`); on the
+    CPU autograd differentiates the plain token loop."""
+    _check_mamba(x, dt, A, Bm, Cm, h0)
+    if _where(x, dt, A, Bm, Cm, h0, meta=True) == "cpu":
+        return R.mamba_scan_reference(x, dt, A, Bm, Cm, h0)
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (x, dt, A, Bm, Cm, h0)):
+        return _MambaScan.apply(x, dt, A, Bm, Cm, h0)
+    return _mamba_forward(x, dt, A, Bm, Cm, h0, states=False)[:2]
+
+
+def mamba_scan_states(x, dt, A, Bm, Cm, h0):
+    """The forward of a differentiable call without autograd: ``(y, hT,
+    states)``, states the checkpoints [B, ceil(S / 16), E, N] that
+    :func:`mamba_scan_bwd` takes.  One kernel launch on the card; the
+    plain version on the CPU."""
+    _check_mamba(x, dt, A, Bm, Cm, h0)
+    if _where(x, dt, A, Bm, Cm, h0, meta=True) == "cpu":
+        return R.mamba_scan_reference(x, dt, A, Bm, Cm, h0, states=True)
+    return _mamba_forward(x, dt, A, Bm, Cm, h0, states=True)
+
+
+def mamba_scan_bwd(x, dt, A, Bm, Cm, states, dy, dhT=None):
+    """The scan's gradient: ``(dx, ddt, dA, dB, dC, dh0)`` from the
+    forward's inputs, its checkpoint states [B, ceil(S / 16), E, N] (the
+    first is h0), dy [B, S, E] and the final state's gradient ``dhT`` [B,
+    E, N] (None for 0).  On the card one call of ``mamba_scan.cu``'s
+    backward: the scan in reverse, a block 64 channels of one batch, its
+    sums over the channels written as per-block partials, then a second
+    kernel summing them (and dA over the batch) in a fixed order, so the
+    same inputs give the same bits.  On the CPU
+    :func:`ref.mamba_scan_backward_reference`."""
+    if states.ndim != 4:
+        raise ValueError(f"states must be [B, ceil(S / 16), E, N], got "
+                         f"{tuple(states.shape)}")
+    B, S, E, N = _check_mamba(x, dt, A, Bm, Cm, states[:, 0])
+    nseg = -(-S // R.MAMBA_SEGMENT)
+    if tuple(states.shape) != (B, nseg, E, N) or dy.shape != x.shape or \
+            (dhT is not None and tuple(dhT.shape) != (B, E, N)):
+        raise ValueError(f"need states {(B, nseg, E, N)}, dy "
+                         f"{tuple(x.shape)} and dhT {(B, E, N)}; got "
+                         f"{tuple(states.shape)}, {tuple(dy.shape)}, "
+                         f"{None if dhT is None else tuple(dhT.shape)}")
+    ts = (x, dt, A, Bm, Cm, states, dy) + (() if dhT is None else (dhT,))
+    if _where(*ts, meta=True) == "cpu":
+        return R.mamba_scan_backward_reference(x, dt, A, Bm, Cm,
+                                               states[:, 0], dy, dhT)
+    _check_mamba_card(N, x, dt, A, Bm, Cm, states)
+    _dtype(dy, torch.float32, "dy")
+    if dhT is not None:
+        _dtype(dhT, torch.float32, "dhT")
+    nblk = -(-E // MAMBA_CHANNELS)
+    dev = x.device
+    dx, ddt, dB, dC = (torch.empty_like(t) for t in (x, dt, Bm, Cm))
+    dA, dh0 = torch.empty_like(A), torch.empty((B, E, N), device=dev)
+    dBp, dCp = (torch.empty((B, nblk, S, N), device=dev) for _ in range(2))
+    ddtp = torch.empty((B, nblk, S), dtype=torch.float64, device=dev)
+    dAp = torch.empty((B, E, N), dtype=torch.float64, device=dev)
+    if x.is_meta:
+        f, n_exp, nb = work.mamba_scan_work(B, S, E, N, backward=True)
+        work.credit("mamba_scan_bwd", f + n_exp, nb, products=False)
+        return dx, ddt, dA, dB, dC, dh0
+    _launch("mamba_scan_bwd", *(t.data_ptr() for t in (
+        x, dt, A, Bm, Cm, states, dy)),
+        None if dhT is None else dhT.data_ptr(),
+        *(t.data_ptr() for t in (dx, ddt, dA, dB, dC, dh0, dBp, dCp, ddtp,
+                                 dAp)), B, S, E, nblk)
+    return dx, ddt, dA, dB, dC, dh0

@@ -1,4 +1,4 @@
-"""Plain torch versions of the eight kernels (and of ``weighted_sample``,
+"""Plain torch versions of the kernels (and of ``weighted_sample``,
 ``spritz_select``'s kernel without its buffer front).
 
 Each tick kernel's version mirrors its oracle in ``repro.kernels.ref``
@@ -7,7 +7,9 @@ device.  The model kernels' versions (attention, RWKV-6) are f32 and
 held to the tolerances of ``tests/test_kernels.py``; ``mha_partials``
 and ``combine_partials`` spell out the attention kernel's split path,
 ``mha_lse`` its row log-sum-exp and ``mha_backward_reference`` the
-backward kernel's formula.  ``ops`` calls these for tensors on the CPU;
+backward kernel's formula; ``mamba_scan_reference`` is Mamba's token
+loop and ``mamba_scan_backward_reference`` its reverse recurrence.
+``ops`` calls these for tensors on the CPU;
 ``chip_smoke.py`` holds each CUDA kernel against them on the card.
 """
 from __future__ import annotations
@@ -363,3 +365,58 @@ def rwkv6_reference(r, k, v, w, u, wkv0):
                                wkv + u[None, :, :, None] * kv))
         wkv = w[:, t, :, :, None] * wkv + kv
     return torch.stack(ys, 1), wkv
+
+
+MAMBA_SEGMENT = 16   # tokens between the Mamba scan's checkpoint states
+
+
+def mamba_scan_reference(x, dt, A, Bm, Cm, h0, *, states: bool = False):
+    """Mamba's selective scan, one token a step, out of place (so autograd
+    differentiates it): ``h_t = exp(dt_t A) h_{t-1} + (dt_t B_t) x_t``,
+    ``y_t = sum_n h_t C_t``.  x: [B, S, E]; dt: [B, S]; A: [E, N]; Bm,
+    Cm: [B, S, N]; h0: [B, E, N]; all f32.  Returns (y [B, S, E], the
+    final state), with ``states`` also the state before every
+    ``MAMBA_SEGMENT``-th token, [B, ceil(S / 16), E, N] (the kernel's
+    checkpoints)."""
+    h, ys, marks = h0, [], []
+    for t in range(x.shape[1]):
+        if states and t % MAMBA_SEGMENT == 0:
+            marks.append(h)
+        d = dt[:, t, None, None]
+        h = torch.exp(d * A) * h + (d * Bm[:, t, None, :]) * x[:, t, :, None]
+        ys.append((h * Cm[:, t, None, :]).sum(-1))
+    y = torch.stack(ys, 1)
+    return (y, h, torch.stack(marks, 1)) if states else (y, h)
+
+
+def mamba_scan_backward_reference(x, dt, A, Bm, Cm, h0, dy, dh_final=None):
+    """The scan's gradient, the reverse recurrence written out: with ``G``
+    the gradient reaching h_t from later tokens (``dh_final`` at the end,
+    None for 0), ``a_t = exp(dt_t A)`` and ``g = G + dy_t C_t``:
+    ``dx_t = dt_t sum_n g B_t``, ``dB_t = dt_t sum_e g x_t``, ``dC_t =
+    sum_e dy_t h_t``, ``ddt_t = sum (g B_t x_t + g h_{t-1} a_t A)``,
+    ``dA = sum_{b,t} g h_{t-1} a_t dt_t``, ``G <- a_t g``; ``dh0`` the
+    last G.  Shapes as :func:`mamba_scan_reference`'s, dy [B, S, E].
+    Returns ``(dx, ddt, dA, dB, dC, dh0)``."""
+    hs = [h0]
+    for t in range(x.shape[1]):
+        d = dt[:, t, None, None]
+        hs.append(torch.exp(d * A) * hs[-1]
+                  + (d * Bm[:, t, None, :]) * x[:, t, :, None])
+    G = torch.zeros_like(h0) if dh_final is None else dh_final
+    dx, dB, dC = torch.empty_like(x), torch.empty_like(Bm), \
+        torch.empty_like(Cm)
+    ddt, dA = torch.empty_like(dt), torch.zeros_like(A)
+    for t in reversed(range(x.shape[1])):
+        d = dt[:, t, None, None]
+        a = torch.exp(d * A)
+        bt, xt = Bm[:, t, None, :], x[:, t, :, None]
+        g = G + dy[:, t, :, None] * Cm[:, t, None, :]
+        dC[:, t] = (dy[:, t, :, None] * hs[t + 1]).sum(1)
+        dB[:, t] = (g * d * xt).sum(1)
+        dx[:, t] = (g * d * bt).sum(-1)
+        ga = g * hs[t] * a
+        ddt[:, t] = (g * bt * xt).sum((1, 2)) + (ga * A).sum((1, 2))
+        dA += (ga * d).sum(0)
+        G = a * g
+    return dx, ddt, dA, dB, dC, G

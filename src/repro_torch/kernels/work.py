@@ -14,6 +14,10 @@ import contextlib
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (data sheet)
 PEAK_FLOPS = {"bf16": 989e12,  # dense tensor-core rate (data sheet)
               "f32": 67e12}    # f32 outside the tensor cores
+# exponentials a second: the SFU's 16 ex2 a clock an SM (Hopper's
+# arithmetic-instruction throughput table), 132 SMs at the H100 SXM's
+# 1.98 GHz boost clock (data sheet)
+EXP_PER_S = 16 * 132 * 1.98e9
 
 _SINKS: list = []
 
@@ -147,6 +151,41 @@ def rwkv_bwd_flops(B, S, H, C):
     return n * per_chunk
 
 
+def mamba_scan_work(B, S, E, N, *, states: bool = False,
+                    backward: bool = False) -> tuple:
+    """(FLOPs, exponentials, bytes) of Mamba's selective scan over x [B,
+    S, E] with N states a channel, each input read once and each output
+    written once.  Forward, a state element a token: dt A, the drive's
+    product with x, the update's multiply and add, y's product and sum (6
+    FLOPs) and the decay (1 exponential); x and y, dt, B, C, A, h0 and
+    the final state, with ``states`` the checkpoints every 16 tokens.
+    Backward: the states again from the checkpoints (4 FLOPs and the
+    decay: 1 exponential, which the reverse walk needs), then g, dB's,
+    dC's, dx's and dA's shares and sums (2 each), ddt's (5), the carried
+    gradient and dt A (1 each): 21 FLOPs; x, dy and dx, dt and ddt, B, C,
+    dB and dC, A and dA, the checkpoints, the final state's gradient and
+    dh0."""
+    el = B * S * E * N
+    tok = 4 * B * S * (1 + 2 * N)           # dt, B, C (or their grads)
+    state = 4 * B * E * N
+    ckpt = 4 * B * -(-S // 16) * E * N
+    if backward:
+        return (21 * el, el,
+                3 * 4 * B * S * E + 2 * tok + 2 * 4 * E * N + ckpt
+                + 2 * state)
+    return (6 * el, el, 2 * 4 * B * S * E + tok + 4 * E * N + 2 * state
+            + (ckpt if states else 0))
+
+
+def mamba_scan_bound(flops, exps, nbytes_):
+    """The least time the card takes for the scan's work, and what bounds
+    it: its f32 FLOPs, its exponentials (``EXP_PER_S``) or its bytes."""
+    t_ops = max(flops / PEAK_FLOPS["f32"], exps / EXP_PER_S) * 1e3
+    t_bytes = nbytes_ / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops > t_bytes
+                                 else "bytes")
+
+
 def bound_ms(flops, nbytes_, kind):
     """The least time the card takes for the work, and what bounds it:
     the FLOPs at ``kind``'s peak rate or the bytes at the memory rate."""
@@ -164,12 +203,15 @@ def family_flops(model, cfg, B, S, Te) -> tuple:
     their parameters, the active share; the encoder's weights over the
     frames, the rest over the tokens), plus attention's forward and its
     backward at 2.5x the forward and the RWKV-6 time mix's forward and
-    backward kernels' FLOPs; remat's recomputation not counted.  Returns
+    backward kernels' FLOPs, and the Mamba scan's forward and backward
+    (an exponential counted as a FLOP; Mamba's ``A_log`` and ``conv_w``
+    are elementwise, not products); remat's recomputation not counted.
+    Attention's terms count the model's attention layers.  Returns
     (FLOPs, parameters in products)."""
     n_gemm, flops = 0, 0.0
     for name, p in model.named_parameters():
-        if p.ndim < 2 or name == "embed" or name.endswith(("t_mix",
-                                                           "tmix.wo")):
+        if p.ndim < 2 or name == "embed" or name.endswith(
+                ("t_mix", "tmix.wo", "A_log", "conv_w")):
             continue
         n = p.numel()
         if ".moe.w_" in name:
@@ -189,5 +231,12 @@ def family_flops(model, cfg, B, S, Te) -> tuple:
         flops += cfg.n_enc_layers * attn(Te, Te, False) + cfg.n_layers * (
             attn(S, S, True) + attn(S, Te, False))
     else:
-        flops += cfg.n_layers * attn(S, S, True)
+        kinds = [blk.kind for blk in model.blocks]
+        flops += sum(k.startswith("attn") for k in kinds) * attn(S, S, True)
+        for k in kinds:
+            if k.startswith("mamba"):
+                for bwd in (False, True):
+                    f, x, _ = mamba_scan_work(B, S, 2 * cfg.d_model,
+                                              cfg.d_state, backward=bwd)
+                    flops += f + x
     return flops, int(n_gemm)

@@ -33,15 +33,11 @@ record holds:
   on one device.  A decode step is costed at a full cache (length
   ``max_len - 1``), as the reference's traced length costs it;
 - ``collectives`` (the reference's ``hlo_collective_bytes`` layout, per
-  rank): the MoE layers' ``torch.distributed`` calls on the mesh, counted
-  from their call shapes in a forward of the step on the placed model
-  (its backward on a mesh is not ported: ``moe.NO_GRAD_ON_MESH``), with
-  that run's ``peak_bytes`` as ``rank_temp_size_in_bytes``.  The port
-  runs every other layer whole on every rank, so the other archs send
-  nothing.
-
-The hybrid family's train cells keep their bytes; their FLOPs and temp
-are null and ``not_ported`` holds ``train.step.UNTRAINABLE``'s reason.
+  rank): the MoE layers' ``torch.distributed`` calls on the mesh (for
+  train their backward's and AdamW's too), counted from their call
+  shapes in the step on the placed model, with that run's
+  ``peak_bytes`` as ``rank_temp_size_in_bytes``.  The port runs every
+  other layer whole on every rank, so the other archs send nothing.
 """
 from __future__ import annotations
 
@@ -216,17 +212,9 @@ def build(cfg, kind: str, batch: int, seq: int, mesh=None):
 
 def step_cost(cfg, model: LM, kind: str, batch: dict, *, opt=None,
               cache=None, seq: int = 0, microbatch: int = 0,
-              world: int = 1, forward_only: bool = False) -> dict:
+              world: int = 1) -> dict:
     """The cost analysis of the port's step for ``kind`` on ``model``:
-    ``make_train_step`` (or, ``forward_only``, its loss's forward under
-    no_grad), ``make_prefill_step`` or ``make_serve_step``."""
-    if kind == "train" and forward_only:
-        loss = STEP.make_loss_fn(cfg)
-
-        def fn():
-            with torch.no_grad():
-                return loss(model, batch)
-        return CA.analyze(fn, world=world, model=model)
+    ``make_train_step``, ``make_prefill_step`` or ``make_serve_step``."""
     if kind == "train":
         step = STEP.make_train_step(cfg, microbatch=microbatch)
         return CA.analyze(step, model, opt, batch, world=world, model=model)
@@ -286,21 +274,11 @@ def estimate(cfg, shape, mesh, *, microbatch: int = 0,
     rec["placed_bytes"] = rec["placed"]["placed_bytes"]
     rec["collectives"] = {k: {"bytes": 0, "count": 0}
                           for k in CA.COLLECTIVE_OPS}
-    untrainable = kind == "train" and cfg.family not in STEP.TRAINABLE
-    if untrainable:
-        rec["not_ported"] = STEP.UNTRAINABLE.get(cfg.family,
-                                                 "unknown family")
-        rec.update(flops=None, flops_dots=None, bytes_accessed=None,
-                   temp_size_in_bytes=None)
-        return rec
     if on_mesh:
         cost = step_cost(cfg, model, kind, input_specs(cfg, shape), opt=opt,
                          cache=cache, seq=seq, world=mesh.size,
-                         forward_only=True)
+                         microbatch=microbatch)
         rec["collectives"] = collectives_record(cost)
-        rec["collectives_scope"] = ("forward (the backward on a mesh is "
-                                    "not ported)" if kind == "train"
-                                    else "step")
         rec["rank_temp_size_in_bytes"] = cost["peak_bytes"]
         rec["rank_host_bytes"] = cost["host_bytes"]
         rec["top_collectives"] = CA.attribute_collectives(cost)
@@ -330,7 +308,7 @@ def run_cell(arch: str, shape, multi_pod: bool, out_dir: Path,
         mesh = make_production_mesh(multi_pod=multi_pod)
         rec.update(estimate(cfg, shape, mesh, microbatch=microbatch,
                             fsdp=fsdp))
-        rec["status"] = "not_ported" if "not_ported" in rec else "ok"
+        rec["status"] = "ok"
         rec["ok"] = True
     except Exception as e:  # record failures: they are bugs to fix
         rec["status"] = "failed"
@@ -364,7 +342,7 @@ def main(argv=None):
               "both": [False, True]}[args.mesh]
 
     t_all = time.time()
-    n = dict.fromkeys(("ok", "skip", "not_ported", "fail"), 0)
+    n = dict.fromkeys(("ok", "skip", "fail"), 0)
     for arch in archs:
         for shape, skip in C.arch_shapes(arch):
             if args.shape and shape[0] != args.shape:
@@ -387,8 +365,7 @@ def main(argv=None):
                     n["skip"] += 1
                     continue
                 status = rec.get("status", "ok" if rec["ok"] else "failed")
-                n[{"ok": "ok", "not_ported": "not_ported"}.get(
-                    status, "fail")] += 1
+                n["ok" if status == "ok" else "fail"] += 1
                 flops, temp = rec.get("flops"), rec.get("temp_size_in_bytes")
                 print(f"{status.upper()} {rec['cell']} "
                       + (f"flops={flops:.3g} temp={temp / 2**30:.2f}GiB "
@@ -398,7 +375,7 @@ def main(argv=None):
                       + (f" :: {rec.get('error')}" if status == "failed"
                          else ""), flush=True)
     print(f"dry-run complete: ok={n['ok']} skip={n['skip']} "
-          f"not_ported={n['not_ported']} fail={n['fail']} "
+          f"fail={n['fail']} "
           f"({time.time() - t_all:.1f}s)")
     return n["fail"]
 

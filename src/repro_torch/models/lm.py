@@ -22,7 +22,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import ssm
 from repro_torch.models.common import (MLP, Attention, ModelCfg, init_rope,
                                        param, rms_norm)
-from repro_torch.models.moe import MoE
+from repro_torch.models.moe import EXPERT_ROWS, MoE
 
 MAX_ROPE = 1 << 16
 FAMILIES = ("dense", "moe", "vlm", "hybrid", "encdec", "rwkv")
@@ -250,6 +250,15 @@ class LM(nn.Module):
                    else (name,))
             groups.setdefault(key, []).append(name)
         return list(groups.values())
+
+    def sharded_params(self) -> set:
+        """Names of the parameters this rank holds a block of, split over
+        the mesh's 'model' axis (the MoE layers' expert rows); empty
+        without a split."""
+        return {name for name, _ in self.named_parameters()
+                if ".moe." in name and name.rsplit(".", 1)[-1] in
+                EXPERT_ROWS and self.blocks[int(name.split(".")[1])]
+                .moe.split is not None}
 
     def init_cache(self, batch: int, max_len: int) -> dict:
         """Decode cache: ``{"layers": [one dict per layer], "len": int}``;

@@ -27,7 +27,19 @@ path choice is ported with ``torch.distributed`` collectives in place of
   ``_apply_moe_dense`` and computes its experts (all-gathered) or its f
   slice (all-reduced), as GSPMD partitions the reference's dense path.
 
-The collectives have no backward here: the mesh paths refuse autograd.
+The mesh paths are differentiable: each collective is an autograd
+function whose backward is the transpose JAX takes of the reference's
+``shard_map`` (PORT.md, "Hybrid training and gradients on a mesh"): a
+rank's block of a tensor every rank holds (its tokens, its experts'
+rows in decode) gathers its gradient back whole; a gather whose result
+every rank holds takes the rank's block of the gradient, unsummed; an
+all-to-all's gradient is the all-to-all back; the f-split's gathered
+buffers scatter theirs, summed in rank order; an all-reduce's gradient
+passes as it is, ``aux``'s mean divides it; and a weight every rank
+holds whole, where each rank feeds it only its own tokens (the router,
+and the expert rows over the data axes on the EP paths), sums its
+gradient over those ranks.  So every rank ends a backward with the same
+gradients of its replicated parameters and of the layer's input.
 
 Exactness rules the dispatch keeps on every device:
 
@@ -49,9 +61,6 @@ from torch import nn
 from repro_torch.models.common import MLP, ModelCfg, param
 
 EXPERT_ROWS = ("w_gate", "w_up", "w_down")
-NO_GRAD_ON_MESH = ('the MoE layer on a mesh has no backward yet (ROADMAP.md '
-                   'queue 1, "Hybrid training"): run it under '
-                   'torch.no_grad()')
 
 
 def capacity(capacity_factor: float, top_k: int, T: int,
@@ -202,15 +211,143 @@ def _all_gather(t, group):
     return out.reshape(n, *t.shape)
 
 
-def _pmean(v, mesh):
+def _sum_in_order(parts):
+    """parts[0] + parts[1] + ..., in that order."""
+    out = parts[0].clone()
+    for i in range(1, parts.shape[0]):
+        out += parts[i]
+    return out
+
+
+class _Block(torch.autograd.Function):
+    """``take(t)``: this rank's block of a tensor every rank holds whole.
+    Backward: the blocks' gradients joined whole on every rank
+    (``join``), since each rank's block fed only its own computation."""
+
+    @staticmethod
+    def forward(ctx, t, take, join):
+        ctx.join = join
+        return take(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.join(g.contiguous()), None, None
+
+
+class _Join(torch.autograd.Function):
+    """``join(t)``: every rank's block, gathered whole on every rank.
+    Backward: this rank's block of the gradient (``take``), not summed:
+    every rank carries on with the same tensor and the same gradient (a
+    reduce-scatter would give the ranks' count times the gradient)."""
+
+    @staticmethod
+    def forward(ctx, t, take, join):
+        ctx.take = take
+        return join(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.take(g), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    """:func:`_all_to_all`; its gradient is the all-to-all back."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return _all_to_all(t, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, ctx.group), None
+
+
+class _GatherParts(torch.autograd.Function):
+    """:func:`_all_gather` of the f-split's buffers, which each rank
+    multiplies by its own f slice.  Backward: each rank's share of every
+    buffer's gradient sent to the buffer's rank and summed there in rank
+    order (a reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return _all_gather(t, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_in_order(_all_to_all(g, ctx.group)), None
+
+
+class _AllReduce(torch.autograd.Function):
+    """The sum over ``group`` of the ranks' partial ``t``; its gradient
+    passes as it is (every rank holds the sum and its gradient)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        t = t.clone()
+        dist.all_reduce(t, group=group)
+        return t
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Replicated(torch.autograd.Function):
+    """A tensor every rank of ``groups`` holds whole, entering a
+    computation that each rank runs on its own share of the work: the
+    identity forward; backward the gradient summed over each group (the
+    ranks' shares add up to the whole gradient)."""
+
+    @staticmethod
+    def forward(ctx, t, groups):
+        ctx.groups = groups
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        for group in ctx.groups:
+            dist.all_reduce(g, group=group)
+        return g, None
+
+
+class _PMean(torch.autograd.Function):
     """``v`` averaged over 'model', then over each data axis, as the
-    reference's ``pmean`` calls do."""
-    for a in ("model", "pod", "data"):
-        g = mesh.groups.get(a)
-        if g is not None:
-            dist.all_reduce(v, group=g)
-            v = v / mesh.shape[a]
-    return v
+    reference's ``pmean`` calls do; the gradient is divided the same
+    way."""
+
+    @staticmethod
+    def forward(ctx, v, mesh):
+        ctx.sizes = []
+        v = v.clone()
+        for a in ("model", "pod", "data"):
+            g = mesh.groups.get(a)
+            if g is not None:
+                dist.all_reduce(v, group=g)
+                v = v / mesh.shape[a]
+                ctx.sizes.append(mesh.shape[a])
+        return v
+
+    @staticmethod
+    def backward(ctx, g):
+        for n in ctx.sizes:
+            g = g / n
+        return g, None
+
+
+def join_tokens(blk, mesh, B: int, S: int):
+    """Every rank's token block ``blk`` (its :func:`rank_tokens`, [t, d]),
+    gathered back to [B, S, d] on every rank."""
+    d = blk.shape[-1]
+    dp = [a for a in ("pod", "data") if a in mesh.shape]
+    n_dp, tp = int(np.prod([mesh.shape[a] for a in dp])), mesh.shape["model"]
+    # every rank's block, in rank order: row-major over (dp, 'model')
+    blocks = _all_gather(blk.reshape(B // n_dp, S // tp, d),
+                         dist.group.WORLD)
+    return blocks.reshape(n_dp, tp, B // n_dp, S // tp, d).transpose(
+        1, 2).reshape(B, S, d)
 
 
 class MoE(nn.Module):
@@ -253,9 +390,6 @@ class MoE(nn.Module):
         if self.split is None:
             out, aux = self._dense(x.reshape(B * S, d), with_aux)
         else:
-            if torch.is_grad_enabled() and any(
-                    t.requires_grad for t in (x, self.router, self.w_gate)):
-                raise NotImplementedError(NO_GRAD_ON_MESH)
             if S % self.mesh.shape["model"] == 0:
                 out, aux = self._ep(x, with_aux)
             else:
@@ -281,14 +415,22 @@ class MoE(nn.Module):
         buf, dst, keep, gate, counts, _ = local_dispatch(
             xt, probs, me.top_k, cap, E)
         if self.split == "experts":
-            n = self.w_gate.shape[0]
+            n, group = self.w_gate.shape[0], self.mesh.groups["model"]
             lo = self.mesh.coords["model"] * n
-            ye = _all_gather(self._experts_of(buf[lo:lo + n]),
-                             self.mesh.groups["model"]).reshape(E, cap, -1)
+
+            def take(t):
+                return t.narrow(0, lo, n)
+
+            def join(t):
+                return _all_gather(t, group).reshape(E, *t.shape[1:])
+            ye = _Join.apply(self._experts_of(_Block.apply(buf, take, join)),
+                             take, join)
+        elif self.split == "f":
+            group = self.mesh.groups["model"]
+            ye = _AllReduce.apply(self._experts_of(
+                _Replicated.apply(buf, [group])), group)
         else:
             ye = self._experts_of(buf)
-            if self.split == "f":
-                dist.all_reduce(ye, group=self.mesh.groups["model"])
         out = _combine(ye, dst, keep, gate, me.top_k, f32)
         return out, (_aux(probs, counts, keep.sum(), E) if with_aux
                      else None)
@@ -297,7 +439,8 @@ class MoE(nn.Module):
         """``_apply_moe_ep`` / ``_apply_moe_ep_fshard``: this rank's
         tokens through its experts or f slice; the output blocks
         all-gathered back to [B, S, d] (every rank the same) and ``aux``
-        averaged over the ranks."""
+        averaged over the ranks.  The router's gradient is summed over
+        every rank, the expert rows' over the data axes."""
         me, mesh = self.me, self.mesh
         B, S, d = x.shape
         E, tp, group = me.n_experts, mesh.shape["model"], \
@@ -307,9 +450,17 @@ class MoE(nn.Module):
         if B % n_dp:
             raise ValueError(f"batch {B} does not split over the data "
                              f"axes {dp} ({n_dp} ranks)")
-        xt = rank_tokens(x, mesh)
+        def take(t):
+            return rank_tokens(t, mesh)
+
+        def join(t):
+            return join_tokens(t, mesh, B, S)
+        xt = _Block.apply(x, take, join)
         t = xt.shape[0]
-        probs = route(xt, self.router)
+        dp_groups = [mesh.groups[a] for a in dp if mesh.groups.get(a)]
+        w_gate, w_up, w_down = (_Replicated.apply(w, dp_groups) for w in (
+            self.w_gate, self.w_up, self.w_down))
+        probs = route(xt, _Replicated.apply(self.router, [None]))
         cap = capacity(me.capacity_factor, me.top_k, t, E)
         buf, dst, keep, gate, counts, _ = local_dispatch(
             xt, probs, me.top_k, cap, E)
@@ -317,31 +468,24 @@ class MoE(nn.Module):
             # experts scatter over 'model', token chunks gather:
             # recv[e, src * cap + c] = buf of rank src [own experts e, c]
             n = E // tp
-            recv = _all_to_all(buf, group).reshape(tp, n, cap, d)
-            y = self._experts_of(recv.transpose(0, 1).reshape(n, tp * cap,
-                                                              d))
+            recv = _AllToAll.apply(buf, group).reshape(tp, n, cap, d)
+            y = _experts(recv.transpose(0, 1).reshape(n, tp * cap, d),
+                         w_gate, w_up, w_down)
             back = y.reshape(n, tp, cap, d).transpose(0, 1)
-            ye = _all_to_all(back, group).reshape(E, cap, d)
+            ye = _AllToAll.apply(back, group).reshape(E, cap, d)
         else:
             # every expert on this rank's f slice of all ranks' buffers;
             # the partial outputs go back to their senders, summed there
             # in rank order
-            bufs = _all_gather(buf, group)               # [tp, E, cap, d]
-            y = self._experts_of(bufs.transpose(0, 1).reshape(E, tp * cap,
-                                                              d))
-            parts = _all_to_all(y.reshape(E, tp, cap, d).transpose(0, 1),
-                                group)
-            ye = parts[0].clone()
-            for i in range(1, tp):
-                ye += parts[i]
+            bufs = _GatherParts.apply(buf, group)        # [tp, E, cap, d]
+            y = _experts(bufs.transpose(0, 1).reshape(E, tp * cap, d),
+                         w_gate, w_up, w_down)
+            ye = _sum_in_order(_AllToAll.apply(
+                y.reshape(E, tp, cap, d).transpose(0, 1), group))
         out = _combine(ye, dst, keep, gate, me.top_k, f32=True).to(x.dtype)
-        aux = (_pmean(_aux(probs, counts, keep.sum(), E), mesh)
+        aux = (_PMean.apply(_aux(probs, counts, keep.sum(), E), mesh)
                if with_aux else None)
-        # every rank's block, in rank order: row-major over (dp, 'model')
-        blocks = _all_gather(out.reshape(B // n_dp, S // tp, d),
-                             dist.group.WORLD)
-        full = blocks.reshape(n_dp, tp, B // n_dp, S // tp, d)
-        return full.transpose(1, 2).reshape(B * S, d), aux
+        return _Join.apply(out, take, join).reshape(B * S, d), aux
 
 
 def ep_oracle(moe: MoE, x, n_data: int, n_model: int):

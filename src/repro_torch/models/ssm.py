@@ -1,10 +1,12 @@
 """State-space / linear-recurrence blocks: the port of the reference's
 ``repro.models.ssm``.
 
-Mamba (Jamba's hybrid stack) is torch ops: the reference has no Pallas
-kernel for it.  Its parallel form scans 256-token chunks, each chunk's
-decays and drives built inside the loop and its states written over its
-drives, so no tensor spans the whole sequence's [S, d_in, d_state].
+Mamba (Jamba's hybrid stack): its parallel form (prefill and training,
+S > 1) is ``ops.mamba_scan``, the scan kernel (``csrc/mamba_scan.cu``)
+with its backward kernel under grad, which holds no [S, d_in, d_state]
+tensor; one decode token is the recurrence in torch ops.  The reference
+has no Pallas kernel for it (XLA scans 256-token chunks); its in and out
+projections, conv, ``D`` and gate stay torch ops here.
 
 RWKV-6 "Finch" (data-dependent decay): prefill and training (S > 1, S
 divisible by the chunk) run the chunked recurrence through
@@ -21,12 +23,10 @@ from torch import nn
 
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as R
-from repro_torch.kernels import work
 from repro_torch.models.common import ModelCfg, param
 
 HD = 64     # RWKV-6 head size, fixed as in the reference
 CHUNK = 16  # the reference model's chunk (its Pallas wrapper defaults to 64)
-SCAN_CHUNK = 256  # Mamba's parallel scan: tokens a chunk, as the reference
 
 
 class Mamba(nn.Module):
@@ -79,28 +79,19 @@ class Mamba(nn.Module):
         xcf = xc.float()
         h = (torch.zeros((B, d_in, ds), dtype=torch.float32, device=x.device)
              if state is None else state["ssm"])
-        ys = []
-        for c0 in range(0, S, SCAN_CHUNK):
-            sl = slice(c0, min(c0 + SCAN_CHUNK, S))
-            # h_t = exp(dt A) h_{t-1} + dt B_t x_t, in place over the drives
-            dtc = dt[:, sl, :, None]                         # [B, C, 1, 1]
-            decay = torch.exp(dtc * A)                       # [B, C, d_in, ds]
-            hs = (dtc * Bm[:, sl, None, :]) * xcf[:, sl, :, None]
-            if hs.is_meta:
-                # the dry run: the token loop's work credited in one go
-                # (a FLOP an element; h, the decay and the drive read,
-                # the state written), not run a token at a time
-                n = hs.numel()
-                work.credit("mamba_scan", n, 4 * n * hs.element_size(),
-                            products=False)
-                h = hs[:, -1]
-            for t in range(0 if hs.is_meta else hs.shape[1]):
-                hs[:, t].addcmul_(decay[:, t], h)
-                h = hs[:, t]
-            ys.append(torch.einsum("bcen,bcn->bce", hs, Cm[:, sl]))
-            h = h.clone()                    # free the chunk's buffers
-            del decay, hs
-        y = torch.cat(ys, dim=1) if len(ys) > 1 else ys[0]
+        if S > 1:
+            # the parallel form: the scan kernel (its plain token loop on
+            # the CPU), differentiable
+            y, h = ops.mamba_scan(xcf.contiguous(), dt.reshape(B, S),
+                                  A.contiguous(), Bm.contiguous(),
+                                  Cm.contiguous(), h)
+        else:
+            # one token: the recurrent form, as the reference's decode
+            # branch
+            dtc = dt[:, 0, :, None]                          # [B, 1, 1]
+            h = torch.exp(dtc * A) * h + \
+                (dtc * Bm[:, 0, None, :]) * xcf[:, 0, :, None]
+            y = torch.einsum("ben,bn->be", h, Cm[:, 0])[:, None]
         y = y + xcf * self.D
         y = y.to(x.dtype) * torch.nn.functional.silu(z)
         return y @ self.out_proj, {"conv": xpad[:, -3:], "ssm": h}

@@ -4,9 +4,12 @@
 ``make_loss_fn`` / ``make_train_step`` take the config and return
 functions of the model, as the reference's take the config and return
 functions of the parameter tree; the train step updates the model's
-parameters in place (the reference donates them).  Training covers the
-dense, VLM, enc-dec, MoE and RWKV families; the hybrid raises
-``NotImplementedError`` (:data:`TRAINABLE`).
+parameters in place (the reference donates them).  Training covers
+every family (:data:`TRAINABLE`), on one device and, for a model built
+on a mesh (``LM(..., mesh=)``), on every rank of it: the MoE layers'
+backward sums each gradient over the ranks that fed it
+(``models/moe.py``), and AdamW reduces the expert blocks' norm and
+scales over 'model' (``LM.sharded_params``).
 """
 from __future__ import annotations
 
@@ -16,25 +19,16 @@ from repro_torch.models.common import ModelCfg
 from repro_torch.models.lm import LM
 from repro_torch.train import optim
 
-TRAINABLE = ("dense", "vlm", "encdec", "moe", "rwkv")
-# why the other family does not train yet (ROADMAP.md queue 1, item 1,
-# "hybrid training")
-UNTRAINABLE = {
-    "hybrid": "one mamba_moe layer of Jamba-1.5-Large holds 9.66 B "
-              "parameters, about 116 GB of bf16 weights, gradients and "
-              "f32 AdamW moments, so its training needs expert "
-              "parallelism over several cards; and the Mamba scan updates "
-              "its state in place (addcmul_), which needs a "
-              "differentiable form",
-}
+TRAINABLE = ("dense", "vlm", "encdec", "moe", "rwkv", "hybrid")
+# why a family does not train (none: every family of the reference does)
+UNTRAINABLE: dict = {}
 
 
 def _check_trainable(cfg: ModelCfg) -> None:
     if cfg.family not in TRAINABLE:
         raise NotImplementedError(
             f"{cfg.name}: training the {cfg.family} family is not ported "
-            f"yet ({UNTRAINABLE.get(cfg.family, 'unknown family')}; "
-            f"ROADMAP.md queue 1, item 1, hybrid training)")
+            f"({UNTRAINABLE.get(cfg.family, 'unknown family')})")
 
 
 class _Xent(torch.autograd.Function):
@@ -152,8 +146,11 @@ def make_train_step(cfg: ModelCfg, *, peak_lr=3e-4, schedule="cosine",
         else:
             lr = optim.cosine_schedule(opt_state.step, peak_lr=peak_lr,
                                        warmup=warmup, total=total)
+        split = (None if model.mesh is None
+                 else model.mesh.groups.get("model"))
         _, opt_state, gnorm = optim.adamw_update(
-            params, grads, opt_state, lr, groups=model.stacked_groups())
+            params, grads, opt_state, lr, groups=model.stacked_groups(),
+            sharded=model.sharded_params(), group=split)
         return model, opt_state, {"loss": loss, "gnorm": gnorm, "lr": lr}
 
     return train_step

@@ -33,6 +33,7 @@ from repro.models import lm as JLM  # noqa: E402
 from repro.train import optim as JOPT  # noqa: E402
 from repro.train import step as JSTEP  # noqa: E402
 from repro_torch import configs as TC  # noqa: E402
+from repro_torch.kernels import ref as KREF  # noqa: E402
 from repro_torch.kernels import work  # noqa: E402
 from repro_torch.launch import cost_analysis as CA  # noqa: E402
 from repro_torch.launch import dryrun as DR  # noqa: E402
@@ -146,21 +147,31 @@ def test_flops_scale_with_layers():
 
 
 def test_mamba_scan_credit_equals_the_loop():
-    """On ``meta`` the Mamba scan's token loop is credited in one go; its
-    FLOPs and bytes equal what the loop's ops count on the CPU."""
+    """On ``meta`` the Mamba scan (its kernel on the card) is credited in
+    one go with ``work.mamba_scan_work``'s figures; the rest of the layer
+    counts what it counts on the CPU, where the scan is the plain token
+    loop, counted op by op."""
     cfg = TC.get_reduced("jamba_1_5_large")
+    B, S, E, N = 2, 40, 2 * cfg.d_model, cfg.d_state
     costs = []
     for dev in ("cpu", "meta"):
         m = ssm.Mamba(cfg, device=dev,
                       generator=torch.Generator().manual_seed(0)
                       if dev == "cpu" else None)
-        x = torch.zeros((2, 40, cfg.d_model), dtype=cfg.dtype, device=dev)
+        x = torch.zeros((B, S, cfg.d_model), dtype=cfg.dtype, device=dev)
         with torch.no_grad():
             costs.append(CA.analyze(m, x))
     cpu, meta = costs
-    assert meta["credited"]["mamba_scan"]["calls"] == 1
-    assert meta["flops_corrected"] == cpu["flops_corrected"]
-    assert meta["bytes_corrected"] == cpu["bytes_corrected"]
+    f, n_exp, nb = work.mamba_scan_work(B, S, E, N)
+    assert meta["credited"]["mamba_scan"] == {"calls": 1, "flops": f + n_exp,
+                                              "bytes": nb}
+    z = torch.zeros
+    loop = CA.analyze(KREF.mamba_scan_reference, z(B, S, E), z(B, S),
+                      z(E, N), z(B, S, N), z(B, S, N), z(B, E, N))
+    for key, part in (("flops_corrected", "flops"),
+                      ("bytes_corrected", "bytes")):
+        assert meta[key] - meta["credited"]["mamba_scan"][part] == \
+            cpu[key] - loop[key], key
     assert meta["flops_dots"] == cpu["flops_dots"]
 
 

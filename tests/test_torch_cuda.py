@@ -14,8 +14,10 @@ capacity plan), the flow-level engine on ``cuda`` against ``cpu`` for all 11
 schemes (plain, under a capacity plan, stopped at ``t_end``) with a
 cut-down cross-engine cell, the reduced dense and RWKV models on
 ``cuda`` against ``cpu`` within 1e-4, attention's backward kernel
-against its plain version (and its bits stable from call to call), and
-three train steps of reduced models on ``cuda`` against ``cpu``.  They
+against its plain version (and its bits stable from call to call), the
+Mamba scan's kernels against their plain versions and the reduced
+Jamba's loss and gradients, and three train steps of reduced models on
+``cuda`` against ``cpu``.  They
 need a card and skip without one.  On a machine with an H100:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -729,6 +731,103 @@ def test_rwkv6_chunked_bwd_kernel(cuda, B, S, H, chunk, lo, s0, fin, tiny):
     assert ops.LAUNCHES["rwkv6_chunked_bwd"] == 1
     assert torch.equal(y2, y)
     assert all(torch.equal(a, b) for a, b in zip(auto, got))
+
+
+@pytest.mark.parametrize("B,S,E,h0,fin", [
+    (1, 64, 64, False, False), (2, 77, 200, True, True),
+    (1, 1, 64, True, True), (3, 300, 130, True, False),
+    # more blocks than two an SM hold resident
+    (2, 48, 64 * 300, False, True)])
+def test_mamba_scan_kernel(cuda, B, S, E, h0, fin):
+    """The scan's forward kernel (with and without its checkpoint states)
+    and its backward kernel on those states against the plain versions on
+    the CPU: y, the final state, the checkpoints and every gradient within
+    1e-4 of its largest entry, finite; the same bits twice; autograd
+    through ``ops.mamba_scan`` one forward and one backward launch, the
+    same outputs and gradients."""
+    x, Bm, Cm = (RNG.normal(0, 1, (B, S, n)) for n in (E, 16, 16))
+    dt = np.log1p(np.exp(RNG.normal(-1, 1, (B, S))))
+    A = -np.exp(np.log(np.arange(1, 17))[None] + RNG.normal(0, 0.2, (E, 16)))
+    h = RNG.normal(0, 1, (B, E, 16)) * h0
+    ins = [_pair(a, torch.float32, cuda) for a in (x, dt, A, Bm, Cm, h)]
+    dy = _pair(RNG.normal(0, 1, (B, S, E)), torch.float32, cuda)
+    dfin = (_pair(RNG.normal(0, 1, (B, E, 16)), torch.float32, cuda)
+            if fin else (None, None))
+    cpu_ins, card = [c for c, _ in ins], [g for _, g in ins]
+    ops.reset_launches()
+    y, hT, st = ops.mamba_scan_states(*card)
+    y2, hT2 = ops.mamba_scan(*card)
+    got = ops.mamba_scan_bwd(*card[:5], st, dy[1], dfin[1])
+    again = ops.mamba_scan_bwd(*card[:5], st, dy[1], dfin[1])
+    assert (ops.LAUNCHES["mamba_scan"], ops.LAUNCHES["mamba_scan_bwd"]) == \
+        (2, 2)
+    assert torch.equal(y, y2) and torch.equal(hT, hT2)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    wy, whT, wst = ref.mamba_scan_reference(*cpu_ins, states=True)
+    want = ref.mamba_scan_backward_reference(*cpu_ins, dy[0], dfin[0])
+    for name, g, w in zip(("y", "hT", "states", "dx", "ddt", "dA", "dB",
+                           "dC", "dh0"), (y, hT, st, *got),
+                          (wy, whT, wst, *want)):
+        assert g.shape == w.shape and bool(torch.isfinite(g).all()), name
+        scale = max(float(w.abs().max()), 1e-30)
+        assert float((g.cpu() - w).abs().max()) / scale <= 1e-4, name
+    leaves = [g.clone().requires_grad_(True) for g in card]
+    ops.reset_launches()
+    ya, ha = ops.mamba_scan(*leaves)
+    loss = (ya * dy[1]).sum() + ((ha * dfin[1]).sum() if fin else 0.0)
+    auto = torch.autograd.grad(loss, leaves)
+    assert (ops.LAUNCHES["mamba_scan"], ops.LAUNCHES["mamba_scan_bwd"]) == \
+        (1, 1)
+    assert torch.equal(ya, y)
+    assert all(torch.equal(a, b) for a, b in zip(auto, got))
+
+
+def test_mamba_scan_kernel_refuses_what_it_does_not_take(cuda):
+    """bf16 inputs and a d_state other than 16 raise on the card (the
+    plain version on the CPU takes both)."""
+    B, S, E = 1, 8, 64
+    ins = [torch.zeros(s, device=cuda) for s in
+           ((B, S, E), (B, S), (E, 16), (B, S, 16), (B, S, 16), (B, E, 16))]
+    with pytest.raises(ValueError, match="must be torch.float32"):
+        ops.mamba_scan(ins[0].bfloat16(), *ins[1:])
+    eight = [torch.zeros(s, device=cuda) for s in
+             ((B, S, E), (B, S), (E, 8), (B, S, 8), (B, S, 8), (B, E, 8))]
+    with pytest.raises(ValueError, match="d_state must be 16"):
+        ops.mamba_scan(*eight)
+    ops.mamba_scan(*[t.cpu() for t in eight])
+
+
+def test_hybrid_loss_and_grads_on_card_equal_cpu(cuda):
+    """The reduced Jamba in f32: the loss and every gradient of
+    ``make_loss_fn`` (remat) on the card within 1e-4 of the CPU's, each
+    relative to its tensor's largest entry; the Mamba scan launched twice
+    a Mamba layer (the forward and remat's recomputation) and its
+    backward once."""
+    from repro_torch.train import step as STEP
+    cfg = dataclasses.replace(C.get_reduced("jamba_1_5_large"),
+                              dtype=torch.float32)
+    cpu = LM(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    gpu = copy.deepcopy(cpu).to(cuda)
+    toks = torch.as_tensor(RNG.integers(0, cfg.vocab, (4, 65)))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    loss_fn = STEP.make_loss_fn(cfg)
+    out = []
+    for model, dev in ((cpu, "cpu"), (gpu, cuda)):
+        model.requires_grad_(True)
+        ops.reset_launches()
+        loss, _ = loss_fn(model, {k: v.to(dev) for k, v in batch.items()})
+        named = dict(model.named_parameters())
+        out.append((float(loss.detach()), dict(zip(named, torch.autograd.grad(
+            loss, list(named.values()))))))
+    n_mamba = sum(b.kind.startswith("mamba") for b in cpu.blocks)
+    assert (ops.LAUNCHES["mamba_scan"], ops.LAUNCHES["mamba_scan_bwd"]) == \
+        (2 * n_mamba, n_mamba)
+    (lc, gc), (lg, gg) = out
+    assert abs(lg - lc) <= 1e-4
+    for n, w in gc.items():
+        err = float((gg[n].cpu() - w).abs().max()) / max(
+            float(w.abs().max()), 1e-30)
+        assert err <= 1e-4, (n, err)
 
 
 @pytest.mark.parametrize("arch", ["phi3_medium_14b", "qwen2_5_32b",

@@ -12,6 +12,7 @@ through ``cache_specs``.  A leaf's bytes are its elements over the
 product of its sharded extents (rounded up per dimension, as XLA pads),
 times its element size.
 """
+import dataclasses
 import functools
 import math
 import os
@@ -272,15 +273,29 @@ def test_full_width_cell_allocates_nothing_on_the_host():
 
 
 def test_hybrid_train_cell_is_not_ported():
-    """Jamba's train cells keep their bytes; FLOPs and temp are null, the
-    reason is ``UNTRAINABLE``'s, and the guard still raises."""
-    rec = DR.estimate(DR.config_of("jamba_1_5_large"), TRAIN,
-                      make_production_mesh())
-    assert rec["not_ported"] == TSTEP.UNTRAINABLE["hybrid"]
-    assert rec["flops"] is None and rec["temp_size_in_bytes"] is None
+    """The hybrid family trains, so Jamba's train cells carry the step's
+    bytes, FLOPs and temp, its mesh pass the backward's collectives too
+    (one 8-layer unit at published width, the cell's shapes, on the
+    production mesh): the Mamba scan credited twice a Mamba layer (the
+    forward and remat's recomputation) and its backward once, attention
+    likewise."""
+    cfg = dataclasses.replace(DR.config_of("jamba_1_5_large"), n_layers=8)
+    rec = DR.estimate(cfg, TRAIN, make_production_mesh())
+    assert "not_ported" not in rec
+    assert rec["flops"] > 0 and rec["bytes_accessed"] > 0
+    assert rec["temp_size_in_bytes"] > 0 and rec["rank_temp_size_in_bytes"] > 0
     assert rec["argument_size_in_bytes"] > 0 and rec["placed_bytes"] > 80e9
-    with pytest.raises(NotImplementedError):
-        TSTEP.make_train_step(TC.get_config("jamba_1_5_large"))
+    cred = rec["credited"]
+    assert cred["mamba_scan"]["calls"] == 2 * 7
+    assert cred["mamba_scan_bwd"]["calls"] == 7
+    assert cred["flash_attention"]["calls"] == 2
+    assert cred["flash_attention_bwd"]["calls"] == 1
+    # the MoE layers' backward: the gradients' all-to-alls back and the
+    # router's and expert rows' sums over the ranks that fed them
+    coll = rec["collectives"]
+    assert coll["all-to-all"]["count"] == 4 * 2 * 3
+    assert coll["all-reduce"]["count"] > 0
+    TSTEP.make_train_step(TC.get_config("jamba_1_5_large"))
 
 
 def test_run_cell_writes_a_record(tmp_path):

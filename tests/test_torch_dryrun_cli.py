@@ -1,7 +1,7 @@
 """The dry run's command line (``python -m repro_torch.launch.dryrun``)
 over every full-width cell of one shape, on the CPU: ``decode_32k`` for
-the ten configs on both production meshes, 20 records, each ``ok`` (or
-``not_ported``), none failed; a second call reads the records back."""
+the ten configs on both production meshes, 20 records, each ``ok``,
+none failed; a second call reads the records back."""
 import json
 
 import pytest
@@ -19,7 +19,7 @@ def test_cli_writes_a_record_for_every_decode_cell(tmp_path, capsys):
     assert len(recs) == 2 * len(TC.ARCHS) == 20
     assert {r["arch"] for r in recs} == set(TC.ARCHS)
     for r in recs:
-        assert r["status"] in ("ok", "not_ported") and r["ok"], r.get("error")
+        assert r["status"] == "ok" and r["ok"], r.get("error")
         assert r["shape"] == "decode_32k" and r["kind"] == "decode"
         assert r["flops"] > 0 and r["bytes_accessed"] > 0
         assert r["placed"]["cache_bytes"] > 0
@@ -27,7 +27,7 @@ def test_cli_writes_a_record_for_every_decode_cell(tmp_path, capsys):
         sent = sum(v["bytes"] for v in r["collectives"].values())
         assert (sent > 0) == (TC.get_config(r["arch"]).moe is not None)
     out = capsys.readouterr().out
-    assert "dry-run complete: ok=20 skip=0 not_ported=0 fail=0" in out
+    assert "dry-run complete: ok=20 skip=0 fail=0" in out
     assert DR.main(["--shape", "decode_32k", "--out", str(tmp_path),
                     "--arch", "rwkv6_7b", "--mesh", "single"]) == 0
     assert "ok=1 skip=0" in capsys.readouterr().out

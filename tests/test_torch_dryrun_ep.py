@@ -10,7 +10,10 @@ shape that holds only its sizes (``dryrun.mesh_of``), from the call
 shapes (``cost_analysis.analyze``).  Reduced MoE layers: the all-to-all
 path (E 8) and the f-split path (E 6) on (1, 4), the all-to-all path on
 (2, 2) (``aux`` averaged over both axes), the decode path (S 3) of each
-split, and a reduced Mixtral ``LM``'s prefill on (1, 4).
+split, and a reduced Mixtral ``LM``'s prefill on (1, 4); then a forward
+and backward of the all-to-all and f-split paths on (1, 4), of the
+all-to-all path on (2, 2) and of the f-split decode path, whose
+gradients add collectives of their own.
 """
 import dataclasses
 import json
@@ -37,8 +40,25 @@ CASES = {"a2a": (8, (1, 4), (2, 16)), "fshard": (6, (1, 4), (2, 16)),
          "a2a_mesh22": (8, (2, 2), (2, 16)),
          "a2a_decode": (8, (1, 4), (4, 3)),
          "fshard_decode": (6, (1, 4), (4, 3)),
-         "lm_prefill": (4, (1, 4), None)}
+         "lm_prefill": (4, (1, 4), None),
+         # a forward and backward of out.sum() + aux: the backward's
+         # collectives too
+         "a2a_grad": (8, (1, 4), (2, 16)),
+         "fshard_grad": (6, (1, 4), (2, 16)),
+         "a2a_mesh22_grad": (8, (2, 2), (2, 16)),
+         "fshard_decode_grad": (6, (1, 4), (4, 3))}
 LM_TOKENS = (2, 8)
+
+
+def step(m, x, grad: bool):
+    """The MoE layer's forward on x and, with ``grad``, the gradient of
+    ``out.sum() + aux`` in x and every parameter."""
+    if grad:
+        m.requires_grad_(True)
+        x = x.requires_grad_(True)
+    out, aux = m(x, with_aux=True)
+    if grad:
+        torch.autograd.grad(out.sum() + aux, [x, *m.parameters()])
 
 
 def cfg_of(E):
@@ -57,6 +77,7 @@ from test_torch_dryrun_ep import CASES, LM_TOKENS, cfg_of
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models.lm import LM
 from repro_torch.models.moe import MoE
+from test_torch_dryrun_ep import step
 
 d, rank = sys.argv[1], int(sys.argv[2])
 dist.init_process_group("gloo", init_method="file://" + os.path.join(
@@ -89,14 +110,15 @@ for name, (E, shape, xs) in CASES.items():
     gen = torch.Generator().manual_seed(0)
     cfg = cfg_of(E)
     moved.clear()
-    with torch.no_grad():
+    grad = name.endswith("_grad")
+    with torch.set_grad_enabled(grad):
         if xs is None:
             m = LM(cfg, device="cpu", generator=gen, mesh=mesh)
             m(torch.zeros(LM_TOKENS, dtype=torch.long), with_aux=True)
         else:
             m = MoE(cfg, device="cpu", generator=gen, mesh=mesh)
             x = torch.randn((*xs, cfg.d_model), generator=gen)
-            m(x, with_aux=True)
+            step(m, x, grad)
     out[name] = dict(moved)
 with open(os.path.join(d, f"rank{rank}.json"), "w") as f:
     json.dump(out, f)
@@ -138,8 +160,10 @@ def test_collective_bytes_from_call_shapes_equal_gloo(moved, name):
     else:
         m = MoE(cfg, device="meta", mesh=mesh)
         x = torch.empty((*xs, cfg.d_model), device="meta")
-    with torch.no_grad():
-        cost = CA.analyze(m, x, with_aux=True, world=W)
+    grad = name.endswith("_grad")
+    with torch.set_grad_enabled(grad):
+        cost = (CA.analyze(step, m, x, grad, world=W) if xs is not None
+                else CA.analyze(m, x, with_aux=True, world=W))
     want = {k: [cost["collective_bytes"][k], cost["collective_counts"][k]]
             for k in CA.COLLECTIVE_OPS if cost["collective_counts"][k]}
     assert want

@@ -26,8 +26,9 @@ all drawn with numpy from fixed seeds.
   EP;
 - an MoE ``LM`` on the mesh (``convert.from_jax_params(mesh=)``), its
   prefill and decode logits against the reference's ``lm.forward`` /
-  ``decode_step`` (dropless); every rank the same logits;
-- autograd on the mesh raises.
+  ``decode_step`` (dropless); every rank the same logits.
+
+The gradients on the mesh are ``tests/test_torch_moe_ep_grad.py``'s.
 """
 import json
 import os
@@ -216,13 +217,6 @@ with torch.no_grad():
             steps.append(lg.numpy())
         res[name] = {"logits": logits.numpy(), "decode": np.stack(steps),
                      "rows": tuple(model.blocks[0].moe.w_gate.shape)}
-c = spec["moe"]["a2a8_cf1"]
-m = layer(cfg_of(c), data["a2a8_cf1"]["params"], mesh_of(c["mesh"]))
-try:
-    m(torch.from_numpy(data["a2a8_cf1"]["x"]).requires_grad_(True))
-    res["grad_error"] = None
-except NotImplementedError as e:
-    res["grad_error"] = str(e)
 pickle.dump(res, open(os.path.join(d, f"rank{rank}.pkl"), "wb"))
 dist.barrier()
 dist.destroy_process_group()
@@ -438,12 +432,6 @@ def test_lm_on_mesh_equals_reference(runs, name):
                                       ranks[0][name]["logits"])
         np.testing.assert_array_equal(res["decode"],
                                       ranks[0][name]["decode"])
-
-
-def test_autograd_on_mesh_raises(runs):
-    for got in runs[2]:
-        assert got["grad_error"] is not None
-        assert "Hybrid training" in got["grad_error"]
 
 
 def test_lm_on_mesh_draws_the_one_card_model():

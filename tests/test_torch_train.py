@@ -223,14 +223,18 @@ def test_loss_and_grads_match_reference(arch, remat):
 
 
 def test_unported_families_raise():
-    """The hybrid family (Jamba) does not train yet; the others do
-    (``tests/test_torch_train_families.py``)."""
-    for arch in ("jamba_1_5_large",):
-        cfg = TC.get_reduced(arch)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TSTEP.make_loss_fn(cfg)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TSTEP.make_train_step(cfg)
+    """Every family of the reference trains (the hybrid since
+    ``tests/test_torch_train_hybrid.py``), so none is left to raise but a
+    family the reference does not have."""
+    assert TSTEP.UNTRAINABLE == {}
+    for arch in ("jamba_1_5_large", "minicpm_2b"):
+        TSTEP.make_loss_fn(TC.get_reduced(arch))
+        TSTEP.make_train_step(TC.get_reduced(arch))
+    cfg = dataclasses.replace(TC.get_reduced("minicpm_2b"), family="other")
+    with pytest.raises(NotImplementedError, match="unknown family"):
+        TSTEP.make_loss_fn(cfg)
+    with pytest.raises(NotImplementedError, match="unknown family"):
+        TSTEP.make_train_step(cfg)
 
 
 # ----------------------------------------------------------- train step

@@ -12,8 +12,7 @@ scales, router and Mamba's f32 vectors in f32), gradients of the same
 dtypes, AdamW's f32 ``m`` and ``v`` and its step.  Prints one Markdown
 row a depth: layers, the kinds added, parameters a rank, state GB, and
 what an 80 GB card has left for activations.  Nothing is allocated and
-no step runs (the hybrid family does not train yet:
-``train.step.UNTRAINABLE``).
+no step runs (``launch/dryrun.py``'s train records add the step's temp).
 """
 from __future__ import annotations
 
