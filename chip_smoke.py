@@ -204,13 +204,16 @@ Phases (any failure exits non-zero before the final line):
    checkpoints every 16 tokens, and ``ops.mamba_scan_bwd``) against
    ``ref.mamba_scan_reference`` / ``ref.mamba_scan_backward_reference``
    at Jamba's width (d_in 16,384, d_state 16, f32) over 1 and 2 x 2,048
-   tokens, h0 zero and not, with a final state's gradient, and at a
-   ragged size: y, the final state, the checkpoints and every gradient
-   within 1e-4 of its largest entry, the same bits twice, autograd one
-   launch each way; ptxas registers, stack and spills (a stack frame or
-   spills fail), the backward's blocks an SM (at least 2), CUDA-event and
-   profiler times of the kernels and plain versions, and the bound (the
-   exponentials at 16 a clock an SM: ``work.mamba_scan_work``);
+   tokens, h0 zero and not, with a final state's gradient, and at the
+   tiles' edges (S 77 and 40, S 5 under one 16-token sub-tile, d_in 200,
+   130 and 4,100, B 3): y, the final state, the checkpoints and every
+   gradient within 1e-4 of its largest entry, the same bits twice,
+   autograd one launch each way, the decays within 3 ulp of exp of the
+   rounded dt A; ptxas registers, stack and spills (a stack frame or
+   spills fail), the backward's blocks an SM (at least 2), the forward's
+   grid at B 1 in one wave, CUDA-event and profiler times of the kernels
+   and plain versions, and the bound (the exponentials at 16 a clock an
+   SM: ``work.mamba_scan_work``);
 6b. training card against CPU: reduced MiniCPM, Phi-3, LLaVA,
    DeepSeek-MoE, Whisper (seeded frames [4, 64, d]), RWKV-6 and Jamba in
    f32, the loss within 1e-4 and every gradient within 1e-4 of its
@@ -1703,11 +1706,48 @@ def check_rwkv_bwd(ops, ref, torch, np, ptxas: dict, smem, blocks,
 MAMBA_CASES = (("jamba train B1", 1, 2048, 16384, False, False),
                ("jamba train B2 h0 and dh_final", 2, 2048, 16384, True,
                 True),
-               ("ragged", 2, 77, 200, True, True))
+               ("ragged", 2, 77, 200, True, True),
+               # the tiles' edges: S under one 16-token sub-tile, d_in 4
+               # past a multiple of both kernels' blocks (64 and 128
+               # channels); B 3 with S not a multiple of the sub-tile and
+               # d_in not a multiple of 4 (the 4-byte copies)
+               ("short", 1, 5, 4100, True, True),
+               ("B3 ragged", 3, 40, 130, True, False))
+# the decays' largest ulp distance from exp of the rounded dt A (in f64)
+# that phase 5b allows: ex2.approx's 2 ulp and one rounding of its
+# correction, the accuracy of expf
+MAMBA_DECAY_ULP = 3.0
+
+
+def mamba_decay_ulps(ops, torch, np, dt, A) -> dict:
+    """The forward kernel's decays exp(dt A) at S 1 (x 0, h0 1: the final
+    state is the decay) for every dt of a case and A's first 256
+    channels, against exp of the f32 product dt A taken in f64: the
+    largest distance in ulp of the kernel's and of ``torch.exp`` on the
+    card (outside ftz's range below 2**-126, which both flush or not)."""
+    dev = dt.device
+    d = dt.reshape(-1)
+    a = A[:256].contiguous()
+    R, E = d.numel(), a.shape[0]
+    z = torch.zeros(R, 1, E, device=dev)
+    zb = torch.zeros(R, 1, 16, device=dev)
+    _, got = ops.mamba_scan(z, d.reshape(R, 1), a, zb, zb,
+                            torch.ones(R, E, 16, device=dev))
+    prod = d[:, None, None] * a[None]
+    card = torch.exp(prod)
+    want = np.exp(prod.double().cpu().numpy())
+    ulp = np.spacing(want.astype(np.float32)).astype(np.float64)
+    keep = want >= np.finfo(np.float32).tiny
+    out = {}
+    for name, t in (("kernel", got), ("torch.exp", card)):
+        dist = np.abs(t.double().cpu().numpy() - want) / ulp
+        out[name] = float(dist[keep].max())
+    out["elements"] = int(keep.sum())
+    return out
 
 
 def check_mamba_scan(ops, ref, torch, np, ptxas: dict, blocks,
-                     dev="cuda") -> dict:
+                     fwd_blocks, fwd_channels, dev="cuda") -> dict:
     """Phase 5b: the Mamba scan's kernels (``ops.mamba_scan_states``, the
     forward writing its checkpoint states, and ``ops.mamba_scan_bwd``)
     against ``ref.mamba_scan_reference`` and
@@ -1718,8 +1758,11 @@ def check_mamba_scan(ops, ref, torch, np, ptxas: dict, blocks,
     gradient within 1e-4 of its largest entry; the same bits twice; the
     serving launch (no states) the same y; autograd through
     ``ops.mamba_scan`` one forward and one backward launch, the same
-    gradients.  The kernels' ptxas registers, stack and spills (a stack
-    frame or spills fail), the backward's blocks an SM, CUDA-event and
+    gradients; the decays within ``MAMBA_DECAY_ULP`` of exp of the rounded
+    dt A.  The kernels' ptxas registers, stack and spills (a stack frame or
+    spills fail), the backward's blocks an SM (2 of 128 threads at least:
+    its 64 KB of slots and its decays in registers), the forward's blocks
+    an SM and its grid at B 1 resident in one wave, CUDA-event and
     profiler times of each kernel and plain version, and the bound
     (``work.mamba_scan_work``: exponentials at 16 a clock an SM)."""
     rng = np.random.default_rng(11)
@@ -1732,21 +1775,28 @@ def check_mamba_scan(ops, ref, torch, np, ptxas: dict, blocks,
         return float((got - want).abs().max()) / max(
             float(want.abs().max()), 1e-30)
     ents = ptxas_entries(ptxas.get("mamba_scan", ""))
+    # the forward, the backward's scan and its sums: one instantiation each
     if len(ents) != 3:
         fail(f"mamba_scan: want 3 kernels in the ptxas report, got "
              f"{sorted(ents)}")
     if any(v["stack_bytes"] or v["spill_bytes"] for v in ents.values()):
         fail(f"mamba_scan: a stack frame or spills in the ptxas report: "
              f"{ents}")
-    nblk = blocks()
+    nblk, fblk, fch = blocks(), fwd_blocks(), fwd_channels()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     print("kernel mamba_scan ptxas (registers / static shared memory / "
           "stack / spill bytes): " + ", ".join(
               f"{k} {v['registers']} / {v['smem_bytes']} / "
               f"{v['stack_bytes']} / {v['spill_bytes']}"
               for k, v in sorted(ents.items()))
-          + f"; backward blocks an SM {nblk}", flush=True)
+          + f"; backward blocks an SM {nblk}; forward blocks an SM {fblk} "
+          f"({fch} channels a block, {-(-16384 // fch)} blocks at B 1 on "
+          f"{sms} SMs)", flush=True)
     if nblk < 2:
         fail(f"mamba_scan_bwd: {nblk} blocks an SM, want 2")
+    if fblk < 1 or -(-16384 // fch) > fblk * sms:
+        fail(f"mamba_scan: {fblk} forward blocks an SM of {fch} channels "
+             f"do not hold Jamba's d_in 16,384 at B 1 in one wave")
     out = {}
     for label, B, S, E, h0z, fin in MAMBA_CASES:
         x, Bm, Cm = rand(B, S, E), rand(B, S, 16), rand(B, S, 16)
@@ -1798,6 +1848,11 @@ def check_mamba_scan(ops, ref, torch, np, ptxas: dict, blocks,
             fail(f"mamba_scan {label}: relative errors {errs} (tol 1e-4), "
                  f"same bits twice {same}, finite {finite}, autograd one "
                  f"launch each way with the same gradients {auto_ok}")
+        ulps = mamba_decay_ulps(ops, torch, np, dt, A)
+        if ulps["kernel"] > MAMBA_DECAY_ULP:
+            fail(f"mamba_scan {label}: decays {ulps['kernel']:.3g} ulp from "
+                 f"exp of the rounded dt A (allowed {MAMBA_DECAY_ULP}; "
+                 f"torch.exp on the card {ulps['torch.exp']:.3g})")
         del leaves, ya, ha, auto, loss, yr, hr, sr, want
         fwd_w = mamba_scan_work(B, S, E, 16)
         fst_w = mamba_scan_work(B, S, E, 16, states=True)
@@ -1829,7 +1884,10 @@ def check_mamba_scan(ops, ref, torch, np, ptxas: dict, blocks,
               f"16, f32): y, final state, checkpoints and every gradient "
               f"within {worst:.3g} of the plain versions' largest entries "
               f"(tol 1e-4: {', '.join(f'{k} {v:.2g}' for k, v in errs.items())}"
-              f"); the same bits twice; autograd one launch each way. "
+              f"); the same bits twice; autograd one launch each way; "
+              f"decays at most {ulps['kernel']:.3g} ulp from exp of the "
+              f"rounded dt A in f64 (torch.exp on the card "
+              f"{ulps['torch.exp']:.3g}; {ulps['elements']} decays). "
               f"Forward {t['fwd']:.4f} ms wrapper, {dev_fwd:.4f} device "
               f"({timed_by(f'mamba_scan {label}')}), with states "
               f"{t['fwd_states']:.4f}, plain {t['plain_fwd']:.2f}; bound "
@@ -1845,6 +1903,7 @@ def check_mamba_scan(ops, ref, torch, np, ptxas: dict, blocks,
                                         "dh0"))
         out[f"mamba {label}"] = dict(
             max_abs_err=abs_fwd, rel_err=fwd_err, ms=t["fwd"],
+            decay_ulp=ulps["kernel"], torch_exp_ulp=ulps["torch.exp"],
             states_ms=t["fwd_states"], plain_ms=t["plain_fwd"],
             device_ms=dev_fwd, bound_ms=f_bound, states_bound_ms=s_bound,
             bound_by=f_by, library_ms=None)
@@ -1863,6 +1922,7 @@ def check_mamba_scan(ops, ref, torch, np, ptxas: dict, blocks,
         k: {kk: v[kk] for kk in ("registers", "smem_bytes", "stack_bytes",
                                  "spill_bytes")} for k, v in ents.items()}
     out["mamba_scan_bwd"]["blocks_per_sm"] = nblk
+    out["mamba_scan"]["blocks_per_sm"] = fblk
     return out
 
 
@@ -4224,7 +4284,9 @@ def main() -> None:
     mamba_lib = ctypes.CDLL(str(_build.build()["mamba_scan"]))
     nums.update(check_mamba_scan(ops, KREF, torch, np,
                                  _build.BUILD_INFO.get("ptxas", {}),
-                                 mamba_lib.mamba_scan_bwd_blocks_per_sm))
+                                 mamba_lib.mamba_scan_bwd_blocks_per_sm,
+                                 mamba_lib.mamba_scan_fwd_blocks_per_sm,
+                                 mamba_lib.mamba_scan_fwd_channels))
     reduced_hybrid = train_card_vs_cpu(C, LM, STEP, OPT, ops, KREF, torch,
                                        np)
     for k in ("mamba_scan", "mamba_scan_bwd"):

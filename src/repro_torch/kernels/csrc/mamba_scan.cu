@@ -32,57 +32,190 @@
 // SM (132 SMs, 1.98 GHz), against its 268 MB of x and y (0.080 ms at
 // 3.35 TB/s) and ~3.2 GFLOP of f32 FMAs (0.048 ms at 67 TFLOP/s): bound
 // by the exponentials (kernels/work.py, mamba_scan_work).  The backward
-// needs the same exponentials once more and reads x, dy and the
-// checkpoints, writes dx: also bound by the exponentials.
+// needs the same exponentials once and ~21 FLOPs a state element: bound
+// by its FLOPs.  What holds both back in practice is the issue rate: a
+// warp issues one instruction a clock, so every instruction spent on a
+// state element beyond the FMAs and the one exponential counts.
 //
-// Design: a block holds 64 channels of one batch, four threads a
-// channel, four states a thread, so a channel's sum over its 16 states
-// is a thread's four FMAs and two shuffles.  The forward stages 64-token
-// tiles of x, dt, B and C in shared memory, the next tile's loads in
-// registers while the current one is scanned; every decay is one expf
-// (one ex2.approx on the SFU after an exact split of dt A log2(e) on
-// the FMA pipe, within 2 ulp of exp: the trained model's gradients sum
-// many decays, and ex2.approx of a rounded dt A log2(e) alone is off by
-// |dt A| ulp).  The backward takes segments of K = 16
-// tokens, last first: the segment's tiles are staged (the previous
-// segment's loads in flight), its 16 states recomputed from the
-// checkpoint into shared memory, then walked in reverse, the decay
-// raised again.  Its cross-channel sums (dB, dC over the 64 channels of
-// a block; ddt over them and the states) leave each warp as a
-// reduce-scatter of shuffles, are summed over the block's warps in a
-// fixed order and written as per-block partials; a second kernel sums
-// the partials over the blocks (and dA's over the batch) in a fixed
-// order; ddt's sums over the channels and dA's over the segments and the
-// batch run in f64.  No atomics: the same inputs give the same bits.
+// The decay: exp(x) with x = dt A rounded as the reference rounds it,
+// as one ex2.approx on the SFU of p = x log2(e) (rounded), times
+// 1 + err ln 2, where err = x log2(e) - p is formed exactly on the FMA
+// pipe from a hi/lo split of log2(e): within ex2.approx's 2 ulp, the
+// accuracy of expf, at 7 instructions an element against expf's ~9
+// (ex2.approx of the rounded p alone is off by |dt A| ulp, which the
+// trained model's dt_bias gradient, a sum of many decays, shows).
+//
+// Forward design: a block of 128 threads, MAMBA_FWD_NS (16) states a
+// thread, so a thread owns a whole channel: y's sum over the states is
+// in the thread (no shuffles) and a warp stores y as one coalesced row
+// of 32 channels a token.  dt, B and C come through a two-tile cp.async
+// ring in shared memory (64 tokens a tile), where dt B is formed once a
+// token for the whole block; x comes straight from device memory, a
+// 16-token sub-tile ahead in registers.  Each 16-token sub-tile (one
+// checkpoint segment) is unrolled, so its decays and drives, which do
+// not depend on h, issue ahead of the serial FMA chain; tokens past S
+// have dt 0 and x 0 (decay 1, drive 0) and change no state.
+//
+// Backward design: a block of 128 threads holds 64 channels of one batch,
+// four channels by two states a thread, so dB's and dC's sums over the
+// channels start in the thread (four channels) and dx's over the states
+// (two).  A segment of K = 16 tokens is staged by cp.async (the next
+// segment's copies in flight), its states rebuilt from the checkpoint,
+// each decay raised once and kept in registers (both 16-token loops
+// unrolled), then walked in reverse.  A thread's shared-memory slot of
+// token k holds its h_k, read once by the walk, then its partials of dB,
+// dC and dx for token k; after the walk the block sums the slots over
+// the channels (dB, dC) and the states (dx) in a fixed order, writes dx
+// as coalesced rows and dB, dC and ddt (summed in f64 over the block) as
+// per-block partials; a second kernel sums the partials over the blocks
+// (and dA's over the batch) in a fixed order; ddt's sums over the
+// channels and dA's over the segments and the batch run in f64.  No
+// atomics: the same inputs give the same bits.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#ifndef MAMBA_FWD_NS
+#define MAMBA_FWD_NS 8
+#endif
 
 namespace {
 
 constexpr int N = 16;          // d_state
-constexpr int CH = 64;         // channels a block
-constexpr int THREADS = 256;   // four a channel, four states each
-constexpr int WARPS = THREADS / 32;
-constexpr int TF = 64;         // tokens a forward tile
-constexpr int K = 16;          // tokens between checkpoints
+constexpr int K = 16;          // tokens between checkpoints: a sub-tile
 constexpr unsigned FULL = 0xffffffffu;
 
-static_assert(TF % K == 0, "a forward tile holds whole segments");
-static_assert(K * N == THREADS, "one B and one C element a thread");
+// the forward
+constexpr int F_THREADS = 128;
+constexpr int F_NS = MAMBA_FWD_NS;       // states a thread
+constexpr int F_TPC = N / F_NS;          // threads a channel
+constexpr int F_CH = F_THREADS / F_TPC;  // channels a block
+constexpr int TF = 64;                   // tokens a staged tile
+static_assert(F_NS == 4 || F_NS == 8 || F_NS == 16, "4, 8 or 16 states");
+static_assert(TF % K == 0, "a tile holds whole sub-tiles");
 
-// shared memory of the backward, in floats
-constexpr int B_HIST = 0;                        // [K][THREADS] float4
-constexpr int B_DDT = B_HIST + 4 * K * THREADS;  // [K][THREADS]
-constexpr int B_RED = B_DDT + K * THREADS;       // [WARPS][K][32]
-constexpr int B_X = B_RED + WARPS * K * 32;      // [K][CH]
-constexpr int B_DY = B_X + K * CH;               // [K][CH]
-constexpr int B_B = B_DY + K * CH;               // [K][N]
-constexpr int B_C = B_B + K * N;                 // [K][N]
-constexpr int B_DT = B_C + K * N;                // [K]
-constexpr int B_TOTAL = B_DT + K;
+// the backward
+constexpr int THREADS = 128;
+constexpr int CH = 64;                   // channels a block (the partials)
+constexpr int CT = 4, NT = 2;            // a thread's channels and states
+constexpr int EL = CT * NT;              // its state elements
+static_assert((CH / CT) * (N / NT) == THREADS, "one tile a thread");
+static_assert(EL == 8, "a slot is two float4");
+
+// shared memory of the backward, in floats: a thread's slots [K][THREADS]
+// of EL floats (its h_k, then its partials), ddt's partials [K][DDT_LD],
+// dA's f64 sums [4][THREADS] double2, then two stages of a
+// segment: x, dy [K][CH], B, C [K][N], dt [K], the checkpoint [CH][N]
+constexpr int DDT_LD = THREADS + 8;       // conflict-free f64 sums
+constexpr int B_HIST = 0;
+constexpr int B_DDT = B_HIST + K * THREADS * EL;
+constexpr int B_DA = B_DDT + K * DDT_LD;
+constexpr int B_STAGE = B_DA + 4 * THREADS * 4;
+constexpr int ST_X = 0, ST_DY = ST_X + K * CH, ST_B = ST_DY + K * CH,
+              ST_C = ST_B + K * N, ST_DT = ST_C + K * N, ST_CK = ST_DT + K,
+              ST_SIZE = ST_CK + CH * N;
+constexpr int B_TOTAL = B_STAGE + 2 * ST_SIZE;
 constexpr size_t BWD_SMEM = B_TOTAL * sizeof(float);
+static_assert(B_DDT % 4 == 0 && B_DA % 4 == 0 &&
+                  B_STAGE % 4 == 0 && ST_CK % 4 == 0 && ST_SIZE % 4 == 0,
+              "16-byte aligned regions");
 
-__global__ void __launch_bounds__(THREADS)
+constexpr float LOG2E_HI = 1.44269502162933349609375f;   // f32(log2 e)
+constexpr float LOG2E_LO = 1.925963033500011079e-08f;    // log2 e - HI
+constexpr float LN2 = 0.693147180559945309f;
+
+__device__ __forceinline__ float ex2_approx(float p) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(p));
+  return r;
+}
+
+// exp(d a) for d a <= 0: the product rounded as the reference rounds it,
+// p = x log2(e) raised on the SFU, its rounding error err (exact to
+// ~2^-48 of p) applied as 1 + err ln 2
+__device__ __forceinline__ float decay(float d, float a) {
+  const float x = d * a;
+#ifdef MAMBA_EXPF
+  return expf(x);
+#else
+  // p through inline PTX: seen through, the compiler forms -p as a second
+  // product x (-log2 e) instead of negating p in the fma
+  float p;
+  asm("mul.rn.f32 %0, %1, %2;" : "=f"(p) : "f"(x), "f"(LOG2E_HI));
+  const float err = fmaf(x, LOG2E_LO, fmaf(x, LOG2E_HI, -p));
+  const float r = ex2_approx(p);
+  return fmaf(r, err * LN2, r);
+#endif
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// cp.async of 16 or 4 bytes; ``nbytes`` 0 fills the destination with 0
+__device__ __forceinline__ void cp16(float* dst, const float* src,
+                                     int nbytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(nbytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp4(float* dst, const float* src,
+                                    int nbytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(nbytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int n>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
+}
+
+// Stages n floats of src into dst by every thread of the block: the
+// first n_ok copied, the rest 0; 16-byte copies when ``vec`` (src and
+// dst 16-byte aligned, n and n_ok multiples of 4), else 4-byte.
+__device__ __forceinline__ void stage(float* dst, const float* src, int n,
+                                      int n_ok, bool vec, int tid,
+                                      int nthr) {
+  if (vec) {
+    for (int i = 4 * tid; i < n; i += 4 * nthr)
+      cp16(dst + i, i < n_ok ? src + i : src, i < n_ok ? 16 : 0);
+  } else {
+    for (int i = tid; i < n; i += nthr)
+      cp4(dst + i, i < n_ok ? src + i : src, i < n_ok ? 4 : 0);
+  }
+}
+
+// Stages a [nrow][ncol] block of rows (row r at src + r ld) into dst:
+// rows below nrow_ok and columns below ncol_ok copied, the rest 0.
+__device__ __forceinline__ void stage_rows(float* dst, const float* src,
+                                           long long ld, int nrow, int ncol,
+                                           int nrow_ok, int ncol_ok,
+                                           bool vec, int tid, int nthr) {
+  if (vec) {
+    const int per = ncol / 4;
+    for (int i = tid; i < nrow * per; i += nthr) {
+      const int r = i / per, c = 4 * (i % per);
+      const bool ok = r < nrow_ok && c < ncol_ok;
+      cp16(dst + r * ncol + c, ok ? src + r * ld + c : src, ok ? 16 : 0);
+    }
+  } else {
+    for (int i = tid; i < nrow * ncol; i += nthr) {
+      const int r = i / ncol, c = i % ncol;
+      const bool ok = r < nrow_ok && c < ncol_ok;
+      cp4(dst + r * ncol + c, ok ? src + r * ld + c : src, ok ? 4 : 0);
+    }
+  }
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__global__ void __launch_bounds__(F_THREADS)
 mamba_scan_fwd_kernel(const float* __restrict__ x,
                       const float* __restrict__ dt,
                       const float* __restrict__ A,
@@ -90,105 +223,151 @@ mamba_scan_fwd_kernel(const float* __restrict__ x,
                       const float* __restrict__ Cm,
                       const float* __restrict__ h0, float* __restrict__ y,
                       float* __restrict__ hT, float* __restrict__ states,
-                      int S, int E) {
-  __shared__ float s_x[TF][CH];
-  __shared__ float s_B[TF][N];
-  __shared__ float s_C[TF][N];
-  __shared__ float s_dt[TF];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int q = lane & 3;                       // the thread's 4 states
-  const int c = warp * 8 + (lane >> 2);         // its channel in the block
+                      int S, int E, int vecBC) {
+  __shared__ __align__(16) float s_B[2][TF * N];   // B, then dt B in place
+  __shared__ __align__(16) float s_C[2][TF * N];
+  __shared__ __align__(16) float s_dt[2][TF];
+  const int tid = threadIdx.x;
+  const int q = tid % F_TPC;                // the thread's slice of states
+  const int e = blockIdx.x * F_CH + tid / F_TPC;
   const int b = blockIdx.y;
-  const int e = blockIdx.x * CH + c;
   const bool live = e < E;
   const int nseg = (S + K - 1) / K;
-  const float* xb = x + (long long)b * S * E;
-  const float* Bb = Bm + (long long)b * S * N;
-  const float* Cb = Cm + (long long)b * S * N;
-  const float* db = dt + (long long)b * S;
-  float* yb = y + (long long)b * S * E;
-  const long long own = ((long long)b * E + e) * N + 4 * q;
+  const long long own = ((long long)b * E + e) * N + q * F_NS;
+  const float* xb = x + (long long)b * S * E + (live ? e : 0);
+  float* yb = y + (long long)b * S * E + e;
 
-  float av[4], h[4];
-  {
-    const float4 hv = live ? *reinterpret_cast<const float4*>(h0 + own)
+  float av[F_NS], h[F_NS];
+#pragma unroll
+  for (int j = 0; j < F_NS; j += 4) {
+    const float4 a4 = live ? ld4(A + (long long)e * N + q * F_NS + j)
                            : make_float4(0.f, 0.f, 0.f, 0.f);
-    h[0] = hv.x, h[1] = hv.y, h[2] = hv.z, h[3] = hv.w;
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      av[j] = live ? A[(long long)e * N + 4 * q + j] : 0.f;
+    const float4 h4 = live ? ld4(h0 + own + j)
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
+    av[j] = a4.x, av[j + 1] = a4.y, av[j + 2] = a4.z, av[j + 3] = a4.w;
+    h[j] = h4.x, h[j + 1] = h4.y, h[j + 2] = h4.z, h[j + 3] = h4.w;
   }
-  // a thread's share of a tile: x rows (tid >> 6) + 4 m, column tid & 63;
-  // B and C elements tid + 256 m; dt element tid
-  const int col = tid & 63;
-  const bool col_live = blockIdx.x * CH + col < E;
-  const int e_col = blockIdx.x * CH + col;
-  float px[TF / 4], pB[4], pC[4], pdt = 0.f;
-  auto fetch = [&](int t0) {
-#pragma unroll
-    for (int m = 0; m < TF / 4; ++m) {
-      const int t = t0 + (tid >> 6) + 4 * m;
-      px[m] = (t < S && col_live) ? xb[(long long)t * E + e_col] : 0.f;
-    }
-#pragma unroll
-    for (int m = 0; m < 4; ++m) {
-      const int i = tid + THREADS * m, t = t0 + (i >> 4);
-      pB[m] = t < S ? Bb[(long long)t * N + (i & 15)] : 0.f;
-      pC[m] = t < S ? Cb[(long long)t * N + (i & 15)] : 0.f;
-    }
-    pdt = (tid < TF && t0 + tid < S) ? db[t0 + tid] : 0.f;
+  const int ntile = (S + TF - 1) / TF;
+  auto load_tile = [&](int tile) {
+    const int t0 = tile * TF, buf = tile & 1, n_ok = min(TF, S - t0);
+    const long long row = (long long)b * S + t0;
+    stage(s_B[buf], Bm + row * N, TF * N, n_ok * N, vecBC, tid, F_THREADS);
+    stage(s_C[buf], Cm + row * N, TF * N, n_ok * N, vecBC, tid, F_THREADS);
+    stage(s_dt[buf], dt + row, TF, n_ok, false, tid, F_THREADS);
   };
-  fetch(0);
-  for (int t0 = 0; t0 < S; t0 += TF) {
-    __syncthreads();                 // the last tile's readers are done
+  load_tile(0);
+  cp_commit();
+  if (ntile > 1) load_tile(1);
+  cp_commit();
+
+  float px[K];                              // x of the next sub-tile
+  auto load_x = [&](int t0) {
+    const float* p = xb + (long long)t0 * E;
+    const int n_ok = live ? min(K, S - t0) : 0;
+    if (n_ok == K) {
 #pragma unroll
-    for (int m = 0; m < TF / 4; ++m) s_x[(tid >> 6) + 4 * m][col] = px[m];
+      for (int k = 0; k < K; ++k, p += E) px[k] = *p;
+    } else {
 #pragma unroll
-    for (int m = 0; m < 4; ++m) {
-      const int i = tid + THREADS * m;
-      s_B[i >> 4][i & 15] = pB[m];
-      s_C[i >> 4][i & 15] = pC[m];
+      for (int k = 0; k < K; ++k, p += E) px[k] = k < n_ok ? *p : 0.f;
     }
-    if (tid < TF) s_dt[tid] = pdt;
+  };
+  load_x(0);
+  for (int tile = 0; tile < ntile; ++tile) {
+    const int buf = tile & 1, t0 = tile * TF;
+    cp_wait<1>();
+    __syncthreads();                        // tile `tile` has landed
+#ifndef MAMBA_DB_EACH
+    for (int i = tid; i < TF * N; i += F_THREADS)
+      s_B[buf][i] *= s_dt[buf][i / N];      // dt B once a token
+#endif
     __syncthreads();
-    if (t0 + TF < S) fetch(t0 + TF);
-    const int n_tok = min(TF, S - t0);
-    for (int k = 0; k < n_tok; ++k) {
-      const int t = t0 + k;
-      if (states != nullptr && (k % K) == 0 && live)
-        *reinterpret_cast<float4*>(
-            states + (((long long)b * nseg + t / K) * E + e) * N + 4 * q) =
-            make_float4(h[0], h[1], h[2], h[3]);
-      const float d = s_dt[k], xv = s_x[k][c];
-      float acc = 0.f;
+    const float* sB = s_B[buf];
+    const float* sC = s_C[buf];
+    const float* sd = s_dt[buf];
+    const int n_sub = (min(TF, S - t0) + K - 1) / K;
+#pragma unroll 1
+    for (int ks = 0; ks < n_sub; ++ks) {
+      const int tk = t0 + ks * K;
+      float xv[K], yv[K];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = 4 * q + j;
-        const float a = expf(d * av[j]);
-        h[j] = fmaf(a, h[j], (d * s_B[k][n]) * xv);
-        acc = fmaf(h[j], s_C[k][n], acc);
+      for (int k = 0; k < K; ++k) xv[k] = px[k];
+      if (tk + K < S) load_x(tk + K);
+      if (states != nullptr && live) {
+        float* sp = states + (((long long)b * nseg + tk / K) * E + e) * N +
+                    q * F_NS;
+#pragma unroll
+        for (int j = 0; j < F_NS; j += 4)
+          *reinterpret_cast<float4*>(sp + j) =
+              make_float4(h[j], h[j + 1], h[j + 2], h[j + 3]);
       }
-      acc += __shfl_xor_sync(FULL, acc, 1);
-      acc += __shfl_xor_sync(FULL, acc, 2);
-      if (q == 0 && live) yb[(long long)t * E + e] = acc;
+      // the sub-tile's 16 tokens as one block of straight-line code: no
+      // store or branch inside, so later tokens' decays issue early
+      const float* sdk = sd + ks * K;
+      const float* sBk = sB + ks * K * N + q * F_NS;
+      const float* sCk = sC + ks * K * N + q * F_NS;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const float d = sdk[k];
+        float acc0 = 0.f, acc1 = 0.f;
+#pragma unroll
+        for (int j = 0; j < F_NS; j += 4) {
+          const float4 b4 = ld4(sBk + k * N + j), c4 = ld4(sCk + k * N + j);
+          const float bj[4] = {b4.x, b4.y, b4.z, b4.w};
+          const float cj[4] = {c4.x, c4.y, c4.z, c4.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float a = decay(d, av[j + i]);
+#ifdef MAMBA_DB_EACH
+            h[j + i] = fmaf(a, h[j + i], (d * bj[i]) * xv[k]);
+#else
+            h[j + i] = fmaf(a, h[j + i], bj[i] * xv[k]);
+#endif
+            if (i & 1)
+              acc1 = fmaf(h[j + i], cj[i], acc1);
+            else
+              acc0 = fmaf(h[j + i], cj[i], acc0);
+          }
+        }
+        float acc = acc0 + acc1;
+#pragma unroll
+        for (int o = 1; o < F_TPC; o *= 2)
+          acc += __shfl_xor_sync(FULL, acc, o);
+        yv[k] = acc;
+      }
+      if (live && q == 0) {
+        float* yt = yb + (long long)tk * E;
+        const int n_ok = min(K, S - tk);
+        if (n_ok == K) {
+#pragma unroll
+          for (int k = 0; k < K; ++k, yt += E) *yt = yv[k];
+        } else {
+#pragma unroll
+          for (int k = 0; k < K; ++k, yt += E)
+            if (k < n_ok) *yt = yv[k];
+        }
+      }
     }
+    __syncthreads();                        // every reader of `buf` is done
+    if (tile + 2 < ntile) load_tile(tile + 2);
+    cp_commit();
   }
-  if (live)
-    *reinterpret_cast<float4*>(hT + own) = make_float4(h[0], h[1], h[2],
-                                                       h[3]);
+  if (live) {
+#pragma unroll
+    for (int j = 0; j < F_NS; j += 4)
+      *reinterpret_cast<float4*>(hT + own + j) =
+          make_float4(h[j], h[j + 1], h[j + 2], h[j + 3]);
+  }
 }
 
-// One stage of a reduce-scatter over lanes ``mask`` apart: the lane with
-// the bit set keeps the upper half of v[0, 2H), its partner the lower,
-// each adding the other's copy of the half it keeps into v[0, H).
-template <int H>
-__device__ __forceinline__ void rs_stage(float* v, int mask, bool upper) {
-#pragma unroll
-  for (int i = 0; i < H; ++i) {
-    const float send = upper ? v[i] : v[i + H];
-    const float keep = upper ? v[i + H] : v[i];
-    v[i] = keep + __shfl_xor_sync(FULL, send, mask);
-  }
+// A thread's slot of token k in the backward's shared memory: two float4
+// (elements 0-3, then 4-7), their order swapped on every other group of
+// four threads, so that eight threads of a quarter-warp touch 32
+// distinct banks both in the walk (own slots) and in the block's sums.
+__device__ __forceinline__ float4* slot(float* hist, int k, int tid,
+                                        int half) {
+  return reinterpret_cast<float4*>(hist) +
+         ((k * THREADS + tid) * 2 + (half ^ ((tid >> 2) & 1)));
 }
 
 __global__ void __launch_bounds__(THREADS, 2)
@@ -202,177 +381,250 @@ mamba_scan_bwd_kernel(const float* __restrict__ x,
                       const float* __restrict__ dhT, float* __restrict__ dx,
                       float* __restrict__ dBp, float* __restrict__ dCp,
                       double* __restrict__ ddtp, double* __restrict__ dAp,
-                      float* __restrict__ dh0, int S, int E) {
+                      float* __restrict__ dh0, int S, int E, int vecX,
+                      int vecBC) {
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
-  float4* s_hist = smem4 + B_HIST / 4;
+  float* hist = sm + B_HIST;
   float* s_ddt = sm + B_DDT;
-  float* s_red = sm + B_RED;
-  float* s_x = sm + B_X;
-  float* s_dy = sm + B_DY;
-  float* s_B = sm + B_B;
-  float* s_C = sm + B_C;
-  float* s_dt = sm + B_DT;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int q = lane & 3;
-  const int c = warp * 8 + (lane >> 2);
+  double2* s_dA = reinterpret_cast<double2*>(sm + B_DA);
+  const int tid = threadIdx.x;
+  const int cq = tid >> 3, sp = tid & 7;   // channels 4 cq + j, states 2 sp + i
   const int b = blockIdx.y, blk = blockIdx.x, nblk = gridDim.x;
-  const int e = blk * CH + c;
-  const bool live = e < E;
+  const int e0 = blk * CH + CT * cq;
   const int nseg = (S + K - 1) / K;
-  const float* xb = x + (long long)b * S * E;
-  const float* yb = dy + (long long)b * S * E;
-  const float* Bb = Bm + (long long)b * S * N;
-  const float* Cb = Cm + (long long)b * S * N;
-  const float* db = dt + (long long)b * S;
-  const long long own = ((long long)b * E + e) * N + 4 * q;
+  const int n_ch = min(CH, E - blk * CH);  // live channels of the block
 
-  float a[4], G[4], dA[4];
-  double dA_all[4];          // dA over the segments, in f64
-  {
-    const float4 g = (live && dhT != nullptr)
-                         ? *reinterpret_cast<const float4*>(dhT + own)
-                         : make_float4(0.f, 0.f, 0.f, 0.f);
-    G[0] = g.x, G[1] = g.y, G[2] = g.z, G[3] = g.w;
+  float av[EL], G[EL];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      a[j] = live ? A[(long long)e * N + 4 * q + j] : 0.f;
-      dA_all[j] = 0.0;
-    }
+  for (int j = 0; j < CT; ++j) {
+    const bool ok = e0 + j < E;
+    const long long o = ((long long)b * E + e0 + j) * N + NT * sp;
+    const float2 a2 = ok ? *reinterpret_cast<const float2*>(
+                               A + (long long)(e0 + j) * N + NT * sp)
+                         : make_float2(0.f, 0.f);
+    const float2 g2 = (ok && dhT != nullptr)
+                          ? *reinterpret_cast<const float2*>(dhT + o)
+                          : make_float2(0.f, 0.f);
+    av[2 * j] = a2.x, av[2 * j + 1] = a2.y;
+    G[2 * j] = g2.x, G[2 * j + 1] = g2.y;
   }
-  // a thread's share of a segment: x and dy rows (tid >> 6) + 4 m,
-  // column tid & 63; B and C element tid; dt element tid; its own 4
-  // checkpoint states
-  const int col = tid & 63;
-  const int e_col = blk * CH + col;
-  const bool col_live = e_col < E;
-  float px[K / 4], pdy[K / 4], pB, pC, pdt;
-  float4 pst;
-  auto fetch = [&](int seg) {
-    const int t0 = seg * K;
 #pragma unroll
-    for (int m = 0; m < K / 4; ++m) {
-      const int t = t0 + (tid >> 6) + 4 * m;
-      const bool ok = t < S && col_live;
-      px[m] = ok ? xb[(long long)t * E + e_col] : 0.f;
-      pdy[m] = ok ? yb[(long long)t * E + e_col] : 0.f;
-    }
-    const int t = t0 + (tid >> 4);
-    pB = t < S ? Bb[(long long)t * N + (tid & 15)] : 0.f;
-    pC = t < S ? Cb[(long long)t * N + (tid & 15)] : 0.f;
-    pdt = (tid < K && t0 + tid < S) ? db[t0 + tid] : 0.f;
-    pst = live ? *reinterpret_cast<const float4*>(
-                     states + (((long long)b * nseg + seg) * E + e) * N +
-                     4 * q)
-               : make_float4(0.f, 0.f, 0.f, 0.f);
-  };
-  fetch(nseg - 1);
-  for (int seg = nseg - 1; seg >= 0; --seg) {
-    __syncthreads();        // the last segment's readers are done
-#pragma unroll
-    for (int m = 0; m < K / 4; ++m) {
-      s_x[((tid >> 6) + 4 * m) * CH + col] = px[m];
-      s_dy[((tid >> 6) + 4 * m) * CH + col] = pdy[m];
-    }
-    s_B[tid] = pB;
-    s_C[tid] = pC;
-    if (tid < K) s_dt[tid] = pdt;
-    const float4 hs = pst;
-    __syncthreads();
-    if (seg > 0) fetch(seg - 1);
+  for (int m = 0; m < 4; ++m)
+    s_dA[m * THREADS + tid] = make_double2(0.0, 0.0);
+
+  auto load_seg = [&](int seg) {
+    float* st = sm + B_STAGE + (seg & 1) * ST_SIZE;
     const int t0 = seg * K, n_tok = min(K, S - t0);
-    // the segment's states from its checkpoint; tokens past S have dt 0
-    // (decay 1, drive 0) and leave the state as it is
-    {
-      float h[4] = {hs.x, hs.y, hs.z, hs.w};
-#pragma unroll 4
-      for (int k = 0; k < K; ++k) {
-        const float d = s_dt[k], xv = s_x[k * CH + c];
+    const long long tok = (long long)b * S + t0;
+    const float* xs = x + tok * E + blk * CH;
+    const float* ys = dy + tok * E + blk * CH;
+    if (vecX) {        // two 16-byte chunks of x and of dy a thread
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          h[j] = fmaf(expf(d * a[j]), h[j],
-                      (d * s_B[k * N + 4 * q + j]) * xv);
-        s_hist[k * THREADS + tid] = make_float4(h[0], h[1], h[2], h[3]);
+      for (int m = 0; m < K * CH / 4 / THREADS; ++m) {
+        const int i = tid + THREADS * m, r = i / (CH / 4),
+                  c = 4 * (i % (CH / 4));
+        const bool ok = r < n_tok && c < n_ch;
+        const long long o = ok ? (long long)r * E + c : 0;
+        cp16(st + ST_X + r * CH + c, xs + o, ok ? 16 : 0);
+        cp16(st + ST_DY + r * CH + c, ys + o, ok ? 16 : 0);
       }
+    } else {
+      stage_rows(st + ST_X, xs, E, K, CH, n_tok, n_ch, false, tid, THREADS);
+      stage_rows(st + ST_DY, ys, E, K, CH, n_tok, n_ch, false, tid, THREADS);
     }
-    float4 cur = s_hist[(K - 1) * THREADS + tid];
+    stage(st + ST_B, Bm + tok * N, K * N, n_tok * N, vecBC, tid, THREADS);
+    stage(st + ST_C, Cm + tok * N, K * N, n_tok * N, vecBC, tid, THREADS);
+    if (tid < K)
+      cp4(st + ST_DT + tid, dt + tok + (tid < n_tok ? tid : 0),
+          tid < n_tok ? 4 : 0);
+    const float* ck =
+        states + (((long long)b * nseg + seg) * E + blk * CH) * N;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) dA[j] = 0.f;
-#pragma unroll 2
+    for (int m = 0; m < CH * N / 4 / THREADS; ++m) {
+      const int i = 4 * (tid + THREADS * m);
+      const bool ok = i < n_ch * N;
+      cp16(st + ST_CK + i, ck + (ok ? i : 0), ok ? 16 : 0);
+    }
+    cp_commit();
+  };
+  load_seg(nseg - 1);
+  for (int seg = nseg - 1; seg >= 0; --seg) {
+    const float* st = sm + B_STAGE + (seg & 1) * ST_SIZE;
+    const float* s_x = st + ST_X;
+    const float* s_dy = st + ST_DY;
+    const float* s_B = st + ST_B;
+    const float* s_C = st + ST_C;
+    const float* s_dt = st + ST_DT;
+    const float* s_ck = st + ST_CK;
+    cp_wait<0>();
+    __syncthreads();   // the segment has landed; the last one's sums are done
+    if (seg > 0) load_seg(seg - 1);
+    const int t0 = seg * K, n_tok = min(K, S - t0);
+
+    // the segment's states from its checkpoint, each decay raised once;
+    // tokens past S have dt 0 (decay 1, drive 0) and leave h as it is
+    float h[EL], a[K][EL];
+#pragma unroll
+    for (int j = 0; j < CT; ++j) {
+      const float2 c2 =
+          *reinterpret_cast<const float2*>(s_ck + (CT * cq + j) * N + NT * sp);
+      h[2 * j] = c2.x, h[2 * j + 1] = c2.y;
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const float d = s_dt[k];
+      const float4 x4 = ld4(s_x + k * CH + CT * cq);
+      const float2 b2 =
+          *reinterpret_cast<const float2*>(s_B + k * N + NT * sp);
+      const float xs[CT] = {x4.x, x4.y, x4.z, x4.w};
+      const float bs[NT] = {d * b2.x, d * b2.y};   // dt B, as the forward
+#pragma unroll
+      for (int j = 0; j < CT; ++j)
+#pragma unroll
+        for (int i = 0; i < NT; ++i) {
+          const int l = NT * j + i;
+          a[k][l] = decay(d, av[l]);
+          h[l] = fmaf(a[k][l], h[l], bs[i] * xs[j]);
+        }
+      *slot(hist, k, tid, 0) = make_float4(h[0], h[1], h[2], h[3]);
+      *slot(hist, k, tid, 1) = make_float4(h[4], h[5], h[6], h[7]);
+    }
+
+    // the reverse walk: token k's slot gives h_k up (read at k + 1) and
+    // takes the thread's partials of dB, dC (its 4 channels) and dx (its
+    // 2 states)
+    float dA[EL];
+#pragma unroll
+    for (int l = 0; l < EL; ++l) dA[l] = 0.f;
+#pragma unroll
     for (int k = K - 1; k >= 0; --k) {
-      const float4 prev = k > 0 ? s_hist[(k - 1) * THREADS + tid] : hs;
-      const float hc[4] = {cur.x, cur.y, cur.z, cur.w};
-      const float hp[4] = {prev.x, prev.y, prev.z, prev.w};
-      const float d = s_dt[k], xv = s_x[k * CH + c], gy = s_dy[k * CH + c];
-      float v[8];
-      float ddt = 0.f, dxs = 0.f;
+      float hp[EL];
+      if (k > 0) {
+        const float4 p0 = *slot(hist, k - 1, tid, 0);
+        const float4 p1 = *slot(hist, k - 1, tid, 1);
+        hp[0] = p0.x, hp[1] = p0.y, hp[2] = p0.z, hp[3] = p0.w;
+        hp[4] = p1.x, hp[5] = p1.y, hp[6] = p1.z, hp[7] = p1.w;
+      } else {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float Bn = s_B[k * N + 4 * q + j];
-        const float Cn = s_C[k * N + 4 * q + j];
-        const float g = fmaf(gy, Cn, G[j]);
-        const float dec = expf(d * a[j]);
-        const float ga = g * hp[j] * dec;
-        v[j] = (g * d) * xv;                   // dB's share
-        v[4 + j] = gy * hc[j];                 // dC's share
-        ddt = fmaf(g * Bn, xv, fmaf(ga, a[j], ddt));
-        dA[j] = fmaf(ga, d, dA[j]);
-        dxs = fmaf(g, Bn, dxs);
-        G[j] = dec * g;
+        for (int j = 0; j < CT; ++j) {
+          const float2 c2 = *reinterpret_cast<const float2*>(
+              s_ck + (CT * cq + j) * N + NT * sp);
+          hp[2 * j] = c2.x, hp[2 * j + 1] = c2.y;
+        }
       }
-      dxs *= d;
-      dxs += __shfl_xor_sync(FULL, dxs, 1);
-      dxs += __shfl_xor_sync(FULL, dxs, 2);
-      if (q == 0 && live && k < n_tok)
-        dx[((long long)b * S + t0 + k) * E + e] = dxs;
-      // over the warp's 8 channels of state quarter q: lane slot
-      // (lane >> 2) & 7 ends with the sum of v[slot]
-      rs_stage<4>(v, 16, lane & 16);
-      rs_stage<2>(v, 8, lane & 8);
-      rs_stage<1>(v, 4, lane & 4);
-      const int slot = (lane >> 2) & 7;
-      s_red[(warp * K + k) * 32 + (slot >> 2) * N + 4 * q + (slot & 3)] =
-          v[0];
-      s_ddt[k * THREADS + tid] = ddt;
-      cur = prev;
+      const float d = s_dt[k];
+      const float4 x4 = ld4(s_x + k * CH + CT * cq);
+      const float4 y4 = ld4(s_dy + k * CH + CT * cq);
+      const float2 b2 = *reinterpret_cast<const float2*>(s_B + k * N + NT * sp);
+      const float2 c2 = *reinterpret_cast<const float2*>(s_C + k * N + NT * sp);
+      const float xs[CT] = {x4.x, x4.y, x4.z, x4.w};
+      const float gy[CT] = {y4.x, y4.y, y4.z, y4.w};
+      const float bs[NT] = {b2.x, b2.y}, cs[NT] = {c2.x, c2.y};
+      float dxs[CT] = {0.f, 0.f, 0.f, 0.f}, dBs[NT] = {0.f, 0.f},
+            dCs[NT] = {0.f, 0.f}, ddt = 0.f;
+#pragma unroll
+      for (int j = 0; j < CT; ++j)
+#pragma unroll
+        for (int i = 0; i < NT; ++i) {
+          const int l = NT * j + i;
+          const float g = fmaf(gy[j], cs[i], G[l]);
+          const float Gn = a[k][l] * g;
+          const float ga = Gn * hp[l];
+          dA[l] = fmaf(ga, d, dA[l]);
+          ddt = fmaf(ga, av[l], ddt);
+          dxs[j] = fmaf(g, bs[i], dxs[j]);
+          dBs[i] = fmaf(g, xs[j], dBs[i]);
+          dCs[i] = fmaf(gy[j], h[l], dCs[i]);
+          G[l] = Gn;
+        }
+#pragma unroll
+      for (int j = 0; j < CT; ++j) ddt = fmaf(xs[j], dxs[j], ddt);
+      *slot(hist, k, tid, 0) = make_float4(dBs[0], dBs[1], dCs[0], dCs[1]);
+      *slot(hist, k, tid, 1) = make_float4(dxs[0], dxs[1], dxs[2], dxs[3]);
+      s_ddt[k * DDT_LD + tid] = ddt;
+#pragma unroll
+      for (int l = 0; l < EL; ++l) h[l] = hp[l];
     }
 #pragma unroll
-    for (int j = 0; j < 4; ++j) dA_all[j] += dA[j];
+    for (int m = 0; m < 4; ++m) {
+      double2 v = s_dA[m * THREADS + tid];
+      v.x += dA[2 * m];
+      v.y += dA[2 * m + 1];
+      s_dA[m * THREADS + tid] = v;
+    }
     __syncthreads();
-    // the block's sums for the segment: dB and dC over the warps, ddt
-    // over the threads (in f64: ddt's terms cancel, and the dt_bias
-    // gradient sums it over every token), each in a fixed order
-    {
-      const int k = tid >> 4, n = tid & 15;
-      float sb = 0.f, sc = 0.f;
-      double sd = 0.0;
+    // the block's sums of the segment, each in a fixed order
+    {  // dB and dC of token k, states 2 s + i: over the 16 channel groups
+      const int k = tid >> 3, s = tid & 7;
+      float4 w[4];
 #pragma unroll
-      for (int w = 0; w < WARPS; ++w) {
-        sb += s_red[(w * K + k) * 32 + n];
-        sc += s_red[(w * K + k) * 32 + N + n];
+      for (int c = 0; c < CH / CT; ++c) {   // four chains, then their sum
+        const float4 p = *slot(hist, k, c * 8 + s, 0);
+        if (c < 4) {
+          w[c] = p;
+        } else {
+          w[c & 3].x += p.x, w[c & 3].y += p.y, w[c & 3].z += p.z,
+              w[c & 3].w += p.w;
+        }
       }
-#pragma unroll
-      for (int i = 0; i < THREADS / 16; ++i)
-        sd += s_ddt[k * THREADS + i * 16 + n];
-      sd += __shfl_xor_sync(FULL, sd, 1);
-      sd += __shfl_xor_sync(FULL, sd, 2);
-      sd += __shfl_xor_sync(FULL, sd, 4);
-      sd += __shfl_xor_sync(FULL, sd, 8);
+      const float4 v = make_float4((w[0].x + w[1].x) + (w[2].x + w[3].x),
+                                   (w[0].y + w[1].y) + (w[2].y + w[3].y),
+                                   (w[0].z + w[1].z) + (w[2].z + w[3].z),
+                                   (w[0].w + w[1].w) + (w[2].w + w[3].w));
       if (k < n_tok) {
         const long long row = ((long long)b * nblk + blk) * S + t0 + k;
-        dBp[row * N + n] = sb;
-        dCp[row * N + n] = sc;
-        if (n == 0) ddtp[row] = sd;
+        const float d = s_dt[k];
+        *reinterpret_cast<float2*>(dBp + row * N + NT * s) =
+            make_float2(d * v.x, d * v.y);
+        *reinterpret_cast<float2*>(dCp + row * N + NT * s) =
+            make_float2(v.z, v.w);
       }
     }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {  // dx of token k, channels 4 c + j
+      const int k = (tid >> 4) + 8 * r, c = tid & 15;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int u = 0; u < N / NT; ++u) {   // from state pair (u + c) % 8
+        const float4 p = *slot(hist, k, c * 8 + ((u + c) & 7), 1);
+        v.x += p.x, v.y += p.y, v.z += p.z, v.w += p.w;
+      }
+      const int ec = blk * CH + CT * c;
+      if (k < n_tok && ec < E) {
+        const float d = s_dt[k];
+        float* o = dx + ((long long)b * S + t0 + k) * E + ec;
+        if (vecX && ec + CT <= E) {
+          *reinterpret_cast<float4*>(o) =
+              make_float4(d * v.x, d * v.y, d * v.z, d * v.w);
+        } else {
+          const float vs[CT] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int j = 0; j < CT; ++j)
+            if (ec + j < E) o[j] = d * vs[j];
+        }
+      }
+    }
+    {  // ddt of token k over the block's 128 partials, in f64
+      const int k = tid >> 3, part = tid & 7;
+      double w[4] = {0.0, 0.0, 0.0, 0.0};   // four chains, then their sum
+#pragma unroll
+      for (int i = 0; i < THREADS / 8; ++i)
+        w[i & 3] += (double)s_ddt[k * DDT_LD + part + 8 * i];
+      double v = (w[0] + w[1]) + (w[2] + w[3]);
+      v += __shfl_xor_sync(FULL, v, 1);
+      v += __shfl_xor_sync(FULL, v, 2);
+      v += __shfl_xor_sync(FULL, v, 4);
+      if (part == 0 && k < n_tok)
+        ddtp[((long long)b * nblk + blk) * S + t0 + k] = v;
+    }
   }
-  if (live) {
-    *reinterpret_cast<float4*>(dh0 + own) = make_float4(G[0], G[1], G[2],
-                                                        G[3]);
-    *reinterpret_cast<double2*>(dAp + own) = make_double2(dA_all[0],
-                                                          dA_all[1]);
-    *reinterpret_cast<double2*>(dAp + own + 2) = make_double2(dA_all[2],
-                                                              dA_all[3]);
+#pragma unroll
+  for (int j = 0; j < CT; ++j) {
+    if (e0 + j >= E) continue;
+    const long long o = ((long long)b * E + e0 + j) * N + NT * sp;
+    *reinterpret_cast<float2*>(dh0 + o) = make_float2(G[2 * j], G[2 * j + 1]);
+    *reinterpret_cast<double2*>(dAp + o) = s_dA[j * THREADS + tid];
   }
 }
 
@@ -424,7 +676,8 @@ cudaError_t set_smem() {
 
 }  // namespace
 
-// Blocks of a call over E channels (the partials' second dimension).
+// Blocks of a backward call over E channels (the partials' second
+// dimension).
 extern "C" int mamba_scan_blocks(int E) { return (E + CH - 1) / CH; }
 
 // Dynamic shared memory of a backward block.
@@ -441,9 +694,20 @@ extern "C" int mamba_scan_bwd_blocks_per_sm() {
   return e2 == cudaSuccess ? nb : -(int)e2;
 }
 
+// Forward blocks one SM holds, or minus a CUDA error; and its channels
+// a block.
+extern "C" int mamba_scan_fwd_blocks_per_sm() {
+  int nb = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &nb, mamba_scan_fwd_kernel, F_THREADS, 0);
+  return err == cudaSuccess ? nb : -(int)err;
+}
+
+extern "C" int mamba_scan_fwd_channels() { return F_CH; }
+
 // x, y: [B, S, E]; dt: [B, S]; A: [E, 16]; Bm, Cm: [B, S, 16]; h0, hT:
 // [B, E, 16]; states: [B, ceil(S / 16), E, 16] or null; all f32,
-// contiguous; h0, hT and states 16-byte aligned.
+// contiguous; A, h0, hT and states 16-byte aligned.
 extern "C" int mamba_scan_launch(const void* x, const void* dt,
                                  const void* A, const void* Bm,
                                  const void* Cm, const void* h0, void* y,
@@ -451,22 +715,23 @@ extern "C" int mamba_scan_launch(const void* x, const void* dt,
                                  void* stream) {
   if (B == 0 || E == 0) return 0;
   if (S < 1) return (int)cudaErrorInvalidValue;
-  if (!aligned16(h0) || !aligned16(hT) ||
+  if (!aligned16(A) || !aligned16(h0) || !aligned16(hT) ||
       (states != nullptr && !aligned16(states)))
     return (int)cudaErrorMisalignedAddress;
-  const dim3 grid((E + CH - 1) / CH, B);
-  mamba_scan_fwd_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+  const int vecBC = aligned16(Bm) && aligned16(Cm);
+  const dim3 grid((E + F_CH - 1) / F_CH, B);
+  mamba_scan_fwd_kernel<<<grid, F_THREADS, 0, (cudaStream_t)stream>>>(
       (const float*)x, (const float*)dt, (const float*)A, (const float*)Bm,
       (const float*)Cm, (const float*)h0, (float*)y, (float*)hT,
-      (float*)states, S, E);
+      (float*)states, S, E, vecBC);
   return (int)cudaGetLastError();
 }
 
 // The backward: two launches, the scan then the sums.  dhT may be null
 // (0).  Outputs dx [B, S, E], ddt [B, S], dA [E, 16], dB, dC [B, S, 16],
 // dh0 [B, E, 16]; scratch dBp, dCp [B, nblk, S, 16] f32, ddtp [B, nblk,
-// S] and dAp [B, E, 16] f64, nblk = mamba_scan_blocks(E).  states, dhT, dAp and
-// dh0 16-byte aligned.
+// S] and dAp [B, E, 16] f64, nblk = mamba_scan_blocks(E).  A, states,
+// dhT, dh0, dBp, dCp and dAp 16-byte aligned.
 extern "C" int mamba_scan_bwd_launch(
     const void* x, const void* dt, const void* A, const void* Bm,
     const void* Cm, const void* states, const void* dy, const void* dhT,
@@ -475,11 +740,14 @@ extern "C" int mamba_scan_bwd_launch(
     void* stream) {
   if (B == 0 || E == 0) return 0;
   if (S < 1 || nblk != (E + CH - 1) / CH) return (int)cudaErrorInvalidValue;
-  const void* ptrs[] = {states, dAp, dh0};
+  const void* ptrs[] = {A, states, dAp, dh0, dBp, dCp};
   for (const void* p : ptrs)
     if (!aligned16(p)) return (int)cudaErrorMisalignedAddress;
   if (dhT != nullptr && !aligned16(dhT))
     return (int)cudaErrorMisalignedAddress;
+  const int vecX = E % 4 == 0 && aligned16(x) && aligned16(dy) &&
+                   aligned16(dx);
+  const int vecBC = aligned16(Bm) && aligned16(Cm);
   cudaError_t err = set_smem();
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t s = (cudaStream_t)stream;
@@ -487,7 +755,7 @@ extern "C" int mamba_scan_bwd_launch(
       (const float*)x, (const float*)dt, (const float*)A, (const float*)Bm,
       (const float*)Cm, (const float*)states, (const float*)dy,
       (const float*)dhT, (float*)dx, (float*)dBp, (float*)dCp,
-      (double*)ddtp, (double*)dAp, (float*)dh0, S, E);
+      (double*)ddtp, (double*)dAp, (float*)dh0, S, E, vecX, vecBC);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const long long total =

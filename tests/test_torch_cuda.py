@@ -737,7 +737,12 @@ def test_rwkv6_chunked_bwd_kernel(cuda, B, S, H, chunk, lo, s0, fin, tiny):
     (1, 64, 64, False, False), (2, 77, 200, True, True),
     (1, 1, 64, True, True), (3, 300, 130, True, False),
     # more blocks than two an SM hold resident
-    (2, 48, 64 * 300, False, True)])
+    (2, 48, 64 * 300, False, True),
+    # the tiles' edges: S under one 16-token sub-tile with d_in 4 past a
+    # multiple of both kernels' blocks (64, 128), B 3 with S not a multiple
+    # of the sub-tile, a ragged last 64-token forward tile
+    (1, 5, 4100, True, True), (3, 40, 96, False, True),
+    (2, 130, 252, True, False)])
 def test_mamba_scan_kernel(cuda, B, S, E, h0, fin):
     """The scan's forward kernel (with and without its checkpoint states)
     and its backward kernel on those states against the plain versions on
@@ -780,6 +785,37 @@ def test_mamba_scan_kernel(cuda, B, S, E, h0, fin):
         (1, 1)
     assert torch.equal(ya, y)
     assert all(torch.equal(a, b) for a, b in zip(auto, got))
+
+
+def test_mamba_scan_kernel_unaligned_b_and_c(cuda):
+    """B and C that start 4 bytes past a 16-byte boundary (contiguous
+    views into a larger buffer) take the kernels' 4-byte copies and give
+    what 16-byte-aligned copies of them give, bit for bit."""
+    B, S, E = 2, 37, 96
+    x, dy = (torch.as_tensor(RNG.normal(0, 1, (B, S, E)),
+                             dtype=torch.float32, device=cuda)
+             for _ in range(2))
+    dt = torch.as_tensor(np.log1p(np.exp(RNG.normal(-1, 1, (B, S)))),
+                         dtype=torch.float32, device=cuda)
+    A = -torch.as_tensor(np.exp(np.log(np.arange(1, 17))[None] + RNG.normal(
+        0, 0.2, (E, 16))), dtype=torch.float32, device=cuda)
+    h0 = torch.as_tensor(RNG.normal(0, 1, (B, E, 16)), dtype=torch.float32,
+                         device=cuda)
+    bc = [torch.as_tensor(RNG.normal(0, 1, (B, S, 16)), dtype=torch.float32,
+                          device=cuda) for _ in range(2)]
+    shifted = []
+    for t in bc:
+        buf = torch.empty(t.numel() + 1, device=cuda)
+        v = buf[1:].view(t.shape)
+        v.copy_(t)
+        assert v.is_contiguous() and v.data_ptr() % 16 == 4
+        shifted.append(v)
+    want = ops.mamba_scan_states(x, dt, A, *bc, h0)
+    got = ops.mamba_scan_states(x, dt, A, *shifted, h0)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    gw = ops.mamba_scan_bwd(x, dt, A, *bc, want[2], dy)
+    gg = ops.mamba_scan_bwd(x, dt, A, *shifted, want[2], dy)
+    assert all(torch.equal(a, b) for a, b in zip(gg, gw))
 
 
 def test_mamba_scan_kernel_refuses_what_it_does_not_take(cuda):
