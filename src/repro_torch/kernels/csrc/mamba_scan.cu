@@ -529,7 +529,11 @@ mamba_scan_bwd_kernel(const float* __restrict__ x,
         for (int i = 0; i < NT; ++i) {
           const int l = NT * j + i;
           const float g = fmaf(gy[j], cs[i], G[l]);
+#ifdef MAMBA_BWD_REDECAY
+          const float Gn = decay(d, av[l]) * g;   // the decay raised again
+#else
           const float Gn = a[k][l] * g;
+#endif
           const float ga = Gn * hp[l];
           dA[l] = fmaf(ga, d, dA[l]);
           ddt = fmaf(ga, av[l], ddt);
@@ -629,36 +633,73 @@ mamba_scan_bwd_kernel(const float* __restrict__ x,
 }
 
 // The second pass: dB, dC and ddt summed over the blocks' partials, dA
-// over the batch, each in order.
-__global__ void mamba_scan_bwd_sum_kernel(
+// over the batch, each in a fixed order.  A block of SUM_THREADS takes 32
+// consecutive outputs of dB and dC (or of ddt): its warp w sums the
+// partials of blocks w, w + 8, w + 16, ... (a lane an output, so a warp
+// reads 128 contiguous bytes a block), then the eight warps' sums are
+// added in warp order.  The blocks past those take dA, a thread an
+// element.
+constexpr int SUM_THREADS = 256, SUM_W = SUM_THREADS / 32;
+
+__global__ void __launch_bounds__(SUM_THREADS) mamba_scan_bwd_sum_kernel(
     const float* __restrict__ dBp, const float* __restrict__ dCp,
     const double* __restrict__ ddtp, const double* __restrict__ dAp,
     float* __restrict__ dB, float* __restrict__ dC, float* __restrict__ ddt,
     float* __restrict__ dA, int B, int S, int E, int nblk) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  __shared__ float s_b[SUM_W][32], s_c[SUM_W][32];
+  __shared__ double s_t[SUM_W][32];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const long long sn = (long long)S * N, nbs = B * sn, nbt = (long long)B * S;
-  if (i < nbs) {
-    const long long b = i / sn, r = i % sn;
-    const float* pb = dBp + b * nblk * sn + r;
-    const float* pc = dCp + b * nblk * sn + r;
+  const long long g_bc = (nbs + 31) / 32, g_t = (nbt + 31) / 32;
+  const long long g = blockIdx.x;
+  if (g < g_bc) {
+    const long long i = g * 32 + lane;
     float sb = 0.f, sc = 0.f;
-    for (int k = 0; k < nblk; ++k) {
-      sb += pb[k * sn];
-      sc += pc[k * sn];
+    if (i < nbs) {
+      const long long b = i / sn, r = i % sn;
+      const float* pb = dBp + b * nblk * sn + r;
+      const float* pc = dCp + b * nblk * sn + r;
+      for (int k = w; k < nblk; k += SUM_W) {
+        sb += pb[k * sn];
+        sc += pc[k * sn];
+      }
     }
-    dB[i] = sb;
-    dC[i] = sc;
-  } else if (i < nbs + nbt) {
-    const long long j = i - nbs, b = j / S, r = j % S;
-    const double* p = ddtp + b * nblk * S + r;
-    double s = 0.0;
-    for (int k = 0; k < nblk; ++k) s += p[(long long)k * S];
-    ddt[j] = (float)s;
-  } else if (i < nbs + nbt + (long long)E * N) {
-    const long long j = i - nbs - nbt;
-    double s = 0.0;
-    for (int b = 0; b < B; ++b) s += dAp[(long long)b * E * N + j];
-    dA[j] = (float)s;
+    s_b[w][lane] = sb;
+    s_c[w][lane] = sc;
+    __syncthreads();
+    if (w == 0 && i < nbs) {
+      float tb = 0.f, tc = 0.f;
+#pragma unroll
+      for (int u = 0; u < SUM_W; ++u) {
+        tb += s_b[u][lane];
+        tc += s_c[u][lane];
+      }
+      dB[i] = tb;
+      dC[i] = tc;
+    }
+  } else if (g < g_bc + g_t) {
+    const long long j = (g - g_bc) * 32 + lane;
+    double st = 0.0;
+    if (j < nbt) {
+      const long long b = j / S, r = j % S;
+      const double* p = ddtp + b * nblk * S + r;
+      for (int k = w; k < nblk; k += SUM_W) st += p[(long long)k * S];
+    }
+    s_t[w][lane] = st;
+    __syncthreads();
+    if (w == 0 && j < nbt) {
+      double tt = 0.0;
+#pragma unroll
+      for (int u = 0; u < SUM_W; ++u) tt += s_t[u][lane];
+      ddt[j] = (float)tt;
+    }
+  } else {
+    const long long j = (g - g_bc - g_t) * SUM_THREADS + threadIdx.x;
+    if (j < (long long)E * N) {
+      double s = 0.0;
+      for (int b = 0; b < B; ++b) s += dAp[(long long)b * E * N + j];
+      dA[j] = (float)s;
+    }
   }
 }
 
@@ -758,11 +799,10 @@ extern "C" int mamba_scan_bwd_launch(
       (double*)ddtp, (double*)dAp, (float*)dh0, S, E, vecX, vecBC);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const long long total =
-      (long long)B * S * N + (long long)B * S + (long long)E * N;
-  const int threads = 256;
-  mamba_scan_bwd_sum_kernel<<<(unsigned)((total + threads - 1) / threads),
-                              threads, 0, s>>>(
+  const long long groups = ((long long)B * S * N + 31) / 32 +
+                            ((long long)B * S + 31) / 32 +
+                            ((long long)E * N + SUM_THREADS - 1) / SUM_THREADS;
+  mamba_scan_bwd_sum_kernel<<<(unsigned)groups, SUM_THREADS, 0, s>>>(
       (const float*)dBp, (const float*)dCp, (const double*)ddtp,
       (const double*)dAp, (float*)dB, (float*)dC, (float*)ddt, (float*)dA, B,
       S, E, nblk);

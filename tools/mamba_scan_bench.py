@@ -7,13 +7,19 @@ set, e.g. ``MAMBA_FWD_NS=8``), all in parallel.  At Jamba-1.5-Large's
 width (d_in 16,384, d_state 16) over 1 and 2 x 2,048 tokens, with phase
 5b's input distributions (numpy seed 11), it times each build's forward
 (no states, with states) and backward by CUDA events over back-to-back
-launches, the builds in turns (a, b, ..., ..., b, a), and holds every
-build's outputs to the first's within 1e-4 of each tensor's largest
-entry.  For each build it prints the ptxas registers, stack and spills,
-the blocks an SM, and the SASS instructions a state element in each
-kernel's token loop: ``cuobjdump -sass`` of the library, the innermost
-loop that raises a decay, its instructions over its ``MUFU.EX2`` (one a
-state element).  One JSON line a build and case.  Needs a card:
+launches, the builds in turns (a, b, ..., ..., b, a), takes each
+kernel's device time a call by torch.profiler, and puts every build's
+outputs against the first's (the largest error relative to each
+tensor's largest entry; past 1e-4 it says so on stderr).  For each build
+it prints the ptxas registers, stack and spills, the blocks an SM, and
+the SASS instructions a state element in each kernel's token loop:
+``cuobjdump -sass`` of the library, the innermost loop that raises a
+decay, its instructions over its ``MUFU.EX2`` (one a state element).
+One JSON line a build and case.  The source's build defines
+``MAMBA_FWD_NS`` (states a forward thread), ``MAMBA_EXPF`` (``expf``
+decays), ``MAMBA_DB_EACH`` (dt B formed by each thread) and
+``MAMBA_BWD_REDECAY`` (the backward's decays raised again in its walk)
+re-measure the design's choices.  Needs a card:
 
     PYTHONPATH=src python tools/mamba_scan_bench.py [--parent-src F]
         [--define NAME=V ...] [--reps N]
@@ -191,6 +197,22 @@ def time_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def kernel_us(run: dict, n: int = 5) -> dict:
+    """Device time a call of each kernel (torch.profiler over ``n`` calls
+    of the forward with states and the backward), by kernel name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            run["fwd_states"]()
+            run["bwd"]()
+        torch.cuda.synchronize()
+    return {(re.findall(r"(\w+_kernel)", e.key) or [e.key[:40]])[0]:
+            round(e.self_device_time_total / e.count, 2)
+            for e in prof.key_averages()
+            if getattr(e, "device_type", None) == DeviceType.CUDA}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent-src", action="append", default=[],
@@ -224,7 +246,7 @@ def main() -> None:
     order = names + names[::-1]
     for label, B, S, E in CASES:
         ins = inputs(B, S, E)
-        runs, first = {}, None
+        runs, first, errs_by = {}, None, {}
         for n in names:
             runs[n], outs = runner(fns[n], ins, B, S, E)
             if first is None:
@@ -232,16 +254,20 @@ def main() -> None:
             errs = [float((a - w).abs().max()) / max(float(w.abs().max()),
                                                       1e-30)
                     for a, w in zip(outs, first)]
+            errs_by[n] = max(errs)
             if max(errs) > 1e-4:
-                sys.exit(f"{n} {label}: outputs differ from {names[0]}'s: "
-                         f"{errs}")
+                print(f"{n} {label}: outputs differ from {names[0]}'s: "
+                      f"{errs}", file=sys.stderr, flush=True)
         times = {n: collections.defaultdict(list) for n in names}
         for n in order:
             for k, fn in runs[n].items():
                 times[n][k].append(time_ms(fn, args.reps))
+        kernels = {n: kernel_us(runs[n]) for n in names}
         for n in names:
             print(json.dumps(dict(build=n, case=label, B=B, S=S, E=E,
-                                  card=card, ms=dict(times[n]))), flush=True)
+                                  kernels_us=kernels[n],
+                                  card=card, rel_err=errs_by[n],
+                                  ms=dict(times[n]))), flush=True)
         del ins, runs
         torch.cuda.empty_cache()
 
