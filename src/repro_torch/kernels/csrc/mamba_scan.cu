@@ -33,28 +33,28 @@
 // 3.35 TB/s) and ~3.2 GFLOP of f32 FMAs (0.048 ms at 67 TFLOP/s): bound
 // by the exponentials (kernels/work.py, mamba_scan_work).  The backward
 // needs the same exponentials once and ~21 FLOPs a state element: bound
-// by its FLOPs.  What holds both back in practice is the issue rate: a
-// warp issues one instruction a clock, so every instruction spent on a
-// state element beyond the FMAs and the one exponential counts.
+// by its FLOPs.  What holds both back in practice is the issue rate (a
+// scheduler issues one warp instruction a clock), so the design counts
+// the instructions a state element.
 //
-// The decay: exp(x) with x = dt A rounded as the reference rounds it,
-// as one ex2.approx on the SFU of p = x log2(e) (rounded), times
-// 1 + err ln 2, where err = x log2(e) - p is formed exactly on the FMA
-// pipe from a hi/lo split of log2(e): within ex2.approx's 2 ulp, the
-// accuracy of expf, at 7 instructions an element against expf's ~9
-// (ex2.approx of the rounded p alone is off by |dt A| ulp, which the
-// trained model's dt_bias gradient, a sum of many decays, shows).
+// The decay: exp(x) with x = dt A rounded as the reference rounds it, as
+// one ex2.approx on the SFU of p = x log2(e) (rounded), times 1 + err ln 2,
+// where err = x log2(e) - p is formed exactly on the FMA pipe from a
+// hi/lo split of log2(e): within ex2.approx's 2 ulp plus one rounding,
+// about the accuracy of expf, in 7 instructions against expf's ~9.
+// ex2.approx of the rounded p alone is off by |dt A| ulp, which the
+// trained model's dt_bias gradient, a sum of many decays, shows.
 //
-// Forward design: a block of 128 threads, MAMBA_FWD_NS (16) states a
-// thread, so a thread owns a whole channel: y's sum over the states is
-// in the thread (no shuffles) and a warp stores y as one coalesced row
-// of 32 channels a token.  dt, B and C come through a two-tile cp.async
-// ring in shared memory (64 tokens a tile), where dt B is formed once a
-// token for the whole block; x comes straight from device memory, a
-// 16-token sub-tile ahead in registers.  Each 16-token sub-tile (one
-// checkpoint segment) is unrolled, so its decays and drives, which do
-// not depend on h, issue ahead of the serial FMA chain; tokens past S
-// have dt 0 and x 0 (decay 1, drive 0) and change no state.
+// Forward design: a block of 128 threads, MAMBA_FWD_NS (8) states a
+// thread, two threads a channel (y's sum over the states is eight FMAs
+// and one shuffle), 64 channels a block: 256 blocks of 4 warps at B 1.
+// dt, B and C come through a two-tile cp.async ring in shared memory (64
+// tokens a tile), where dt B is formed once a token for the block; x is
+// loaded a 16-token sub-tile ahead into registers.  Each sub-tile (one
+// checkpoint segment) is one block of straight-line code, its y kept in
+// registers and stored after it, so later tokens' decays, which do not
+// depend on h, issue while the serial FMA chain runs; tokens past S have
+// dt 0 and x 0 (decay 1, drive 0) and change no state.
 //
 // Backward design: a block of 128 threads holds 64 channels of one batch,
 // four channels by two states a thread, so dB's and dC's sums over the
@@ -71,6 +71,12 @@
 // (and dA's over the batch) in a fixed order; ddt's sums over the
 // channels and dA's over the segments and the batch run in f64.  No
 // atomics: the same inputs give the same bits.
+//
+// Build defines that re-measure the design's choices (see
+// tools/mamba_scan_bench.py): MAMBA_FWD_NS (4, 8 or 16 states a forward
+// thread), MAMBA_EXPF (expf decays), MAMBA_DB_EACH (dt B formed by each
+// thread), MAMBA_BWD_REDECAY (the backward's walk raises its decays
+// again).
 #include <cuda_runtime.h>
 #include <stdint.h>
 

@@ -4,8 +4,9 @@ Builds ``csrc/mamba_scan.cu`` with the port's nvcc flags and, beside it,
 each ``--parent-src F`` (another revision's file with the same C
 interface) and each ``--define NAME=V`` (this tree's file with a macro
 set, e.g. ``MAMBA_FWD_NS=8``), all in parallel.  At Jamba-1.5-Large's
-width (d_in 16,384, d_state 16) over 1 and 2 x 2,048 tokens, with phase
-5b's input distributions (numpy seed 11), it times each build's forward
+width (d_in 16,384, d_state 16) over 1 and 2 x 2,048 tokens and 4 x
+1,024 (phase 8's prefill), with phase 5b's input distributions (numpy
+seed 11), it times each build's forward
 (no states, with states) and backward by CUDA events over back-to-back
 launches, the builds in turns (a, b, ..., ..., b, a), takes each
 kernel's device time a call by torch.profiler, and puts every build's
@@ -40,7 +41,9 @@ import torch
 
 from repro_torch.kernels import _build
 
-CASES = (("B1", 1, 2048, 16384), ("B2", 2, 2048, 16384))
+# Jamba's training shapes, and its 4 x 1,024-token prefill (phase 8)
+CASES = (("B1", 1, 2048, 16384), ("B2", 2, 2048, 16384),
+         ("prefill", 4, 1024, 16384))
 ROOT = _build.BUILD_ROOT.parent / "mamba_bench"
 
 
