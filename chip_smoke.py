@@ -1708,9 +1708,9 @@ MAMBA_CASES = (("jamba train B1", 1, 2048, 16384, False, False),
                 True),
                ("ragged", 2, 77, 200, True, True),
                # the tiles' edges: S under one 16-token sub-tile, d_in 4
-               # past a multiple of both kernels' blocks (64 and 128
-               # channels); B 3 with S not a multiple of the sub-tile and
-               # d_in not a multiple of 4 (the 4-byte copies)
+               # past a multiple of the blocks' 64 channels; B 3 with S not
+               # a multiple of the sub-tile and d_in not a multiple of 4
+               # (the 4-byte copies)
                ("short", 1, 5, 4100, True, True),
                ("B3 ragged", 3, 40, 130, True, False))
 # the decays' largest ulp distance from exp of the rounded dt A (in f64)

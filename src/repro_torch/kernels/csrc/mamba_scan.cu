@@ -195,25 +195,17 @@ __device__ __forceinline__ void stage(float* dst, const float* src, int n,
   }
 }
 
-// Stages a [nrow][ncol] block of rows (row r at src + r ld) into dst:
-// rows below nrow_ok and columns below ncol_ok copied, the rest 0.
+// Stages a [nrow][ncol] block of rows (row r at src + r ld) into dst by
+// 4-byte copies: rows below nrow_ok and columns below ncol_ok copied, the
+// rest 0 (for rows that 16-byte copies cannot take).
 __device__ __forceinline__ void stage_rows(float* dst, const float* src,
                                            long long ld, int nrow, int ncol,
-                                           int nrow_ok, int ncol_ok,
-                                           bool vec, int tid, int nthr) {
-  if (vec) {
-    const int per = ncol / 4;
-    for (int i = tid; i < nrow * per; i += nthr) {
-      const int r = i / per, c = 4 * (i % per);
-      const bool ok = r < nrow_ok && c < ncol_ok;
-      cp16(dst + r * ncol + c, ok ? src + r * ld + c : src, ok ? 16 : 0);
-    }
-  } else {
-    for (int i = tid; i < nrow * ncol; i += nthr) {
-      const int r = i / ncol, c = i % ncol;
-      const bool ok = r < nrow_ok && c < ncol_ok;
-      cp4(dst + r * ncol + c, ok ? src + r * ld + c : src, ok ? 4 : 0);
-    }
+                                           int nrow_ok, int ncol_ok, int tid,
+                                           int nthr) {
+  for (int i = tid; i < nrow * ncol; i += nthr) {
+    const int r = i / ncol, c = i % ncol;
+    const bool ok = r < nrow_ok && c < ncol_ok;
+    cp4(dst + r * ncol + c, ok ? src + r * ld + c : src, ok ? 4 : 0);
   }
 }
 
@@ -436,8 +428,8 @@ mamba_scan_bwd_kernel(const float* __restrict__ x,
         cp16(st + ST_DY + r * CH + c, ys + o, ok ? 16 : 0);
       }
     } else {
-      stage_rows(st + ST_X, xs, E, K, CH, n_tok, n_ch, false, tid, THREADS);
-      stage_rows(st + ST_DY, ys, E, K, CH, n_tok, n_ch, false, tid, THREADS);
+      stage_rows(st + ST_X, xs, E, K, CH, n_tok, n_ch, tid, THREADS);
+      stage_rows(st + ST_DY, ys, E, K, CH, n_tok, n_ch, tid, THREADS);
     }
     stage(st + ST_B, Bm + tok * N, K * N, n_tok * N, vecBC, tid, THREADS);
     stage(st + ST_C, Cm + tok * N, K * N, n_tok * N, vecBC, tid, THREADS);

@@ -739,8 +739,8 @@ def test_rwkv6_chunked_bwd_kernel(cuda, B, S, H, chunk, lo, s0, fin, tiny):
     # more blocks than two an SM hold resident
     (2, 48, 64 * 300, False, True),
     # the tiles' edges: S under one 16-token sub-tile with d_in 4 past a
-    # multiple of both kernels' blocks (64, 128), B 3 with S not a multiple
-    # of the sub-tile, a ragged last 64-token forward tile
+    # multiple of the blocks' 64 channels, B 3 with S not a multiple of the
+    # sub-tile, a ragged last 64-token forward tile
     (1, 5, 4100, True, True), (3, 40, 96, False, True),
     (2, 130, 252, True, False)])
 def test_mamba_scan_kernel(cuda, B, S, E, h0, fin):

@@ -13,8 +13,8 @@ kernel's device time a call by torch.profiler, and puts every build's
 outputs against the first's (the largest error relative to each
 tensor's largest entry; past 1e-4 it says so on stderr).  For each build
 it prints the ptxas registers, stack and spills, the blocks an SM, and
-the SASS instructions a state element in each kernel's token loop:
-``cuobjdump -sass`` of the library, the innermost loop that raises a
+the SASS instructions a state element in each kernel's token loops:
+``cuobjdump -sass`` of the library, each innermost loop that raises a
 decay, its instructions over its ``MUFU.EX2`` (one a state element).
 One JSON line a build and case.  The source's build defines
 ``MAMBA_FWD_NS`` (states a forward thread), ``MAMBA_EXPF`` (``expf``
@@ -23,7 +23,7 @@ decays), ``MAMBA_DB_EACH`` (dt B formed by each thread) and
 re-measure the design's choices.  Needs a card:
 
     PYTHONPATH=src python tools/mamba_scan_bench.py [--parent-src F]
-        [--define NAME=V ...] [--reps N]
+        [--define NAME=V ...] [--reps N] [--sass-only]
 """
 from __future__ import annotations
 
@@ -39,12 +39,15 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from repro_torch.kernels import _build
+ROOT = Path(__file__).resolve().parents[1]
+sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
+from chip_smoke import ptxas_entries  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
 
 # Jamba's training shapes, and its 4 x 1,024-token prefill (phase 8)
 CASES = (("B1", 1, 2048, 16384), ("B2", 2, 2048, 16384),
          ("prefill", 4, 1024, 16384))
-ROOT = _build.BUILD_ROOT.parent / "mamba_bench"
+OUT = _build.BUILD_ROOT.parent / "mamba_bench"
 
 
 def build_all(builds: dict) -> dict:
@@ -52,7 +55,7 @@ def build_all(builds: dict) -> dict:
     ptxas report)."""
     procs = {}
     for name, (src, defs) in builds.items():
-        out = ROOT / name
+        out = OUT / name
         out.mkdir(parents=True, exist_ok=True)
         lib = out / "libmamba_scan.so"
         cmd = [_build.nvcc(), *_build.NVCC_FLAGS, *(f"-D{d}" for d in defs),
@@ -70,9 +73,11 @@ def build_all(builds: dict) -> dict:
 
 
 def sass_loops(lib: Path, listing: int = 0) -> dict:
-    """For each kernel in ``lib``: the innermost loop (a backward branch's
-    span) that holds a ``MUFU.EX2``, its instructions, its exponentials,
-    its opcodes by count and, with ``listing``, its first instructions."""
+    """For each kernel in ``lib``: every innermost loop (a backward
+    branch's span holding no smaller such span) that raises a decay
+    (``MUFU.EX2``), in address order: its instructions, its exponentials
+    (one a state element), their ratio, its opcodes by count and, with
+    ``listing``, its first instructions."""
     cuobjdump = Path(_build.nvcc()).with_name("cuobjdump")
     text = subprocess.run([str(cuobjdump), "-sass", str(lib)],
                           capture_output=True, text=True, check=True).stdout
@@ -85,40 +90,28 @@ def sass_loops(lib: Path, listing: int = 0) -> dict:
             if body.startswith("@"):
                 body = body.split(None, 1)[1]
             ins.append((int(m.group(1), 16), body))
-        loops = []
+        spans = []
         for addr, body in ins:
             m = re.match(r"BRA\s+(?:`\(\.L_x_\d+\)\s*)?0x([0-9a-f]+)", body)
             if m and int(m.group(1), 16) < addr:
                 span = [b for a, b in ins if int(m.group(1), 16) <= a <= addr]
-                ops = collections.Counter(b.split()[0] for b in span)
-                if ops["MUFU.EX2"]:
-                    loops.append((len(span), ops, span))
-        if loops:
-            n, ops, span = min(loops, key=lambda t: t[0])
-            out[name] = dict(
-                loop_instructions=n, exponentials=ops["MUFU.EX2"],
-                per_element=round(n / ops["MUFU.EX2"], 2),
-                opcodes=dict(ops.most_common()))
+                if any(b.startswith("MUFU.EX2") for b in span):
+                    spans.append((int(m.group(1), 16), addr, span))
+        loops = []
+        for lo, hi, span in sorted(spans):
+            if any(lo <= l2 and h2 <= hi and (l2, h2) != (lo, hi)
+                   for l2, h2, _ in spans):
+                continue
+            ops = collections.Counter(b.split()[0] for b in span)
+            loop = dict(loop_instructions=len(span),
+                        exponentials=ops["MUFU.EX2"],
+                        per_element=round(len(span) / ops["MUFU.EX2"], 2),
+                        opcodes=dict(ops.most_common()))
             if listing:
-                out[name]["listing"] = span[:listing]
-    return out
-
-
-def ptxas_entries(log: str) -> dict:
-    """Registers, stack frame and spill bytes of each kernel in nvcc's
-    ``-Xptxas -v`` report, by mangled name."""
-    out, key = {}, None
-    for line in log.splitlines():
-        m = re.search(r"Compiling entry function '(\w+)'", line)
-        if m:
-            key = m.group(1)
-        elif key and "stack frame" in line:
-            out.setdefault(key, {}).update(
-                stack=int(re.search(r"(\d+) bytes stack", line).group(1)),
-                spills=int(re.search(r"(\d+) bytes spill st", line).group(1)))
-        elif key and "Used" in line and "registers" in line:
-            out.setdefault(key, {})["registers"] = int(re.search(
-                r"Used (\d+) registers", line).group(1))
+                loop["listing"] = span[:listing]
+            loops.append(loop)
+        if loops:
+            out[name] = loops
     return out
 
 
@@ -225,6 +218,8 @@ def main() -> None:
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--listing", type=int, default=0,
                     help="print this many instructions of each token loop")
+    ap.add_argument("--sass-only", action="store_true",
+                    help="report the builds' ptxas, occupancy and SASS only")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("mamba_scan_bench: no card")
@@ -245,6 +240,8 @@ def main() -> None:
                               occupancy=fns[n][3],
                               sass=sass_loops(lib, args.listing))),
               flush=True)
+    if args.sass_only:
+        return
     names = list(libs)
     order = names + names[::-1]
     for label, B, S, E in CASES:
