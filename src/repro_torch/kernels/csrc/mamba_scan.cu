@@ -37,17 +37,16 @@
 // scheduler issues one warp instruction a clock), so the design counts
 // the instructions a state element.
 //
-// The decay: exp(x) with x = dt A rounded as the reference rounds it, as
-// one ex2.approx on the SFU of p = x log2(e) (rounded), times 1 + err ln 2,
-// where err = x log2(e) - p is formed exactly on the FMA pipe from a
-// hi/lo split of log2(e): within ex2.approx's 2 ulp plus one rounding,
-// about the accuracy of expf, in 7 instructions against expf's ~9.
-// ex2.approx of the rounded p alone is off by |dt A| ulp, which the
-// trained model's dt_bias gradient, a sum of many decays, shows.
+// The decay: expf(x) with x = dt A rounded as the reference rounds it,
+// within expf's 2 ulp of exp(x).  The trained model's dt_bias gradient is
+// a cancelling sum of many decays and shows their error: ex2.approx of a
+// rounded x log2(e) alone is off by |x| ulp, and a cheaper split of it
+// (ex2.approx of the rounded p = x log2(e) times 1 + err ln 2, err formed
+// exactly) is 2.5 ulp from exp(x), past expf's 2 (PORT.md).
 //
-// Forward design: a block of 128 threads, MAMBA_FWD_NS (8) states a
-// thread, two threads a channel (y's sum over the states is eight FMAs
-// and one shuffle), 64 channels a block: 256 blocks of 4 warps at B 1.
+// Forward design: a block of 128 threads, 8 states a thread, two threads
+// a channel (y's sum over the states is eight FMAs and one shuffle), 64
+// channels a block: 256 blocks of 4 warps at B 1.
 // dt, B and C come through a two-tile cp.async ring in shared memory (64
 // tokens a tile), where dt B is formed once a token for the block; x is
 // loaded a 16-token sub-tile ahead into registers.  Each sub-tile (one
@@ -71,18 +70,8 @@
 // (and dA's over the batch) in a fixed order; ddt's sums over the
 // channels and dA's over the segments and the batch run in f64.  No
 // atomics: the same inputs give the same bits.
-//
-// Build defines that re-measure the design's choices (see
-// tools/mamba_scan_bench.py): MAMBA_FWD_NS (4, 8 or 16 states a forward
-// thread), MAMBA_EXPF (expf decays), MAMBA_DB_EACH (dt B formed by each
-// thread), MAMBA_BWD_REDECAY (the backward's walk raises its decays
-// again).
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#ifndef MAMBA_FWD_NS
-#define MAMBA_FWD_NS 8
-#endif
 
 namespace {
 
@@ -92,11 +81,10 @@ constexpr unsigned FULL = 0xffffffffu;
 
 // the forward
 constexpr int F_THREADS = 128;
-constexpr int F_NS = MAMBA_FWD_NS;       // states a thread
+constexpr int F_NS = 8;                  // states a thread
 constexpr int F_TPC = N / F_NS;          // threads a channel
 constexpr int F_CH = F_THREADS / F_TPC;  // channels a block
 constexpr int TF = 64;                   // tokens a staged tile
-static_assert(F_NS == 4 || F_NS == 8 || F_NS == 16, "4, 8 or 16 states");
 static_assert(TF % K == 0, "a tile holds whole sub-tiles");
 
 // the backward
@@ -125,32 +113,9 @@ static_assert(B_DDT % 4 == 0 && B_DA % 4 == 0 &&
                   B_STAGE % 4 == 0 && ST_CK % 4 == 0 && ST_SIZE % 4 == 0,
               "16-byte aligned regions");
 
-constexpr float LOG2E_HI = 1.44269502162933349609375f;   // f32(log2 e)
-constexpr float LOG2E_LO = 1.925963033500011079e-08f;    // log2 e - HI
-constexpr float LN2 = 0.693147180559945309f;
-
-__device__ __forceinline__ float ex2_approx(float p) {
-  float r;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(p));
-  return r;
-}
-
-// exp(d a) for d a <= 0: the product rounded as the reference rounds it,
-// p = x log2(e) raised on the SFU, its rounding error err (exact to
-// ~2^-48 of p) applied as 1 + err ln 2
+// exp(d a): the product rounded as the reference rounds it
 __device__ __forceinline__ float decay(float d, float a) {
-  const float x = d * a;
-#ifdef MAMBA_EXPF
-  return expf(x);
-#else
-  // p through inline PTX: seen through, the compiler forms -p as a second
-  // product x (-log2 e) instead of negating p in the fma
-  float p;
-  asm("mul.rn.f32 %0, %1, %2;" : "=f"(p) : "f"(x), "f"(LOG2E_HI));
-  const float err = fmaf(x, LOG2E_LO, fmaf(x, LOG2E_HI, -p));
-  const float r = ex2_approx(p);
-  return fmaf(r, err * LN2, r);
-#endif
+  return expf(d * a);
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -180,19 +145,13 @@ __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
 }
 
-// Stages n floats of src into dst by every thread of the block: the
-// first n_ok copied, the rest 0; 16-byte copies when ``vec`` (src and
-// dst 16-byte aligned, n and n_ok multiples of 4), else 4-byte.
+// Stages n floats of src into dst by 16-byte copies of every thread of
+// the block: the first n_ok copied, the rest 0 (src and dst 16-byte
+// aligned, n and n_ok multiples of 4).
 __device__ __forceinline__ void stage(float* dst, const float* src, int n,
-                                      int n_ok, bool vec, int tid,
-                                      int nthr) {
-  if (vec) {
-    for (int i = 4 * tid; i < n; i += 4 * nthr)
-      cp16(dst + i, i < n_ok ? src + i : src, i < n_ok ? 16 : 0);
-  } else {
-    for (int i = tid; i < n; i += nthr)
-      cp4(dst + i, i < n_ok ? src + i : src, i < n_ok ? 4 : 0);
-  }
+                                      int n_ok, int tid, int nthr) {
+  for (int i = 4 * tid; i < n; i += 4 * nthr)
+    cp16(dst + i, i < n_ok ? src + i : src, i < n_ok ? 16 : 0);
 }
 
 // Stages a [nrow][ncol] block of rows (row r at src + r ld) into dst by
@@ -213,7 +172,9 @@ __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-__global__ void __launch_bounds__(F_THREADS)
+// two blocks an SM at least: the registers for a sub-tile's decays issued
+// ahead (with expf, ptxas spills under its own limit of 128)
+__global__ void __launch_bounds__(F_THREADS, 2)
 mamba_scan_fwd_kernel(const float* __restrict__ x,
                       const float* __restrict__ dt,
                       const float* __restrict__ A,
@@ -221,7 +182,7 @@ mamba_scan_fwd_kernel(const float* __restrict__ x,
                       const float* __restrict__ Cm,
                       const float* __restrict__ h0, float* __restrict__ y,
                       float* __restrict__ hT, float* __restrict__ states,
-                      int S, int E, int vecBC) {
+                      int S, int E) {
   __shared__ __align__(16) float s_B[2][TF * N];   // B, then dt B in place
   __shared__ __align__(16) float s_C[2][TF * N];
   __shared__ __align__(16) float s_dt[2][TF];
@@ -249,9 +210,11 @@ mamba_scan_fwd_kernel(const float* __restrict__ x,
   auto load_tile = [&](int tile) {
     const int t0 = tile * TF, buf = tile & 1, n_ok = min(TF, S - t0);
     const long long row = (long long)b * S + t0;
-    stage(s_B[buf], Bm + row * N, TF * N, n_ok * N, vecBC, tid, F_THREADS);
-    stage(s_C[buf], Cm + row * N, TF * N, n_ok * N, vecBC, tid, F_THREADS);
-    stage(s_dt[buf], dt + row, TF, n_ok, false, tid, F_THREADS);
+    stage(s_B[buf], Bm + row * N, TF * N, n_ok * N, tid, F_THREADS);
+    stage(s_C[buf], Cm + row * N, TF * N, n_ok * N, tid, F_THREADS);
+    if (tid < TF)
+      cp4(s_dt[buf] + tid, dt + row + (tid < n_ok ? tid : 0),
+          tid < n_ok ? 4 : 0);
   };
   load_tile(0);
   cp_commit();
@@ -275,10 +238,8 @@ mamba_scan_fwd_kernel(const float* __restrict__ x,
     const int buf = tile & 1, t0 = tile * TF;
     cp_wait<1>();
     __syncthreads();                        // tile `tile` has landed
-#ifndef MAMBA_DB_EACH
     for (int i = tid; i < TF * N; i += F_THREADS)
       s_B[buf][i] *= s_dt[buf][i / N];      // dt B once a token
-#endif
     __syncthreads();
     const float* sB = s_B[buf];
     const float* sC = s_C[buf];
@@ -316,11 +277,7 @@ mamba_scan_fwd_kernel(const float* __restrict__ x,
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
             const float a = decay(d, av[j + i]);
-#ifdef MAMBA_DB_EACH
-            h[j + i] = fmaf(a, h[j + i], (d * bj[i]) * xv[k]);
-#else
             h[j + i] = fmaf(a, h[j + i], bj[i] * xv[k]);
-#endif
             if (i & 1)
               acc1 = fmaf(h[j + i], cj[i], acc1);
             else
@@ -379,8 +336,7 @@ mamba_scan_bwd_kernel(const float* __restrict__ x,
                       const float* __restrict__ dhT, float* __restrict__ dx,
                       float* __restrict__ dBp, float* __restrict__ dCp,
                       double* __restrict__ ddtp, double* __restrict__ dAp,
-                      float* __restrict__ dh0, int S, int E, int vecX,
-                      int vecBC) {
+                      float* __restrict__ dh0, int S, int E, int vecX) {
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   float* hist = sm + B_HIST;
@@ -431,8 +387,8 @@ mamba_scan_bwd_kernel(const float* __restrict__ x,
       stage_rows(st + ST_X, xs, E, K, CH, n_tok, n_ch, tid, THREADS);
       stage_rows(st + ST_DY, ys, E, K, CH, n_tok, n_ch, tid, THREADS);
     }
-    stage(st + ST_B, Bm + tok * N, K * N, n_tok * N, vecBC, tid, THREADS);
-    stage(st + ST_C, Cm + tok * N, K * N, n_tok * N, vecBC, tid, THREADS);
+    stage(st + ST_B, Bm + tok * N, K * N, n_tok * N, tid, THREADS);
+    stage(st + ST_C, Cm + tok * N, K * N, n_tok * N, tid, THREADS);
     if (tid < K)
       cp4(st + ST_DT + tid, dt + tok + (tid < n_tok ? tid : 0),
           tid < n_tok ? 4 : 0);
@@ -527,11 +483,7 @@ mamba_scan_bwd_kernel(const float* __restrict__ x,
         for (int i = 0; i < NT; ++i) {
           const int l = NT * j + i;
           const float g = fmaf(gy[j], cs[i], G[l]);
-#ifdef MAMBA_BWD_REDECAY
-          const float Gn = decay(d, av[l]) * g;   // the decay raised again
-#else
           const float Gn = a[k][l] * g;
-#endif
           const float ga = Gn * hp[l];
           dA[l] = fmaf(ga, d, dA[l]);
           ddt = fmaf(ga, av[l], ddt);
@@ -746,7 +698,7 @@ extern "C" int mamba_scan_fwd_channels() { return F_CH; }
 
 // x, y: [B, S, E]; dt: [B, S]; A: [E, 16]; Bm, Cm: [B, S, 16]; h0, hT:
 // [B, E, 16]; states: [B, ceil(S / 16), E, 16] or null; all f32,
-// contiguous; A, h0, hT and states 16-byte aligned.
+// contiguous; A, Bm, Cm, h0, hT and states 16-byte aligned.
 extern "C" int mamba_scan_launch(const void* x, const void* dt,
                                  const void* A, const void* Bm,
                                  const void* Cm, const void* h0, void* y,
@@ -754,23 +706,24 @@ extern "C" int mamba_scan_launch(const void* x, const void* dt,
                                  void* stream) {
   if (B == 0 || E == 0) return 0;
   if (S < 1) return (int)cudaErrorInvalidValue;
-  if (!aligned16(A) || !aligned16(h0) || !aligned16(hT) ||
-      (states != nullptr && !aligned16(states)))
+  const void* ptrs[] = {A, Bm, Cm, h0, hT};
+  for (const void* p : ptrs)
+    if (!aligned16(p)) return (int)cudaErrorMisalignedAddress;
+  if (states != nullptr && !aligned16(states))
     return (int)cudaErrorMisalignedAddress;
-  const int vecBC = aligned16(Bm) && aligned16(Cm);
   const dim3 grid((E + F_CH - 1) / F_CH, B);
   mamba_scan_fwd_kernel<<<grid, F_THREADS, 0, (cudaStream_t)stream>>>(
       (const float*)x, (const float*)dt, (const float*)A, (const float*)Bm,
       (const float*)Cm, (const float*)h0, (float*)y, (float*)hT,
-      (float*)states, S, E, vecBC);
+      (float*)states, S, E);
   return (int)cudaGetLastError();
 }
 
 // The backward: two launches, the scan then the sums.  dhT may be null
 // (0).  Outputs dx [B, S, E], ddt [B, S], dA [E, 16], dB, dC [B, S, 16],
 // dh0 [B, E, 16]; scratch dBp, dCp [B, nblk, S, 16] f32, ddtp [B, nblk,
-// S] and dAp [B, E, 16] f64, nblk = mamba_scan_blocks(E).  A, states,
-// dhT, dh0, dBp, dCp and dAp 16-byte aligned.
+// S] and dAp [B, E, 16] f64, nblk = mamba_scan_blocks(E).  A, Bm, Cm,
+// states, dhT, dh0, dBp, dCp and dAp 16-byte aligned.
 extern "C" int mamba_scan_bwd_launch(
     const void* x, const void* dt, const void* A, const void* Bm,
     const void* Cm, const void* states, const void* dy, const void* dhT,
@@ -779,14 +732,13 @@ extern "C" int mamba_scan_bwd_launch(
     void* stream) {
   if (B == 0 || E == 0) return 0;
   if (S < 1 || nblk != (E + CH - 1) / CH) return (int)cudaErrorInvalidValue;
-  const void* ptrs[] = {A, states, dAp, dh0, dBp, dCp};
+  const void* ptrs[] = {A, Bm, Cm, states, dAp, dh0, dBp, dCp};
   for (const void* p : ptrs)
     if (!aligned16(p)) return (int)cudaErrorMisalignedAddress;
   if (dhT != nullptr && !aligned16(dhT))
     return (int)cudaErrorMisalignedAddress;
   const int vecX = E % 4 == 0 && aligned16(x) && aligned16(dy) &&
                    aligned16(dx);
-  const int vecBC = aligned16(Bm) && aligned16(Cm);
   cudaError_t err = set_smem();
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t s = (cudaStream_t)stream;
@@ -794,7 +746,7 @@ extern "C" int mamba_scan_bwd_launch(
       (const float*)x, (const float*)dt, (const float*)A, (const float*)Bm,
       (const float*)Cm, (const float*)states, (const float*)dy,
       (const float*)dhT, (float*)dx, (float*)dBp, (float*)dCp,
-      (double*)ddtp, (double*)dAp, (float*)dh0, S, E, vecX, vecBC);
+      (double*)ddtp, (double*)dAp, (float*)dh0, S, E, vecX);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const long long groups = ((long long)B * S * N + 31) / 32 +

@@ -825,9 +825,9 @@ def _check_mamba_card(N: int, *ts) -> None:
     if N != MAMBA_STATES:
         raise ValueError(f"mamba_scan kernel: d_state must be "
                          f"{MAMBA_STATES}, got {N}")
-    if any(t.data_ptr() % 16 for t in (ts[2], ts[-1])):
-        raise ValueError("mamba_scan kernel: A and h0 (or the states) must "
-                         "start on a 16-byte boundary")
+    if any(t.data_ptr() % 16 for t in ts[2:]):
+        raise ValueError("mamba_scan kernel: A, Bm, Cm and h0 (or the "
+                         "states) must start on a 16-byte boundary")
 
 
 def _mamba_forward(x, dt, A, Bm, Cm, h0, states: bool):

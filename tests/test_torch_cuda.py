@@ -787,35 +787,28 @@ def test_mamba_scan_kernel(cuda, B, S, E, h0, fin):
     assert all(torch.equal(a, b) for a, b in zip(auto, got))
 
 
-def test_mamba_scan_kernel_unaligned_b_and_c(cuda):
-    """B and C that start 4 bytes past a 16-byte boundary (contiguous
-    views into a larger buffer) take the kernels' 4-byte copies and give
-    what 16-byte-aligned copies of them give, bit for bit."""
-    B, S, E = 2, 37, 96
-    x, dy = (torch.as_tensor(RNG.normal(0, 1, (B, S, E)),
-                             dtype=torch.float32, device=cuda)
-             for _ in range(2))
-    dt = torch.as_tensor(np.log1p(np.exp(RNG.normal(-1, 1, (B, S)))),
-                         dtype=torch.float32, device=cuda)
-    A = -torch.as_tensor(np.exp(np.log(np.arange(1, 17))[None] + RNG.normal(
-        0, 0.2, (E, 16))), dtype=torch.float32, device=cuda)
-    h0 = torch.as_tensor(RNG.normal(0, 1, (B, E, 16)), dtype=torch.float32,
-                         device=cuda)
-    bc = [torch.as_tensor(RNG.normal(0, 1, (B, S, 16)), dtype=torch.float32,
-                          device=cuda) for _ in range(2)]
-    shifted = []
-    for t in bc:
-        buf = torch.empty(t.numel() + 1, device=cuda)
-        v = buf[1:].view(t.shape)
-        v.copy_(t)
+def test_mamba_scan_kernel_refuses_unaligned_inputs(cuda):
+    """A, B, C and h0 (or the states) that start 4 bytes past a 16-byte
+    boundary (contiguous views into a larger buffer) raise on the card,
+    forward and backward: the kernels copy them by 16 bytes."""
+    B, S, E = 1, 8, 64
+    shapes = ((B, S, E), (B, S), (E, 16), (B, S, 16), (B, S, 16),
+              (B, E, 16))
+    ins = [torch.zeros(s, device=cuda) for s in shapes]
+    states = ops.mamba_scan_states(*ins)[2]
+    dy = torch.zeros(B, S, E, device=cuda)
+
+    def off(t):
+        v = torch.zeros(t.numel() + 1, device=cuda)[1:].view(t.shape)
         assert v.is_contiguous() and v.data_ptr() % 16 == 4
-        shifted.append(v)
-    want = ops.mamba_scan_states(x, dt, A, *bc, h0)
-    got = ops.mamba_scan_states(x, dt, A, *shifted, h0)
-    assert all(torch.equal(a, b) for a, b in zip(got, want))
-    gw = ops.mamba_scan_bwd(x, dt, A, *bc, want[2], dy)
-    gg = ops.mamba_scan_bwd(x, dt, A, *shifted, want[2], dy)
-    assert all(torch.equal(a, b) for a, b in zip(gg, gw))
+        return v
+    for i in (2, 3, 4, 5):
+        bad = ins[:i] + [off(ins[i])] + ins[i + 1:]
+        with pytest.raises(ValueError, match="16-byte boundary"):
+            ops.mamba_scan(*bad)
+        with pytest.raises(ValueError, match="16-byte boundary"):
+            ops.mamba_scan_bwd(*bad[:5], off(states) if i == 5 else states,
+                               dy)
 
 
 def test_mamba_scan_kernel_refuses_what_it_does_not_take(cuda):

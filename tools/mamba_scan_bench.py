@@ -2,28 +2,24 @@
 
 Builds ``csrc/mamba_scan.cu`` with the port's nvcc flags and, beside it,
 each ``--parent-src F`` (another revision's file with the same C
-interface) and each ``--define NAME=V`` (this tree's file with a macro
-set, e.g. ``MAMBA_FWD_NS=8``), all in parallel.  At Jamba-1.5-Large's
-width (d_in 16,384, d_state 16) over 1 and 2 x 2,048 tokens and 4 x
-1,024 (phase 8's prefill), with phase 5b's input distributions (numpy
-seed 11), it times each build's forward
-(no states, with states) and backward by CUDA events over back-to-back
-launches, the builds in turns (a, b, ..., ..., b, a), takes each
-kernel's device time a call by torch.profiler, and puts every build's
-outputs against the first's (the largest error relative to each
-tensor's largest entry; past 1e-4 it says so on stderr).  For each build
-it prints the ptxas registers, stack and spills, the blocks an SM, and
-the SASS instructions a state element in each kernel's token loops:
-``cuobjdump -sass`` of the library, each innermost loop that raises a
-decay, its instructions over its ``MUFU.EX2`` (one a state element).
-One JSON line a build and case.  The source's build defines
-``MAMBA_FWD_NS`` (states a forward thread), ``MAMBA_EXPF`` (``expf``
-decays), ``MAMBA_DB_EACH`` (dt B formed by each thread) and
-``MAMBA_BWD_REDECAY`` (the backward's decays raised again in its walk)
-re-measure the design's choices.  Needs a card:
+interface, e.g. ``git show REV:src/repro_torch/kernels/csrc/mamba_scan.cu``),
+all in parallel.  At Jamba-1.5-Large's width (d_in 16,384, d_state 16)
+over 1 and 2 x 2,048 tokens and 4 x 1,024 (phase 8's prefill), on phase
+5b's inputs (``chip_smoke.mamba_inputs``, numpy seed 11), it times each
+build's forward (no states, with states) and backward by CUDA events
+over back-to-back launches (``chip_smoke.time_ms``), the builds in turns
+(a, b, ..., ..., b, a), takes each kernel's device time a call by
+torch.profiler, and puts every build's outputs against the first's (the
+largest error relative to each tensor's largest entry; past 1e-4 it says
+so on stderr).  For each build it prints the ptxas registers, stack and
+spills, the blocks an SM, and the SASS instructions a state element in
+each kernel's token loops: ``cuobjdump -sass`` of the library, each
+innermost loop that raises a decay, its instructions over its
+``MUFU.EX2`` (one a state element).  One JSON line a build and case.
+Needs a card:
 
     PYTHONPATH=src python tools/mamba_scan_bench.py [--parent-src F]
-        [--define NAME=V ...] [--reps N] [--sass-only]
+        [--reps N] [--sass-only]
 """
 from __future__ import annotations
 
@@ -41,7 +37,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
-from chip_smoke import ptxas_entries  # noqa: E402
+from chip_smoke import (card_line, mamba_inputs, ptxas_entries,  # noqa: E402
+                        time_ms)
 from repro_torch.kernels import _build  # noqa: E402
 
 # Jamba's training shapes, and its 4 x 1,024-token prefill (phase 8)
@@ -51,15 +48,14 @@ OUT = _build.BUILD_ROOT.parent / "mamba_bench"
 
 
 def build_all(builds: dict) -> dict:
-    """name -> (source, defines) built side by side; name -> (library,
-    ptxas report)."""
+    """name -> source built side by side; name -> (library, ptxas
+    report)."""
     procs = {}
-    for name, (src, defs) in builds.items():
+    for name, src in builds.items():
         out = OUT / name
         out.mkdir(parents=True, exist_ok=True)
         lib = out / "libmamba_scan.so"
-        cmd = [_build.nvcc(), *_build.NVCC_FLAGS, *(f"-D{d}" for d in defs),
-               "-o", str(lib), str(src)]
+        cmd = [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)]
         procs[name] = (lib, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True))
@@ -129,21 +125,6 @@ def bind(lib: Path):
     return fwd, bwd, so.mamba_scan_blocks, occ
 
 
-def inputs(B, S, E, dev="cuda"):
-    rng = np.random.default_rng(11)
-
-    def rand(*shape, scale=1.0):
-        return torch.as_tensor(rng.normal(0, scale, shape),
-                               dtype=torch.float32, device=dev)
-    x, Bm, Cm = rand(B, S, E), rand(B, S, 16), rand(B, S, 16)
-    dt = torch.nn.functional.softplus(rand(B, S) - 1.0)
-    A = -torch.exp(torch.log(torch.arange(
-        1, 17, dtype=torch.float32, device=dev)).repeat(E, 1)
-        + rand(E, 16, scale=0.2))
-    h0, dy, dhT = rand(B, E, 16), rand(B, S, E), rand(B, E, 16)
-    return x, dt, A, Bm, Cm, h0, dy, dhT
-
-
 def runner(fns, ins, B, S, E):
     fwd, bwd, blocks, _ = fns
     x, dt, A, Bm, Cm, h0, dy, dhT = ins
@@ -179,20 +160,6 @@ def runner(fns, ins, B, S, E):
             "bwd": b}, outs
 
 
-def time_ms(fn, reps: int) -> float:
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
-
-
 def kernel_us(run: dict, n: int = 5) -> dict:
     """Device time a call of each kernel (torch.profiler over ``n`` calls
     of the forward with states and the backward), by kernel name."""
@@ -213,8 +180,6 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent-src", action="append", default=[],
                     help="another revision's mamba_scan.cu (repeatable)")
-    ap.add_argument("--define", action="append", default=[],
-                    help="NAME=V: this tree's file with a macro (repeatable)")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--listing", type=int, default=0,
                     help="print this many instructions of each token loop")
@@ -223,16 +188,10 @@ def main() -> None:
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("mamba_scan_bench: no card")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True).stdout.strip().splitlines()[0]
+    card = card_line()
     print(f"card: {card}", flush=True)
-    src = _build.CSRC / "mamba_scan.cu"
-    builds = {f"parent{i}": (Path(p), ()) for i, p in
-              enumerate(args.parent_src)}
-    builds["this"] = (src, ())
-    for d in args.define:
-        builds[d] = (src, (d,))
+    builds = {f"parent{i}": Path(p) for i, p in enumerate(args.parent_src)}
+    builds["this"] = _build.CSRC / "mamba_scan.cu"
     libs = build_all(builds)
     fns = {n: bind(lib) for n, (lib, _) in libs.items()}
     for n, (lib, log) in libs.items():
@@ -245,7 +204,7 @@ def main() -> None:
     names = list(libs)
     order = names + names[::-1]
     for label, B, S, E in CASES:
-        ins = inputs(B, S, E)
+        ins = mamba_inputs(B, S, E, torch, np, np.random.default_rng(11))
         runs, first, errs_by = {}, None, {}
         for n in names:
             runs[n], outs = runner(fns[n], ins, B, S, E)
@@ -261,7 +220,7 @@ def main() -> None:
         times = {n: collections.defaultdict(list) for n in names}
         for n in order:
             for k, fn in runs[n].items():
-                times[n][k].append(time_ms(fn, args.reps))
+                times[n][k].append(time_ms(fn, args.reps, warmup=3))
         kernels = {n: kernel_us(runs[n]) for n in names}
         for n in names:
             print(json.dumps(dict(build=n, case=label, B=B, S=S, E=E,
