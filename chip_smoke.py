@@ -27,16 +27,19 @@ Phases (any failure exits non-zero before the final line):
    launch and tick_draws, replayed at three ticks written to the tick's
    device tensor, equal to the plain versions at each; the draws made in
    place (the fused launch with ``rng=``, spritz_select with ``rng=`` and
-   ``weighted_sample``) against tick_draws' plain version then the
-   consumer's, at the DF-1056 (F, M), ragged sizes, ticks 0 and 2**31 -
-   1, three seeds and in a graph replayed at three ticks, with the device
-   time of each beside its two-step form's; CUDA-event times of
+   ``weighted_sample``, in each of its forms: the prefix in the launch or
+   on a prefix table, launched early or not) against tick_draws' plain
+   version then the consumer's, at the DF-1056 (F, M), ragged sizes,
+   ticks 0 and 2**31 - 1, three seeds and in a graph replayed at three
+   ticks (the early samplers a programmatic edge each in it), with the
+   device time of each beside its two-step form's; CUDA-event times of
    kernel, plain version and (flow_agg) ``index_add_``, and the device
    time of every tick kernel (the fused one beside tick_rank and red_ecn
    alone), of ``index_add_`` and of the engine's torch form of the rank
    (argsort + cummax + scatter) from torch.profiler; the ptxas registers
-   and stack of spritz_select, flow_agg and the tick_rank entries
-   (spritz_select must have no stack frame and no spills);
+   and stack of spritz_select, weighted_sample, flow_agg and the
+   tick_rank entries (spritz_select and weighted_sample must have no
+   stack frame and no spills);
 4. engine path: the 1,056-endpoint Dragonfly permutation run for ecmp,
    ugal_l, spritz_scout and spritz_spray_w (the scheme set of the
    registered cell engine.dragonfly1056.permutation.quick, and Scout)
@@ -227,7 +230,10 @@ Phases (any failure exits non-zero before the final line):
    it, the parameters and AdamW's ``m`` / ``v`` within 1e-4 of each
    tensor's largest entry but for elements in AdamW's amplifying regime
    (a nonzero gradient within 1e-5 of its tensor's largest, or at most
-   100 x ``eps`` and past that tolerance), bounded apart;
+   100 x ``eps`` and past that tolerance), bounded apart; Jamba's
+   ``dt_bias`` leaves against the port's own step in f64 on the CPU,
+   within 1e-4 or twice the plain versions' gap to it on the card; the
+   CPU at ``CPU_THREADS`` threads;
 9. training: MiniCPM-2B whole (40 layers, 3,008,289,024 parameters in
    bf16, AdamW moments in f32) trained 8 steps of 8 x 2,048 tokens by
    ``repro_torch.launch.train.train`` (WSD, remat): every loss finite and
@@ -380,11 +386,10 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
                    "src/repro/net/sim/engine.py:130"),
     "spritz_select": ("src/repro_torch/kernels/csrc/spritz_select.cu",
                       "src/repro/kernels/spritz_select.py:72"),
-    # spritz_select's kernel with every buffer front empty, drawing the
-    # tick's path uniforms itself: the weighted-sample schemes' sampler
-    # (the reference draws and samples with jax.random and XLA, not in a
-    # Pallas kernel)
-    "weighted_sample": ("src/repro_torch/kernels/csrc/spritz_select.cu",
+    # the weighted-sample schemes' sampler, drawing the tick's path
+    # uniforms itself (the reference draws and samples with jax.random and
+    # XLA, not in a Pallas kernel)
+    "weighted_sample": ("src/repro_torch/kernels/csrc/weighted_sample.cu",
                         "src/repro/net/policies/base.py:151"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:78"),
@@ -951,6 +956,7 @@ def check_draws_in_place(ops, ref, torch, np, shapes, cu, same,
     form on the card (a tick_draws launch, then the consumer's launch on
     the drawn uniforms; the weighted sample's torch form, as the engine
     ran it before, beside it)."""
+    from repro_torch._parity import xla_cumsum_f32
     from repro_torch.net.policies.base import weighted_sample_rows
     F, M, NP_, P = (shapes[k] for k in ("F", "M", "n_ports", "P"))
     thr = shapes["explore_threshold"]
@@ -1003,27 +1009,44 @@ def check_draws_in_place(ops, ref, torch, np, shapes, cu, same,
                 ref.spritz_select_reference(w, u_path[:, 0], front, count,
                                             explore_threshold=thr)))
             w = weights(f, p)
-            err["weighted_sample"] = max(err["weighted_sample"], same(
-                f"weighted_sample, {label} P {p}",
-                ops.weighted_sample(w, k, t),
-                ref.weighted_sample_reference(w, k, t)))
+            csum = xla_cumsum_f32(w).contiguous()
+            want = ref.weighted_sample_reference(w, k, t)
+            # each early launch after one that writes neither rng, t nor
+            # the prefix table (the engine's order)
+            for form, got in (
+                    ("", lambda: ops.weighted_sample(w, k, t)),
+                    (" on the prefix table, early",
+                     lambda: ops.weighted_sample(csum, k, t, prefix=True,
+                                                 early=True)),
+                    (" early", lambda: ops.weighted_sample(w, k, t,
+                                                           early=True))):
+                err["weighted_sample"] = max(err["weighted_sample"], same(
+                    f"weighted_sample{form}, {label} P {p}", got(), want))
 
     # a graph that captured the three reads each replay's tick
     k, t = key(11), tick(0)
     port, enq, q = fused_inputs(M, NP_, 70000)
     w, _, front, count = sel_inputs(F, P)
     ws = weights(F, P)
+    ws_csum = xla_cumsum_f32(ws).contiguous()
 
     def step():
+        # the samplers as the engine launches them: early, the live
+        # weights' and (ugal_l, valiant) the prefix table's
         return (ops.tick_rank_red_ecn(port, enq, q_tail=q, t=t, rng=k, **kw),
                 ops.spritz_select(w, None, front, count,
                                   explore_threshold=thr, rng=k, t=t),
-                ops.weighted_sample(ws, k, t))
+                ops.weighted_sample(ws, k, t, early=True),
+                ops.weighted_sample(ws_csum, k, t, prefix=True, early=True))
     step()
     torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
     with torch.cuda.graph(graph):
-        g_fused, g_sel, g_ws = step()
+        g_fused, g_sel, g_ws, g_wsp = step()
+    edges = ops.programmatic_edges(graph)
+    if edges != 2:
+        fail(f"weighted_sample early: {edges} programmatic edges in the "
+             f"captured graph, want 2 (one a sampler)")
     for tt in (69990, 70000, 2**31 - 1):
         t.fill_(tt)
         graph.replay()
@@ -1036,6 +1059,8 @@ def check_draws_in_place(ops, ref, torch, np, shapes, cu, same,
                                          explore_threshold=thr))
         same(f"weighted_sample captured, t {tt}", g_ws,
              ref.weighted_sample_reference(ws, k, t))
+        same(f"weighted_sample on the prefix table captured, t {tt}",
+             g_wsp, ref.weighted_sample_reference(ws, k, t))
     del graph
 
     # times at the engine's shapes: the in-place form, its two-step form
@@ -1067,7 +1092,10 @@ def check_draws_in_place(ops, ref, torch, np, shapes, cu, same,
     sel_two = lambda: ops.spritz_select(
         w, ops.tick_draws(k, t, n_flows=F, n_cand=0)[0][:, 0], front,
         count, explore_threshold=thr)
-    wsm = lambda: ops.weighted_sample(ws, k, t)
+    # the main path's form (ugal_l, valiant: the prefix table, early)
+    wsm = lambda: ops.weighted_sample(ws_csum, k, t, prefix=True, early=True)
+    ws_live = lambda: ops.weighted_sample(ws, k, t, early=True)
+    ws_plain_launch = lambda: ops.weighted_sample(ws, k, t)
     ws_two = lambda: weighted_sample_rows(
         ops.tick_draws(k, t, n_flows=F, n_cand=0)[0], ws)
     for name, one, two, plain, ins, outs in (
@@ -1082,7 +1110,7 @@ def check_draws_in_place(ops, ref, torch, np, shapes, cu, same,
              (w, front, count, k, t), sel()),
             ("weighted_sample", wsm, ws_two,
              lambda: ref.weighted_sample_reference(ws, k, t),
-             (ws, k, t), (wsm(),))):
+             (ws_csum, k, t), (wsm(),))):
         out[name] = dict(
             max_abs_err=err[name], ms=time_ms(one), plain_ms=time_ms(plain),
             library_ms=None, bytes=nbytes(*ins, *outs),
@@ -1090,6 +1118,14 @@ def check_draws_in_place(ops, ref, torch, np, shapes, cu, same,
             two_step_ms=time_ms(two),
             two_step_device_us=device_us(two, torch,
                                          what=f"{name} two-step"))
+    out["weighted_sample"].update(
+        live_ms=time_ms(ws_live), live_device_us=device_us(
+            ws_live, torch, what="weighted_sample live weights early"),
+        in_launch_prefix_ms=time_ms(ws_plain_launch),
+        in_launch_prefix_device_us=device_us(
+            ws_plain_launch, torch,
+            what="weighted_sample in-launch prefix, not early"),
+        programmatic_edges=edges)
     port, enq, q = worst                    # every entry enqueued, in band
     out["tick_rank_red_ecn"].update(
         every_entry_device_us=device_us(fused, torch,
@@ -2110,6 +2146,88 @@ def plain_versions(ops, ref):
         ops.flash_attention, ops.mamba_scan = saved
 
 
+@contextlib.contextmanager
+def in_f64(torch):
+    """Within the block the port computes in f64: ``Tensor.float()`` is
+    ``.double()``, ``.to(torch.float32)`` is ``.to(torch.float64)`` and the
+    default dtype is f64, so the models' f32 casts (the router, the loss,
+    the scan's and attention's plain versions, AdamW) keep f64 on f64
+    weights.  Methods of ``torch.Tensor`` are patched, not a torch function
+    mode: a mode is off inside the ``autograd.grad`` it handles, where
+    remat recomputes the forward.  Phase 6b's yardstick for the
+    ``dt_bias`` gradient (``f64_copy`` casts the model and its state)."""
+    T, f32, f64 = torch.Tensor, torch.float32, torch.float64
+    to_ = T.float, T.to
+
+    def to(self, *a, **kw):
+        a = tuple(f64 if x is f32 else x for x in a)
+        kw = {k: f64 if v is f32 else v for k, v in kw.items()}
+        return to_[1](self, *a, **kw)
+    old = torch.get_default_dtype()
+    T.float, T.to = T.double, to
+    torch.set_default_dtype(f64)
+    try:
+        yield
+    finally:
+        T.float, T.to = to_
+        torch.set_default_dtype(old)
+
+
+def f64_copy(model, opt_state, batch):
+    """``model`` (on the CPU), its AdamW state and ``batch`` cast to f64
+    for :func:`in_f64`."""
+    return (copy.deepcopy(model).double(),
+            opt_state._replace(m={k: t.double() for k, t in opt_state.m.items()},
+                               v={k: t.double() for k, t in opt_state.v.items()},
+                               step=opt_state.step.clone()),
+            {k: v.double() if v.is_floating_point() else v
+             for k, v in batch.items()})
+
+
+def step_grads(loss_fn, model, b, mb, torch) -> dict:
+    """The gradient a train step with ``microbatch=mb`` takes: the batch's,
+    or the mean of its row shards' (a shard's loss is normalized by its
+    own token count)."""
+    named = dict(model.named_parameters())
+    n = max(mb, 1)
+    total = None
+    for i in range(n):
+        loss, _ = loss_fn(model, {k: v.reshape(n, -1, *v.shape[1:])[i]
+                                  for k, v in b.items()})
+        gs = torch.autograd.grad(loss, list(named.values()))
+        total = gs if total is None else [a + g for a, g in zip(total, gs)]
+    return {k: g / n for k, g in zip(named, total)}
+
+
+def rel_gap(got, want, skip=None) -> float:
+    """Largest |got - want| (``skip``'s elements left out) over want's
+    largest entry; ``want`` on the CPU."""
+    gap = (got.detach().cpu() - want.detach()).abs()
+    if skip is not None:
+        gap = gap.masked_fill(skip, 0)
+    return float(gap.max()) / max(float(want.detach().abs().max()), 1e-30)
+
+
+def dt_bias_gap(got: dict, exact: dict, skip: dict | None = None) -> float:
+    """The largest :func:`rel_gap` of ``got``'s ``dt_bias`` leaves to
+    ``exact``'s (by name; ``skip`` by name too)."""
+    return max((rel_gap(g, exact[n], None if skip is None else skip[n])
+                for n, g in got.items() if n.endswith(".dt_bias")),
+               default=0.0)
+
+
+def dt_bias_tol(plain_gap: float) -> float:
+    """Phase 6b's allowance for the kernel path's ``dt_bias`` gap to the f64
+    step: 1e-4, or twice the plain versions' gap on the card to the same
+    f64 step, whichever is larger (the kernels may add no error of their
+    own)."""
+    return max(1e-4, 2 * plain_gap)
+
+
+# phase 6b's CPU threads on every host (the one-card hosts' cores)
+CPU_THREADS = 8
+
+
 def train_card_vs_cpu(C, LM, step, optim, ops, ref, torch, np) -> dict:
     """Phase 6b (run after phase 8): training, card against CPU.  Reduced
     MiniCPM, Phi-3, LLaVA, DeepSeek-MoE, Whisper (seeded frames [4, 64,
@@ -2141,38 +2259,26 @@ def train_card_vs_cpu(C, LM, step, optim, ops, ref, torch, np) -> dict:
     would then reach every later gradient: hence each step's common
     start.  The reduced Jamba's ``dt_bias`` gradient is one sum over
     every token (of ``dt_bias.mean()``) whose terms cancel to ~1e-6, past
-    f32's reach at 1e-4: the same torch ops on the card and on the CPU
-    differ by 5e-4 of it.  So for the hybrid each step's gradient is also
-    taken on the card through the plain versions (``plain_versions``),
-    and the ``dt_bias`` leaves' gradients, parameters and moments (which
-    follow the gradients) are held within 1e-4 or twice the plain
-    versions' largest ``dt_bias`` gap from the CPU so far, whichever is
-    larger: the kernels may add no error of their own.  Every other
-    tensor stays within 1e-4.
+    f32's reach at 1e-4.  So for the hybrid each step is also taken by the
+    port on the CPU in f64 (``in_f64``, from the CPU's state and batch)
+    and on the card through the plain versions (``plain_versions``), and
+    the ``dt_bias`` leaves are held against the f64 step: the kernel
+    path's gradients within ``dt_bias_tol`` of the plain versions' largest
+    gradient gap to it so far, its parameters and moments (masked as
+    above) within ``dt_bias_tol`` of the plain versions' largest state gap
+    so far: the kernels may add no error of their own.  Both card paths
+    repeat bit for bit (PORT.md), so the rule compares fixed numbers;
+    the CPU runs ``CPU_THREADS`` threads on every host, so its steps, the
+    card's starting points, are the same bits on every host too.  Every
+    other tensor stays within 1e-4 of the CPU's f32 step.
     Returns the reduced Jamba's launches in its loss and gradient on the
     card."""
 
-    def step_grads(loss_fn, model, b, mb):
-        """The gradient a train step with ``microbatch=mb`` takes: the
-        batch's, or the mean of its row shards' (a shard's loss is
-        normalized by its own token count)."""
-        named = dict(model.named_parameters())
-        n = max(mb, 1)
-        total = None
-        for i in range(n):
-            loss, _ = loss_fn(model, {k: v.reshape(n, -1, *v.shape[1:])[i]
-                                      for k, v in b.items()})
-            gs = torch.autograd.grad(loss, list(named.values()))
-            total = gs if total is None else [a + g for a, g in
-                                              zip(total, gs)]
-        return {k: g / n for k, g in zip(named, total)}
-
-    def rel(got, want, skip=None):
-        gap = (got.detach().cpu() - want.detach()).abs()
-        if skip is not None:
-            gap = gap.masked_fill(skip, 0)
-        return float(gap.max()) / max(float(want.detach().abs().max()),
-                                      1e-30)
+    rel = rel_gap
+    # the CPU's f32 sums split by thread, so its steps' bits (each step's
+    # common start) follow the thread count: the same count on every host
+    threads = torch.get_num_threads()
+    torch.set_num_threads(CPU_THREADS)
     # AdamW's eps (optim.adamw_update's default, as the step uses it)
     eps = inspect.signature(optim.adamw_update).parameters["eps"].default
     hybrid_counts = {}
@@ -2241,13 +2347,17 @@ def train_card_vs_cpu(C, LM, step, optim, ops, ref, torch, np) -> dict:
         n_moved, e_step_grad = 0, 0.0
         worst = worst_state = None
         g_ratio = s_ratio = 0.0     # worst error over its tolerance
-        plain_dt = 0.0   # the plain versions' largest dt_bias gradient gap
+        hybrid = cfg.family == "hybrid"
+        # the plain versions' largest dt_bias gaps to the f64 step so far:
+        # of the gradients, and of the parameters and moments
+        plain_dt = {"grad": 0.0, "state": 0.0}
+        kern_dt = dict(plain_dt)    # the kernel path's
         total = sum(p.numel() for p in cpu.parameters())
         for mb in (0, 2, 0):
             fn = step.make_train_step(cfg, warmup=1, total=3, microbatch=mb)
             bc, bg = batch()
             near, in_eps = {}, {}
-            step_g = step_grads(loss_fn, cpu, bc, mb)
+            step_g = step_grads(loss_fn, cpu, bc, mb, torch)
             for n, g in step_g.items():
                 a = g.abs()
                 near[n] = (a <= 1e-5 * a.max()) & (a > 0)
@@ -2261,18 +2371,25 @@ def train_card_vs_cpu(C, LM, step, optim, ops, ref, torch, np) -> dict:
                     m={k: t.cuda() for k, t in oc.m.items()},
                     v={k: t.cuda() for k, t in oc.v.items()},
                     step=oc.step.cuda())
-            if cfg.family == "hybrid":
+            if hybrid:
+                m64, o64, b64 = f64_copy(cpu, oc, bc)
+                with in_f64(torch):
+                    g64 = step_grads(loss_fn, m64, b64, mb, torch)
+                    o64 = fn.update(m64, o64, {n: g.clone() for n, g in
+                                               g64.items()})[0]
+                mp, op = on_card()
                 with plain_versions(ops, ref):
-                    for n, g in step_grads(loss_fn, on_card()[0], bg,
-                                           mb).items():
-                        if n.endswith(".dt_bias"):
-                            plain_dt = max(plain_dt, rel(g, step_g[n]))
+                    gp = step_grads(loss_fn, mp, bg, mb, torch)
+                plain_dt["grad"] = max(plain_dt["grad"], dt_bias_gap(gp, g64))
+                op = fn.update(mp, op, gp)[0]
             gpu, og = on_card()
-            for n, g in step_grads(loss_fn, gpu, bg, mb).items():
-                e = rel(g, step_g[n])
+            for n, g in step_grads(loss_fn, gpu, bg, mb, torch).items():
+                if hybrid and n.endswith(".dt_bias"):
+                    e, tol = rel(g, g64[n]), dt_bias_tol(plain_dt["grad"])
+                    kern_dt["grad"] = max(kern_dt["grad"], e)
+                else:
+                    e, tol = rel(g, step_g[n]), 1e-4
                 e_step_grad = max(e_step_grad, e)
-                tol = max(1e-4, 2 * plain_dt) if n.endswith(".dt_bias") \
-                    else 1e-4
                 if e / tol > g_ratio:
                     g_ratio, worst = e / tol, (f"{n} before step "
                                                f"{len(losses) + 1}, {e:.3g} "
@@ -2281,7 +2398,8 @@ def train_card_vs_cpu(C, LM, step, optim, ops, ref, torch, np) -> dict:
             gpu, og, mg = fn(gpu, og, bg)
             losses.append(abs(float(mg["loss"]) - float(mc["loss"])))
             lr_sum += float(mc["lr"])
-            own = dict(gpu.named_parameters())
+            own, mine = dict(gpu.named_parameters()), \
+                dict(cpu.named_parameters())
             for n, p in cpu.named_parameters():
                 # AdamW's eps regime joins the mask where it is past the
                 # tolerance, so the bounds count only those
@@ -2292,6 +2410,18 @@ def train_card_vs_cpu(C, LM, step, optim, ops, ref, torch, np) -> dict:
                         1e-4 * w.detach().abs().max()
                 near[n] = near[n] | (in_eps[n] & past)
             n_near = max(n_near, sum(int(m.sum()) for m in near.values()))
+
+            def state_gap(params, st, exact, exact_st, n):
+                return max(rel(params[n], exact[n], near[n]),
+                           rel(st.m[n], exact_st.m[n], near[n]),
+                           rel(st.v[n], exact_st.v[n], near[n]))
+            if hybrid:
+                p64, pp = dict(m64.named_parameters()), \
+                    dict(mp.named_parameters())
+                plain_dt["state"] = max(
+                    [plain_dt["state"]] + [state_gap(pp, op, p64, o64, n)
+                                           for n in pp
+                                           if n.endswith(".dt_bias")])
             moved = 0
             for n, p in cpu.named_parameters():
                 if near[n].any():
@@ -2299,12 +2429,13 @@ def train_card_vs_cpu(C, LM, step, optim, ops, ref, torch, np) -> dict:
                     near_gap = max(near_gap, float(gap[near[n]].max()))
                     moved += int((gap[near[n]] > 1e-4 * float(mc["lr"]))
                                  .sum())
-                e = max(rel(own[n], p, near[n]),
-                        rel(og.m[n], oc.m[n], near[n]),
-                        rel(og.v[n], oc.v[n], near[n]))
+                if hybrid and n.endswith(".dt_bias"):
+                    e = state_gap(own, og, p64, o64, n)
+                    tol = dt_bias_tol(plain_dt["state"])
+                    kern_dt["state"] = max(kern_dt["state"], e)
+                else:
+                    e, tol = state_gap(own, og, mine, oc, n), 1e-4
                 e_state = max(e_state, e)
-                tol = max(1e-4, 2 * plain_dt) if n.endswith(".dt_bias") \
-                    else 1e-4
                 if e / tol > s_ratio:
                     s_ratio, worst_state = e / tol, (
                         f"{n} after step {len(losses)}, {e:.3g} against "
@@ -2321,15 +2452,18 @@ def train_card_vs_cpu(C, LM, step, optim, ops, ref, torch, np) -> dict:
             fail(f"{arch} reduced training: 3 steps, loss gaps {losses}, "
                  f"each step's gradient {e_step_grad:.3g} (worst {worst}), "
                  f"relative parameter / moment error {e_state:.3g} (worst "
-                 f"{worst_state}; tol 1e-4, the hybrid's dt_bias twice the "
-                 f"plain versions' gap where larger); up to {n_near} of "
+                 f"{worst_state}; tol 1e-4, the hybrid's dt_bias against "
+                 f"the f64 step, twice the plain versions' gap where "
+                 f"larger); up to {n_near} of "
                  f"{total} "
                  f"near-zero gradients a "
                  f"step moved up to {near_gap:.3g} (limit "
                  f"{2 * lr_sum + 1e-4:.3g})")
-        hyb = ("" if cfg.family != "hybrid" else
-               f"; dt_bias {2 * plain_dt:.3g}, twice the plain versions' gap "
-               f"on the card")
+        hyb = ("" if not hybrid else
+               f"; dt_bias against the f64 step: the kernels' gradients "
+               f"{kern_dt['grad']:.6g}, parameters and m / v "
+               f"{kern_dt['state']:.6g}, within twice the plain versions' "
+               f"{plain_dt['grad']:.6g} and {plain_dt['state']:.6g}")
         print(f"card vs cpu {arch} reduced f32 training: loss {lg:.6f} "
               f"(CPU {lc:.6f}), relative gradient error {e_grad:.3g} over "
               f"{len(gc_)} tensors; 3 train steps (microbatch 0, 2, 0), "
@@ -2344,6 +2478,7 @@ def train_card_vs_cpu(C, LM, step, optim, ops, ref, torch, np) -> dict:
         del cpu, gpu, oc, og, grads, seen
     gc.collect()
     torch.cuda.empty_cache()
+    torch.set_num_threads(threads)
     return hybrid_counts
 
 
@@ -4095,9 +4230,19 @@ def main() -> None:
               + f" ({timed_by(name + ' two-step')}); wrapper "
               f"{v['ms'] * 1e3:.2f} us against {v['two_step_ms'] * 1e3:.2f}",
               flush=True)
+    v = nums["weighted_sample"]
+    print(f"kernel weighted_sample forms: on the prefix table, early (ugal_l,"
+          f" valiant) {v['device_us']:.2f} us a call; live weights, early "
+          f"(flicr_w, ops_u, ops_w, reps) {v['live_device_us']:.2f} us; the "
+          f"prefix in the launch, not early (PR 29's design) "
+          f"{v['in_launch_prefix_device_us']:.2f} us (device times back to "
+          f"back: an early launch's span starts before the one before it "
+          f"ends); {v['programmatic_edges']} programmatic edges in the "
+          f"captured graph", flush=True)
     tick_ptx = {}
     for name, lib, pattern in (
             ("spritz_select", "spritz_select", "spritz_select_kernel"),
+            ("weighted_sample", "weighted_sample", "weighted_sample_kernel"),
             ("flow_agg", "flow_agg", "flow_agg_kernel"),
             ("tick_rank", "tick_rank", "tick_rank_")):
         ents = ptxas_entries(_build.BUILD_INFO.get("ptxas", {})
@@ -4111,10 +4256,10 @@ def main() -> None:
                           f"{v['stack_bytes']} / {v['spill_bytes']}"
                           for k, v in sorted(tick_ptx[name].items())),
               flush=True)
-    tick_ptx["weighted_sample"] = tick_ptx["spritz_select"]
-    if any(v["stack_bytes"] or v["spill_bytes"]
-           for v in tick_ptx["spritz_select"].values()):
-        fail("spritz_select: a stack frame or spills in the ptxas report")
+    for name in ("spritz_select", "weighted_sample"):
+        if any(v["stack_bytes"] or v["spill_bytes"]
+               for v in tick_ptx[name].values()):
+            fail(f"{name}: a stack frame or spills in the ptxas report")
     tr = nums["tick_rank"]
     print(f"kernel tick_rank at M {shapes['M']}, n_ports {shapes['n_ports']}"
           f": path {tr['path']}, {tr['segs']} segments, {tr['smem_bytes']} B"
@@ -4374,14 +4519,15 @@ def main() -> None:
     agg = next(r for r in rows if r["name"] == "flow_agg")
     for key in ("device_us", "k2_device_us", "library_device_us"):
         agg[key] = nums["flow_agg"][key]
-    # the instantiation of the main path: P 64 (two registers a lane);
-    # 1-byte rows (phase A). Both launch with no dynamic shared memory, so
-    # ptxas's static figure is all the block holds.
+    # the instantiation of the main path: P 64 (two registers a lane; the
+    # sampler's on Valiant's prefix table, drawing early, as ugal_l runs
+    # it); 1-byte rows (phase A). All launch with no dynamic shared
+    # memory, so ptxas's static figure is all the block holds.
     for row, key in ((next(r for r in rows if r["name"] == "spritz_select"),
-                      "spritz_select_kernelILi2ELb1ELb1E"),
+                      "spritz_select_kernelILi2ELb1E"),
                      (next(r for r in rows
                            if r["name"] == "weighted_sample"),
-                      "spritz_select_kernelILi2ELb1ELb0E"),
+                      "weighted_sample_kernelILi2ELb1ELb1E"),
                      (agg, "flow_agg_kernelIhE")):
         ent = next(v for k, v in tick_ptx[row["name"]].items() if key in k)
         row.update(registers=ent["registers"],

@@ -36,14 +36,7 @@
 // the chain behind a second load); rng and t are read from device
 // memory, as a captured graph needs.  That replaces the engine's launch
 // of tick_draws.cu a tick.
-//
-// weighted_sample (kSelect false): the same kernel with every buffer
-// front empty, so ev is the sampled index; no front or count is read and
-// only ev is written.  It is the sampler of the schemes that draw a
-// weighted path per packet (valiant, ugal_l, flicr_w, ops_u, ops_w,
-// reps): the reference's weighted_sample_rows, src/repro/net/policies/
-// base.py:151, with its uniform on k_path, which the port otherwise runs
-// as ~40 torch launches after a tick_draws launch.
+
 #include <cuda_runtime.h>
 
 #include "tick_draws.cuh"
@@ -53,8 +46,7 @@
 
 constexpr unsigned FULL = 0xffffffffu;
 
-// The inputs and outputs of one launch: u, or (kDraw) rng and t; front,
-// count, newcnt and used only with kSelect.
+// The inputs and outputs of one launch: u, or (kDraw) rng and t.
 struct SelArgs {
   const float* w;
   const float* u;
@@ -68,7 +60,7 @@ struct SelArgs {
   bool* used;
 };
 
-template <int NR, bool kDraw, bool kSelect>
+template <int NR, bool kDraw>
 __global__ void __launch_bounds__(32 * SEL_WARPS)
     spritz_select_kernel(const SelArgs a) {
   const int f = blockIdx.x * SEL_WARPS + (threadIdx.x >> 5);
@@ -127,21 +119,17 @@ __global__ void __launch_bounds__(32 * SEL_WARPS)
 
   if (lane == 0) {
     const int sampled = min(below, P - 1);
-    if constexpr (kSelect) {
-      const int c0 = a.count[f];
-      const int fr = a.front[f];
-      const bool explore = c0 >= a.explore_threshold;
-      const bool used = !explore && fr >= 0;
-      a.ev[f] = used ? fr : sampled;
-      a.newcnt[f] = explore ? 0 : c0 + 1;
-      a.used[f] = used;
-    } else {
-      a.ev[f] = sampled;
-    }
+    const int c0 = a.count[f];
+    const int fr = a.front[f];
+    const bool explore = c0 >= a.explore_threshold;
+    const bool used = !explore && fr >= 0;
+    a.ev[f] = used ? fr : sampled;
+    a.newcnt[f] = explore ? 0 : c0 + 1;
+    a.used[f] = used;
   }
 }
 
-template <bool kDraw, bool kSelect>
+template <bool kDraw>
 static int launch(const SelArgs& a, cudaStream_t s) {
   if (a.P < 1 || a.P > 32 * SEL_MAX_REGS) return (int)cudaErrorInvalidValue;
   if (a.F > 0) {
@@ -149,7 +137,7 @@ static int launch(const SelArgs& a, cudaStream_t s) {
     switch ((a.P + 31) / 32) {
 #define SEL_CASE(n)                                                      \
   case n:                                                                \
-    spritz_select_kernel<n, kDraw, kSelect>                              \
+    spritz_select_kernel<n, kDraw>                                       \
         <<<blocks, 32 * SEL_WARPS, 0, s>>>(a);                           \
     break;
       SEL_CASE(1) SEL_CASE(2) SEL_CASE(3) SEL_CASE(4)
@@ -174,17 +162,6 @@ extern "C" int spritz_select_launch(const void* w, const void* u,
   const SelArgs a{(const float*)w, (const float*)u, (const long long*)rng,
                   (const int*)t, (const int*)front, (const int*)count, F, P,
                   explore_threshold, (int*)ev, (int*)newcnt, (bool*)used};
-  return rng ? launch<true, true>(a, (cudaStream_t)stream)
-             : launch<false, true>(a, (cudaStream_t)stream);
-}
-
-// weighted_sample: ev[f] = the row's weighted sample on the tick's path
-// draw, element f of uniform(k_path, (F, 1)).
-extern "C" int weighted_sample_launch(const void* w, const void* rng,
-                                      const void* t, int F, int P, void* ev,
-                                      void* stream) {
-  const SelArgs a{(const float*)w, nullptr, (const long long*)rng,
-                  (const int*)t, nullptr, nullptr, F, P, 0, (int*)ev,
-                  nullptr, nullptr};
-  return launch<true, false>(a, (cudaStream_t)stream);
+  return rng ? launch<true>(a, (cudaStream_t)stream)
+             : launch<false>(a, (cudaStream_t)stream);
 }

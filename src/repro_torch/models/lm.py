@@ -219,7 +219,11 @@ class LM(nn.Module):
         ``torch.no_grad()``.  ``remat`` recomputes each block in the
         backward instead of keeping its activations (the reference's
         ``jax.checkpoint`` of its scan unit)."""
-        x = self.embed[tokens.long()]
+        # F.embedding, not indexing: its backward sums each row's tokens in
+        # a fixed order on the CPU and on the card (indexing's backward on
+        # the CPU adds with atomics, so the same step gave other bits run
+        # to run; PORT.md, "Hybrid training")
+        x = torch.nn.functional.embedding(tokens.long(), self.embed)
         if prefix_embed is not None:
             x = torch.cat([prefix_embed.to(x.dtype), x], dim=1)
         B, S, _ = x.shape

@@ -103,7 +103,8 @@ def make_train_step(cfg: ModelCfg, *, peak_lr=3e-4, schedule="cosine",
     in place.  ``microbatch > 1`` splits the batch into that many chunks
     whose gradients are summed in f32 and divided (the reference's
     ``lax.scan``); without it the gradients keep the parameters' dtype,
-    as in the reference."""
+    as in the reference.  ``train_step.update(model, opt_state, grads)``
+    is the step's update alone, from gradients taken elsewhere."""
     loss_fn = make_loss_fn(cfg, remat=remat)
 
     def grads_of(model, names, batch):
@@ -138,7 +139,12 @@ def make_train_step(cfg: ModelCfg, *, peak_lr=3e-4, schedule="cosine",
             loss = lsum * optim.recip(microbatch)
         else:
             loss, grads = grads_of(model, names, batch)
+        opt_state, gnorm, lr = update(model, opt_state, grads)
+        return model, opt_state, {"loss": loss, "gnorm": gnorm, "lr": lr}
 
+    def update(model: LM, opt_state: optim.AdamWState, grads: dict):
+        """The step's AdamW update of ``model`` from ``grads`` (by name;
+        overwritten): ``(opt_state, gnorm, lr)``."""
         if schedule == "wsd":
             lr = optim.wsd_schedule(opt_state.step, peak_lr=peak_lr,
                                     warmup=warmup, stable=int(total * 0.8),
@@ -149,10 +155,12 @@ def make_train_step(cfg: ModelCfg, *, peak_lr=3e-4, schedule="cosine",
         split = (None if model.mesh is None
                  else model.mesh.groups.get("model"))
         _, opt_state, gnorm = optim.adamw_update(
-            params, grads, opt_state, lr, groups=model.stacked_groups(),
-            sharded=model.sharded_params(), group=split)
-        return model, opt_state, {"loss": loss, "gnorm": gnorm, "lr": lr}
+            dict(model.named_parameters()), grads, opt_state, lr,
+            groups=model.stacked_groups(), sharded=model.sharded_params(),
+            group=split)
+        return opt_state, gnorm, lr
 
+    train_step.update = update
     return train_step
 
 

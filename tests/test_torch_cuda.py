@@ -335,6 +335,95 @@ def test_samplers_draw_in_place(cuda, F, P, seed, t):
         == 1
 
 
+@pytest.mark.parametrize("F,P", [(1056, 64), (1, 1), (100, 37), (9, 256),
+                                 (50, 17)])
+@pytest.mark.parametrize("seed,t", [(0, 0), (2**31 - 1, 2**31 - 1)])
+@pytest.mark.parametrize("prefix,early,split", [
+    (True, True, False), (False, True, False), (True, False, False),
+    (False, False, False), (False, False, True)])
+def test_weighted_sample_kernel(cuda, F, P, seed, t, prefix, early, split):
+    """The sampler's kernel in each form (on a prefix table, drawing
+    before the launch before it ends, two warps a row) against its plain
+    version; each early launch follows one that writes neither rng, t nor
+    the table."""
+    from repro_torch import _parity as PAR
+    w = np.exp(RNG.normal(0, 5, (F, P))) * (RNG.random((F, P)) < 0.8)
+    w[RNG.integers(0, F, 2)] = 0.0                     # all-zero rows
+    w = torch.as_tensor(w, dtype=torch.float32)
+    rng = torch.tensor([0, seed], dtype=torch.int64)
+    tt = torch.tensor(t, dtype=torch.int32)
+    want = ref.weighted_sample_reference(w, rng, tt)
+    g = [x.to(cuda) for x in (PAR.xla_cumsum_f32(w).contiguous() if prefix
+                              else w, rng, tt)]
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    torch.empty(F, device=cuda).fill_(1.0)       # the launch before it
+    got = ops.weighted_sample(*g, prefix=prefix, early=early, split=split)
+    _equal(got, want)
+    assert ops.LAUNCHES["weighted_sample"] == 1
+
+
+def test_weighted_sample_early_is_a_programmatic_edge(cuda):
+    """Under torch's graph capture an early launch after a kernel is a
+    programmatic dependency edge, and the replays give the plain version's
+    samples at each tick."""
+    from repro_torch import _parity as PAR
+    F, P = 1056, 64
+    w = torch.as_tensor(RNG.random((F, P)) * 8, dtype=torch.float32)
+    rng = torch.tensor([0, 9], dtype=torch.int64)
+    ws, key = w.to(cuda), rng.to(cuda)
+    csum = PAR.xla_cumsum_f32(w).contiguous().to(cuda)
+    t = torch.zeros((), dtype=torch.int32, device=cuda)
+    x = torch.zeros(F, device=cuda)
+
+    def step():
+        x.add_(1.0)
+        return (ops.weighted_sample(ws, key, t, early=True),
+                ops.weighted_sample(csum, key, t, prefix=True, early=True))
+    step()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        live, tabled = step()
+    assert ops.programmatic_edges(graph) == 2
+    for tick in (0, 41, 2**31 - 1):
+        t.fill_(tick)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = ref.weighted_sample_reference(w, rng, torch.tensor(
+            tick, dtype=torch.int32))
+        _equal(live, want)
+        _equal(tabled, want)
+
+
+@pytest.mark.parametrize("plain", [False, True], ids=["kernels", "plain"])
+def test_step_gradients_repeat_on_card(cuda, plain):
+    """The reduced Jamba's step gradients (microbatch 0 and 2) on the card
+    are the same bits twice, through the kernels and through their plain
+    versions: the embedding's backward sums in a fixed order, as every
+    other op of the step does (``chip_smoke.py`` phase 6b holds the
+    ``dt_bias`` gradients of both paths against the f64 step)."""
+    import contextlib
+
+    import chip_smoke as CS
+    from repro_torch.train import step as STEP
+    cfg = dataclasses.replace(C.get_reduced("jamba_1_5_large"),
+                              dtype=torch.float32)
+    model = LM(cfg, device="cpu",
+               generator=torch.Generator().manual_seed(0)).to(cuda)
+    model.requires_grad_(True)
+    toks = torch.as_tensor(np.random.default_rng(6).integers(
+        0, cfg.vocab, (4, 65)), device=cuda)
+    b = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    loss_fn = STEP.make_loss_fn(cfg)
+    ctx = CS.plain_versions(ops, ref) if plain else contextlib.nullcontext()
+    with ctx:
+        for mb in (0, 2):
+            g1, g2 = (CS.step_grads(loss_fn, model, b, mb, torch)
+                      for _ in range(2))
+            assert [n for n in g1 if not torch.equal(g1[n], g2[n])] == []
+
+
 def test_captured_kernels_read_each_replays_tick(cuda):
     """The tick is read from device memory: a graph that captured the
     fused rank + RED/ECN launch (unif given, and drawn in place), the

@@ -90,6 +90,29 @@ def test_samplers_draw_u_path_like_tick_draws(F, M, t, seed, P):
     np.testing.assert_array_equal(sampled.numpy(), jw)
 
 
+@pytest.mark.parametrize("P", [1, 17, 64, 256])
+@pytest.mark.parametrize("F,t,seed", [(1056, 0, 0), (37, 2**31 - 1, 7),
+                                      (3, 513, 2**31 - 1)])
+def test_prefix_form_equals_weighted_sample_rows(F, t, seed, P):
+    """The sampler on a constant table's prefix sums (``prefix=True``,
+    Valiant's ``PolicyTables.valiant_csum``), with all-zero rows, equals
+    the torch form and the reference's sampler on the tick's k_path."""
+    from repro_torch import _parity as PAR
+    w = _weights(F, P)
+    w[0] = 0.0
+    csum = PAR.xla_cumsum_f32(w)
+    tt = torch.tensor(t, dtype=torch.int32)
+    u_path = ref.tick_draws_reference(_key(seed), tt, n_flows=F, n_cand=0)[0]
+    sampled = ops.weighted_sample(csum, _key(seed), tt, prefix=True,
+                                  early=True)
+    assert sampled.dtype == torch.int32
+    assert torch.equal(sampled, PB.weighted_sample_rows(u_path, w))
+    assert torch.equal(sampled, ops.weighted_sample(w, _key(seed), t))
+    k_path = JE._tick_keys(jax.random.PRNGKey(seed), jnp.int32(t))[0]
+    jw = np.asarray(JPB.weighted_sample_rows(k_path, jnp.asarray(w.numpy())))
+    np.testing.assert_array_equal(sampled.numpy(), jw)
+
+
 @pytest.mark.parametrize("drawn", [True, False], ids=["in_place", "given"])
 def test_sample_path_equals_weighted_sample_rows(drawn):
     F, P, t = 40, 24, 777
@@ -100,6 +123,9 @@ def test_sample_path_equals_weighted_sample_rows(drawn):
     ctx = PB.SendCtx(u=None if drawn else u_path, t=tt, active=z.bool(),
                      occ=z, weights=w, static_path=z, rng=_key(3))
     assert torch.equal(PB.sample_path(ctx, w),
+                       PB.weighted_sample_rows(u_path, w))
+    from repro_torch import _parity as PAR
+    assert torch.equal(PB.sample_path(ctx, w, PAR.xla_cumsum_f32(w)),
                        PB.weighted_sample_rows(u_path, w))
 
 
@@ -127,6 +153,10 @@ def test_wrappers_take_exactly_one_source_of_uniforms():
         ops.weighted_sample(w, key.int(), tt)                # not int64
     with pytest.raises(ValueError):
         ops.weighted_sample(torch.ones((F, 300)), key, tt)   # P > 256
+    with pytest.raises(ValueError, match="needs t as a tensor"):
+        ops.weighted_sample(w, key, 0, early=True)
+    with pytest.raises(ValueError, match="split=True takes neither"):
+        ops.weighted_sample(w, key, tt, prefix=True, split=True)
 
 
 def test_consumers_without_a_draw_raise():
