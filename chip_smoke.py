@@ -27,12 +27,12 @@ Phases (any failure exits non-zero before the final line):
    launch and tick_draws, replayed at three ticks written to the tick's
    device tensor, equal to the plain versions at each; the draws made in
    place (the fused launch with ``rng=``, spritz_select with ``rng=`` and
-   ``weighted_sample``, in each of its forms: the prefix in the launch or
-   on a prefix table, launched early or not) against tick_draws' plain
-   version then the consumer's, at the DF-1056 (F, M), ragged sizes,
-   ticks 0 and 2**31 - 1, three seeds and in a graph replayed at three
-   ticks (the early samplers a programmatic edge each in it), with the
-   device time of each beside its two-step form's; CUDA-event times of
+   ``weighted_sample``, in each of its forms: on a prefix table, the
+   prefix in the launch on one warp a row or on two) against tick_draws'
+   plain version then the consumer's, at the DF-1056 (F, M), ragged
+   sizes, ticks 0 and 2**31 - 1, three seeds and in a graph replayed at
+   three ticks, with the device time of each beside its two-step form's;
+   CUDA-event times of
    kernel, plain version and (flow_agg) ``index_add_``, and the device
    time of every tick kernel (the fused one beside tick_rank and red_ecn
    alone), of ``index_add_`` and of the engine's torch form of the rank
@@ -1011,15 +1011,12 @@ def check_draws_in_place(ops, ref, torch, np, shapes, cu, same,
             w = weights(f, p)
             csum = xla_cumsum_f32(w).contiguous()
             want = ref.weighted_sample_reference(w, k, t)
-            # each early launch after one that writes neither rng, t nor
-            # the prefix table (the engine's order)
             for form, got in (
                     ("", lambda: ops.weighted_sample(w, k, t)),
-                    (" on the prefix table, early",
-                     lambda: ops.weighted_sample(csum, k, t, prefix=True,
-                                                 early=True)),
-                    (" early", lambda: ops.weighted_sample(w, k, t,
-                                                           early=True))):
+                    (" on the prefix table",
+                     lambda: ops.weighted_sample(csum, k, t, prefix=True)),
+                    (" on two warps a row",
+                     lambda: ops.weighted_sample(w, k, t, split=True))):
                 err["weighted_sample"] = max(err["weighted_sample"], same(
                     f"weighted_sample{form}, {label} P {p}", got(), want))
 
@@ -1031,22 +1028,18 @@ def check_draws_in_place(ops, ref, torch, np, shapes, cu, same,
     ws_csum = xla_cumsum_f32(ws).contiguous()
 
     def step():
-        # the samplers as the engine launches them: early, the live
-        # weights' and (ugal_l, valiant) the prefix table's
+        # the sampler on live weights and (ugal_l, valiant) on the prefix
+        # table, as the engine launches it
         return (ops.tick_rank_red_ecn(port, enq, q_tail=q, t=t, rng=k, **kw),
                 ops.spritz_select(w, None, front, count,
                                   explore_threshold=thr, rng=k, t=t),
-                ops.weighted_sample(ws, k, t, early=True),
-                ops.weighted_sample(ws_csum, k, t, prefix=True, early=True))
+                ops.weighted_sample(ws, k, t),
+                ops.weighted_sample(ws_csum, k, t, prefix=True))
     step()
     torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         g_fused, g_sel, g_ws, g_wsp = step()
-    edges = ops.programmatic_edges(graph)
-    if edges != 2:
-        fail(f"weighted_sample early: {edges} programmatic edges in the "
-             f"captured graph, want 2 (one a sampler)")
     for tt in (69990, 70000, 2**31 - 1):
         t.fill_(tt)
         graph.replay()
@@ -1092,10 +1085,10 @@ def check_draws_in_place(ops, ref, torch, np, shapes, cu, same,
     sel_two = lambda: ops.spritz_select(
         w, ops.tick_draws(k, t, n_flows=F, n_cand=0)[0][:, 0], front,
         count, explore_threshold=thr)
-    # the main path's form (ugal_l, valiant: the prefix table, early)
-    wsm = lambda: ops.weighted_sample(ws_csum, k, t, prefix=True, early=True)
-    ws_live = lambda: ops.weighted_sample(ws, k, t, early=True)
-    ws_plain_launch = lambda: ops.weighted_sample(ws, k, t)
+    # the main path's form (ugal_l, valiant: the prefix table)
+    wsm = lambda: ops.weighted_sample(ws_csum, k, t, prefix=True)
+    ws_live = lambda: ops.weighted_sample(ws, k, t)
+    ws_split = lambda: ops.weighted_sample(ws, k, t, split=True)
     ws_two = lambda: weighted_sample_rows(
         ops.tick_draws(k, t, n_flows=F, n_cand=0)[0], ws)
     for name, one, two, plain, ins, outs in (
@@ -1120,12 +1113,9 @@ def check_draws_in_place(ops, ref, torch, np, shapes, cu, same,
                                          what=f"{name} two-step"))
     out["weighted_sample"].update(
         live_ms=time_ms(ws_live), live_device_us=device_us(
-            ws_live, torch, what="weighted_sample live weights early"),
-        in_launch_prefix_ms=time_ms(ws_plain_launch),
-        in_launch_prefix_device_us=device_us(
-            ws_plain_launch, torch,
-            what="weighted_sample in-launch prefix, not early"),
-        programmatic_edges=edges)
+            ws_live, torch, what="weighted_sample live weights"),
+        split_ms=time_ms(ws_split), split_device_us=device_us(
+            ws_split, torch, what="weighted_sample two warps a row"))
     port, enq, q = worst                    # every entry enqueued, in band
     out["tick_rank_red_ecn"].update(
         every_entry_device_us=device_us(fused, torch,
@@ -4231,14 +4221,11 @@ def main() -> None:
               f"{v['ms'] * 1e3:.2f} us against {v['two_step_ms'] * 1e3:.2f}",
               flush=True)
     v = nums["weighted_sample"]
-    print(f"kernel weighted_sample forms: on the prefix table, early (ugal_l,"
-          f" valiant) {v['device_us']:.2f} us a call; live weights, early "
-          f"(flicr_w, ops_u, ops_w, reps) {v['live_device_us']:.2f} us; the "
-          f"prefix in the launch, not early (PR 29's design) "
-          f"{v['in_launch_prefix_device_us']:.2f} us (device times back to "
-          f"back: an early launch's span starts before the one before it "
-          f"ends); {v['programmatic_edges']} programmatic edges in the "
-          f"captured graph", flush=True)
+    print(f"kernel weighted_sample forms, device time a call: on the "
+          f"prefix table (ugal_l, valiant) {v['device_us']:.2f} us; the "
+          f"prefix in the launch (PR 29's design) "
+          f"{v['live_device_us']:.2f} us, on two warps a row "
+          f"{v['split_device_us']:.2f} us", flush=True)
     tick_ptx = {}
     for name, lib, pattern in (
             ("spritz_select", "spritz_select", "spritz_select_kernel"),
@@ -4520,14 +4507,14 @@ def main() -> None:
     for key in ("device_us", "k2_device_us", "library_device_us"):
         agg[key] = nums["flow_agg"][key]
     # the instantiation of the main path: P 64 (two registers a lane; the
-    # sampler's on Valiant's prefix table, drawing early, as ugal_l runs
-    # it); 1-byte rows (phase A). All launch with no dynamic shared
-    # memory, so ptxas's static figure is all the block holds.
+    # sampler's on Valiant's prefix table, as ugal_l runs it); 1-byte rows
+    # (phase A). All launch with no dynamic shared memory, so ptxas's
+    # static figure is all the block holds.
     for row, key in ((next(r for r in rows if r["name"] == "spritz_select"),
                       "spritz_select_kernelILi2ELb1E"),
                      (next(r for r in rows
                            if r["name"] == "weighted_sample"),
-                      "weighted_sample_kernelILi2ELb1ELb1E"),
+                      "weighted_sample_kernelILi2ELb1EE"),
                      (agg, "flow_agg_kernelIhE")):
         ent = next(v for k, v in tick_ptx[row["name"]].items() if key in k)
         row.update(registers=ent["registers"],
@@ -4542,7 +4529,8 @@ def main() -> None:
             {k: nums[name][k] for k in (
                 "two_step_device_us", "two_step_ms", "given_ms",
                 "given_device_us", "every_entry_device_us",
-                "every_entry_two_step_device_us") if k in nums[name]})
+                "every_entry_two_step_device_us", "live_device_us",
+                "split_device_us") if k in nums[name]})
     next(r for r in rows if r["name"] == "tick_rank_red_ecn").update(
         {k: nums["tick_rank_red_ecn"][k] for k in (
             "device_us", "path", "segs", "registers", "stack_bytes",

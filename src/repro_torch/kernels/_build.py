@@ -44,7 +44,7 @@ SIGNATURES = {
                                                _I, _I, _P, _P, _P, _P),
                       EXACT),
     "weighted_sample": ("weighted_sample_launch",
-                        (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P), EXACT),
+                        (_P, _P, _P, _I, _I, _I, _I, _P, _P), EXACT),
     "flash_attention": ("flash_attention_launch",
                         (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _I, _F, _I, _I, _I, _P, _P, _P), ()),
@@ -69,10 +69,6 @@ EXTRA_ENTRIES = {
                            _I, _P, _P, _P, _P)),
     "mamba_scan_bwd": ("mamba_scan", "mamba_scan_bwd_launch",
                        (_P,) * 18 + (_I, _I, _I, _I, _P)),
-    # not a launch: the programmatic edges of a captured CUDA graph (its
-    # cudaGraph_t), which shows a programmatic dependent launch captured
-    "graph_programmatic_edges": ("weighted_sample",
-                                 "graph_programmatic_edges", (_P,)),
 }
 
 _FUNCS: dict = {}

@@ -18,30 +18,27 @@
 // prefix sum.
 //
 // Design: one warp a row, 8 rows a block (132 blocks at F = 1,056, one
-// wave).  Lane l holds entries l, l+32, ... of its row in NR registers.
-// Three choices move work off the launch's critical path:
-// - kEarly: a programmatic dependent launch (cudaLaunchKernelEx with
-//   programmatic stream serialization).  The warp derives its key and u
-//   from rng and t before griddepcontrol.wait, while the launch before it
-//   finishes; only then does it read what that launch may have written
-//   (w, unless kPrefix) and write ev (whose memory that launch may still
-//   be reading).  The caller vouches that the launch before it writes
-//   neither rng nor t (the engine's gated step writes its tick tensor
-//   first thing and the carry's key never).
-// - kPrefix: w already holds the rows' XLA-order prefix sums (a table
-//   that is constant per spec, Valiant's: ops.prefix_rows forms it once),
-//   so the launch only draws, scales and counts; with kEarly the rows are
-//   loaded before the wait too, and after it only ev is stored.
+// wave).  Lane l holds entries l, l+32, ... of its row in NR registers,
+// loaded while the warp draws u.
+// - kPrefix: w already holds the rows' XLA-order prefix sums (Valiant's
+//   table, constant per spec: the engine forms it once with
+//   xla_cumsum_f32), so the launch only draws, scales and counts.
 // - otherwise the prefix is formed in the launch as spritz_select.cu
 //   forms it: sequential inside 16-blocks (a half-warp each: lane j adds
 //   entries 1..j of its block left to right), then the sequential sum of
 //   the earlier block totals, no tree.  Adds and multiplies are
 //   __fadd_rn/__fmul_rn and the file is built with -fmad=false.
+// - split: two warps a row, one drawing u while the other loads the row
+//   and forms its prefix, joined through shared memory.
 // Padding past P is +0.0, which leaves every real prefix unchanged and
-// is never counted.  With WS_STAMPS (a scratch build, tools/
-// weighted_sample_bench.py) the kernel writes clock64 stamps of each
-// stage and two floor kernels exist: an empty one, and one that reads rng
-// and t and writes F ints, on the same grid.
+// is never counted.  A programmatic dependent launch, drawing before the
+// launch before it ends, was measured and dropped: the torch kernels
+// before it do not release their dependents early, so it overlapped
+// nothing and its wait cost more than it hid (PERF.md, PR 34).  With
+// WS_STAMPS (a scratch build, tools/weighted_sample_bench.py) the kernel
+// writes clock64 stamps of each stage and two floor kernels exist: an
+// empty one, and one that reads rng and t and writes F ints, on the same
+// grid.
 #include <cuda_runtime.h>
 
 #include "tick_draws.cuh"
@@ -80,13 +77,6 @@ __device__ __forceinline__ long long ws_globaltimer() {
 #else
 #define WS_STAMP(i, dep)
 #endif
-
-// Waits until the launch before this one (programmatic dependency) has
-// finished and its writes are visible; returns at once when there is
-// none.
-__device__ __forceinline__ void ws_grid_wait() {
-  asm volatile("griddepcontrol.wait;" ::: "memory");
-}
 
 template <int NR>
 __device__ __forceinline__ void ws_load(const float* row, int P, int lane,
@@ -149,7 +139,7 @@ __device__ __forceinline__ int ws_count(const float (&s)[NR], float uf,
   return below;
 }
 
-template <int NR, bool kPrefix, bool kEarly>
+template <int NR, bool kPrefix>
 __global__ void __launch_bounds__(32 * WS_WARPS)
     weighted_sample_kernel(const WsArgs a) {
 #ifdef WS_STAMPS
@@ -161,32 +151,16 @@ __global__ void __launch_bounds__(32 * WS_WARPS)
   if (f >= a.F) return;  // the whole warp leaves together
   const int P = a.P;
   const int lane = threadIdx.x & 31;
-  const float* row = a.w + (long long)f * P;
   float x[NR];
-  float uf;
-  if constexpr (kEarly) {
-    if constexpr (kPrefix) ws_load<NR>(row, P, lane, x);
-    const uint2 key = tick_key(a.rng, a.t, TICK_K_PATH);
-    WS_STAMP(1, key.x);
-    uf = tick_uniform(key, (uint32_t)f);
-    WS_STAMP(2, __float_as_uint(uf));
-    if constexpr (!kPrefix) {
-      ws_grid_wait();
-      ws_load<NR>(row, P, lane, x);
-    }
-  } else {
-    // the row's loads are in flight while the warp draws
-    ws_load<NR>(row, P, lane, x);
-    const uint2 key = tick_key(a.rng, a.t, TICK_K_PATH);
-    WS_STAMP(1, key.x);
-    uf = tick_uniform(key, (uint32_t)f);
-    WS_STAMP(2, __float_as_uint(uf));
-  }
+  ws_load<NR>(a.w + (long long)f * P, P, lane, x);
+  const uint2 key = tick_key(a.rng, a.t, TICK_K_PATH);
+  WS_STAMP(1, key.x);
+  const float uf = tick_uniform(key, (uint32_t)f);
+  WS_STAMP(2, __float_as_uint(uf));
   WS_STAMP(3, ws_sum_bits<NR>(x));
   if constexpr (!kPrefix) ws_prefix<NR>(x, lane);
   WS_STAMP(4, __float_as_uint(x[NR - 1]));
   const int below = ws_count<NR>(x, uf, P, lane);
-  if constexpr (kEarly && kPrefix) ws_grid_wait();
   WS_STAMP(5, below);
   if (lane == 0) a.ev[f] = min(below, P - 1);
 #ifdef WS_STAMPS
@@ -228,67 +202,49 @@ __global__ void __launch_bounds__(64 * WS_WARPS)
   if (lane == 0) a.ev[f] = min(below, a.P - 1);
 }
 
-template <int NR, bool kPrefix, bool kEarly>
-static cudaError_t ws_launch(const WsArgs& a, cudaStream_t s) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((a.F + WS_WARPS - 1) / WS_WARPS);
-  cfg.blockDim = dim3(32 * WS_WARPS);
-  cfg.dynamicSmemBytes = 0;
-  cfg.stream = s;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = kEarly ? 1 : 0;
-  return cudaLaunchKernelEx(&cfg, weighted_sample_kernel<NR, kPrefix, kEarly>,
-                            a);
+template <int NR, bool kPrefix, bool kSplit>
+static void ws_launch(const WsArgs& a, cudaStream_t s) {
+  const int blocks = (a.F + WS_WARPS - 1) / WS_WARPS;
+  if constexpr (kSplit)
+    weighted_sample_split_kernel<NR><<<blocks, 64 * WS_WARPS, 0, s>>>(a);
+  else
+    weighted_sample_kernel<NR, kPrefix><<<blocks, 32 * WS_WARPS, 0, s>>>(a);
 }
 
-template <int NR>
-static cudaError_t ws_launch_split(const WsArgs& a, cudaStream_t s) {
-  weighted_sample_split_kernel<NR>
-      <<<(a.F + WS_WARPS - 1) / WS_WARPS, 64 * WS_WARPS, 0, s>>>(a);
-  return cudaSuccess;
-}
-
-template <bool kPrefix, bool kEarly, bool kSplit>
-static int ws_dispatch(const WsArgs& a, cudaStream_t s) {
+template <bool kPrefix, bool kSplit>
+static void ws_dispatch(const WsArgs& a, cudaStream_t s) {
   switch ((a.P + 31) / 32) {
-#define WS_CASE(n)                                              \
-  case n:                                                       \
-    return (int)(kSplit ? ws_launch_split<n>(a, s)              \
-                        : ws_launch<n, kPrefix, kEarly>(a, s));
+#define WS_CASE(n)                          \
+  case n:                                   \
+    ws_launch<n, kPrefix, kSplit>(a, s);    \
+    break;
     WS_CASE(1) WS_CASE(2) WS_CASE(3) WS_CASE(4)
     WS_CASE(5) WS_CASE(6) WS_CASE(7) WS_CASE(8)
 #undef WS_CASE
   }
-  return (int)cudaErrorInvalidValue;
 }
 
-static int ws_run(const WsArgs& a, int prefix, int early, int split,
-                  cudaStream_t s) {
-  if (a.P < 1 || a.P > 32 * WS_MAX_REGS || (split && (prefix || early)))
+static int ws_run(const WsArgs& a, int prefix, int split, cudaStream_t s) {
+  if (a.P < 1 || a.P > 32 * WS_MAX_REGS || (prefix && split))
     return (int)cudaErrorInvalidValue;
   if (a.F > 0) {
-    const int err = split ? ws_dispatch<false, false, true>(a, s)
-                    : prefix ? (early ? ws_dispatch<true, true, false>(a, s)
-                                      : ws_dispatch<true, false, false>(a, s))
-                             : (early ? ws_dispatch<false, true, false>(a, s)
-                                      : ws_dispatch<false, false, false>(a, s));
-    if (err) return err;
+    if (prefix)
+      ws_dispatch<true, false>(a, s);
+    else if (split)
+      ws_dispatch<false, true>(a, s);
+    else
+      ws_dispatch<false, false>(a, s);
   }
   return (int)cudaGetLastError();
 }
 
 // ev[f] = row f's weighted sample on element f of uniform(k_path, (F, 1))
-// at tick *t.  prefix: w holds the rows' prefix sums; early: a
-// programmatic dependent launch that draws before waiting for the launch
-// before it (which must write neither rng nor t); split: two warps a row
-// (neither prefix nor early).
+// at tick *t.  prefix: w holds the rows' prefix sums; split: two warps a
+// row (not with prefix).
 extern "C" int weighted_sample_launch(const void* w, const void* rng,
                                       const void* t, int F, int P,
-                                      int prefix, int early, int split,
-                                      void* ev, void* stream) {
+                                      int prefix, int split, void* ev,
+                                      void* stream) {
 #ifdef WS_STAMPS
   const WsArgs a{(const float*)w, (const long long*)rng, (const int*)t, F, P,
                  (int*)ev, nullptr};
@@ -297,46 +253,18 @@ extern "C" int weighted_sample_launch(const void* w, const void* rng,
 #else
   const WsArgs a{(const float*)w, (const long long*)rng, (const int*)t, F, P,
                  (int*)ev};
-  return ws_run(a, prefix, early, split, (cudaStream_t)stream);
+  return ws_run(a, prefix, split, (cudaStream_t)stream);
 #endif
-}
-
-// The programmatic dependency edges of a CUDA graph (a captured
-// programmatic dependent launch gives one), or a negative CUDA error.
-extern "C" int graph_programmatic_edges(void* graph) {
-  const cudaGraph_t g = (cudaGraph_t)graph;
-  size_t n = 0;
-#if CUDART_VERSION >= 13000
-#define WS_GET_EDGES cudaGraphGetEdges
-#else
-#define WS_GET_EDGES cudaGraphGetEdges_v2
-#endif
-  cudaError_t err = WS_GET_EDGES(g, nullptr, nullptr, nullptr, &n);
-  if (err != cudaSuccess) return -(int)err;
-  if (n == 0) return 0;
-  cudaGraphNode_t* from = new cudaGraphNode_t[n];
-  cudaGraphNode_t* to = new cudaGraphNode_t[n];
-  cudaGraphEdgeData* data = new cudaGraphEdgeData[n];
-  err = WS_GET_EDGES(g, from, to, data, &n);
-#undef WS_GET_EDGES
-  int count = 0;
-  for (size_t i = 0; err == cudaSuccess && i < n; ++i)
-    count += data[i].type == cudaGraphDependencyTypeProgrammatic;
-  delete[] from;
-  delete[] to;
-  delete[] data;
-  return err == cudaSuccess ? count : -(int)err;
 }
 
 #ifdef WS_STAMPS
 extern "C" int weighted_sample_stamped_launch(const void* w, const void* rng,
                                               const void* t, int F, int P,
-                                              int prefix, int early,
-                                              void* ev, void* stamps,
-                                              void* stream) {
+                                              int prefix, void* ev,
+                                              void* stamps, void* stream) {
   const WsArgs a{(const float*)w, (const long long*)rng, (const int*)t, F, P,
                  (int*)ev, (long long*)stamps};
-  return ws_run(a, prefix, early, 0, (cudaStream_t)stream);
+  return ws_run(a, prefix, 0, (cudaStream_t)stream);
 }
 
 __global__ void __launch_bounds__(32 * WS_WARPS) ws_floor_empty_kernel() {}

@@ -405,48 +405,29 @@ def spritz_select(w, u, buf_front, packet_count, *, explore_threshold: int,
     return ev, newcnt, used
 
 
-def weighted_sample(w, rng, t, *, prefix: bool = False, early: bool = False,
-                    split: bool = False):
+def weighted_sample(w, rng, t, *, prefix: bool = False, split: bool = False):
     """Each row's weighted index on the tick's path draw, int32 [F]:
     ``weighted_sample_rows(u_path, w)`` with ``u_path`` as
     :func:`tick_draws` draws it at tick ``t``, drawn in the launch.  w:
     [F, P] f32 (P <= 256), or with ``prefix`` the rows' XLA-order prefix
     sums already (``xla_cumsum_f32`` of the weights: a table constant per
     spec, formed once); rng: the carry's [2] int64 key; t: an int or a 0-d
-    int32 tensor on w's device.  ``early`` makes it a programmatic
-    dependent launch that draws (and, with ``prefix``, reads w) before the
-    launch before it on the stream has finished: only for a caller whose
-    previous launch writes neither rng nor t, nor w with ``prefix`` (t
-    must then be a tensor: an int would be written just before).
-    ``split`` takes two warps a row, one drawing while the other loads
-    and sums the row (neither ``prefix`` nor ``early``)."""
+    int32 tensor on w's device.  ``split`` takes two warps a row, one
+    drawing while the other loads and sums the row (not with
+    ``prefix``)."""
     F, P = _check_rows(w)
     _rng(rng)
-    if early and not isinstance(t, torch.Tensor):
-        raise ValueError("weighted_sample with early=True needs t as a "
-                         "tensor")
-    if split and (prefix or early):
-        raise ValueError("weighted_sample with split=True takes neither "
-                         "prefix nor early")
+    if split and prefix:
+        raise ValueError("weighted_sample: split=True does not take "
+                         "prefix=True")
     t = _tick(t, w.device)
     if _on_cpu(w, rng):
         return R.weighted_sample_reference(w, rng, t, prefix=prefix)
     ev = torch.empty(F, dtype=torch.int32, device=w.device)
     if F:
         _launch("weighted_sample", w.data_ptr(), rng.data_ptr(),
-                t.data_ptr(), F, P, int(prefix), int(early), int(split),
-                ev.data_ptr())
+                t.data_ptr(), F, P, int(prefix), int(split), ev.data_ptr())
     return ev
-
-
-def programmatic_edges(graph) -> int:
-    """The programmatic dependency edges of a ``torch.cuda.CUDAGraph``
-    made with ``keep_graph=True``: one for each programmatic dependent
-    launch (``weighted_sample(early=True)``) captured after a kernel."""
-    n = _build.library("graph_programmatic_edges")(graph.raw_cuda_graph())
-    if n < 0:
-        raise RuntimeError(f"reading the graph's edges: CUDA error {-n}")
-    return n
 
 
 def _float_code(name: str, *ts: torch.Tensor) -> int:

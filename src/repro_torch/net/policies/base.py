@@ -126,13 +126,10 @@ def sample_path(ctx: SendCtx, w: torch.Tensor,
     engine's kernels are on (``ctx.u`` is None), else the torch form on
     ``ctx.u``.  Bit-equal either way.  ``csum``, ``w``'s prefix sums when
     ``w`` is a constant table (``PolicyTables.valiant_csum``), spares the
-    launch its prefix stage.  The launch draws before the launch before it
-    has finished (``early``): inside the tick nothing writes the carry's
-    key or the tick tensor, which the step forms before the tick."""
+    launch its prefix stage."""
     if ctx.u is None:
         return KOPS.weighted_sample(w if csum is None else csum, ctx.rng,
-                                    ctx.t, prefix=csum is not None,
-                                    early=True)
+                                    ctx.t, prefix=csum is not None)
     return weighted_sample_rows(ctx.u, w)
 
 

@@ -338,14 +338,11 @@ def test_samplers_draw_in_place(cuda, F, P, seed, t):
 @pytest.mark.parametrize("F,P", [(1056, 64), (1, 1), (100, 37), (9, 256),
                                  (50, 17)])
 @pytest.mark.parametrize("seed,t", [(0, 0), (2**31 - 1, 2**31 - 1)])
-@pytest.mark.parametrize("prefix,early,split", [
-    (True, True, False), (False, True, False), (True, False, False),
-    (False, False, False), (False, False, True)])
-def test_weighted_sample_kernel(cuda, F, P, seed, t, prefix, early, split):
-    """The sampler's kernel in each form (on a prefix table, drawing
-    before the launch before it ends, two warps a row) against its plain
-    version; each early launch follows one that writes neither rng, t nor
-    the table."""
+@pytest.mark.parametrize("prefix,split", [(True, False), (False, False),
+                                          (False, True)])
+def test_weighted_sample_kernel(cuda, F, P, seed, t, prefix, split):
+    """The sampler's kernel in each form (on a prefix table, the prefix in
+    the launch on one warp a row or on two) against its plain version."""
     from repro_torch import _parity as PAR
     w = np.exp(RNG.normal(0, 5, (F, P))) * (RNG.random((F, P)) < 0.8)
     w[RNG.integers(0, F, 2)] = 0.0                     # all-zero rows
@@ -355,45 +352,10 @@ def test_weighted_sample_kernel(cuda, F, P, seed, t, prefix, early, split):
     want = ref.weighted_sample_reference(w, rng, tt)
     g = [x.to(cuda) for x in (PAR.xla_cumsum_f32(w).contiguous() if prefix
                               else w, rng, tt)]
-    torch.cuda.synchronize()
     ops.reset_launches()
-    torch.empty(F, device=cuda).fill_(1.0)       # the launch before it
-    got = ops.weighted_sample(*g, prefix=prefix, early=early, split=split)
+    got = ops.weighted_sample(*g, prefix=prefix, split=split)
     _equal(got, want)
     assert ops.LAUNCHES["weighted_sample"] == 1
-
-
-def test_weighted_sample_early_is_a_programmatic_edge(cuda):
-    """Under torch's graph capture an early launch after a kernel is a
-    programmatic dependency edge, and the replays give the plain version's
-    samples at each tick."""
-    from repro_torch import _parity as PAR
-    F, P = 1056, 64
-    w = torch.as_tensor(RNG.random((F, P)) * 8, dtype=torch.float32)
-    rng = torch.tensor([0, 9], dtype=torch.int64)
-    ws, key = w.to(cuda), rng.to(cuda)
-    csum = PAR.xla_cumsum_f32(w).contiguous().to(cuda)
-    t = torch.zeros((), dtype=torch.int32, device=cuda)
-    x = torch.zeros(F, device=cuda)
-
-    def step():
-        x.add_(1.0)
-        return (ops.weighted_sample(ws, key, t, early=True),
-                ops.weighted_sample(csum, key, t, prefix=True, early=True))
-    step()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph(keep_graph=True)
-    with torch.cuda.graph(graph):
-        live, tabled = step()
-    assert ops.programmatic_edges(graph) == 2
-    for tick in (0, 41, 2**31 - 1):
-        t.fill_(tick)
-        graph.replay()
-        torch.cuda.synchronize()
-        want = ref.weighted_sample_reference(w, rng, torch.tensor(
-            tick, dtype=torch.int32))
-        _equal(live, want)
-        _equal(tabled, want)
 
 
 @pytest.mark.parametrize("plain", [False, True], ids=["kernels", "plain"])
@@ -427,8 +389,10 @@ def test_step_gradients_repeat_on_card(cuda, plain):
 def test_captured_kernels_read_each_replays_tick(cuda):
     """The tick is read from device memory: a graph that captured the
     fused rank + RED/ECN launch (unif given, and drawn in place), the
-    draws launch and the samplers drawing in place gives, at each
-    replay, the plain versions' results at the tick it holds then."""
+    draws launch and the samplers drawing in place (``weighted_sample``
+    in its three forms) gives, at each replay, the plain versions'
+    results at the tick it holds then."""
+    from repro_torch import _parity as PAR
     M, P, F = 5024, 3960, 1056
     port = torch.as_tensor(RNG.integers(0, P + 1, M), dtype=torch.int32)
     enq = torch.as_tensor(RNG.random(M) < 0.7)
@@ -436,6 +400,7 @@ def test_captured_kernels_read_each_replays_tick(cuda):
     tails = torch.as_tensor(RNG.integers(0, 90, P), dtype=torch.int32)
     rng = torch.tensor([0, 5], dtype=torch.int64)
     w = torch.as_tensor(RNG.random((F, 64)) * 8, dtype=torch.float32)
+    csum = PAR.xla_cumsum_f32(w).contiguous().to(cuda)
     front = torch.as_tensor(RNG.integers(-1, 64, F), dtype=torch.int32)
     count = torch.as_tensor(RNG.integers(0, 60, F), dtype=torch.int32)
     kw = dict(qsize=88, kmin=17.6, kmax=70.4, n_ports=P)
@@ -450,11 +415,13 @@ def test_captured_kernels_read_each_replays_tick(cuda):
                                       rng=ins[4], **kw),
                 ops.spritz_select(sel[0], None, sel[1], sel[2],
                                   explore_threshold=44, rng=ins[4], t=t),
-                ops.weighted_sample(sel[0], ins[4], t))
+                ops.weighted_sample(sel[0], ins[4], t),
+                ops.weighted_sample(csum, ins[4], t, prefix=True),
+                ops.weighted_sample(sel[0], ins[4], t, split=True))
     step()                                            # build and warm up
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        out, draws, drawn, selected, sampled = step()
+        out, draws, drawn, selected, sampled, tabled, split = step()
     for tick in (0, 40, 70000):
         t.fill_(tick)
         graph.replay()
@@ -470,6 +437,8 @@ def test_captured_kernels_read_each_replays_tick(cuda):
         _equal(selected, ref.spritz_select_reference(
             w, u, front, count, explore_threshold=44))
         _equal(sampled, ref.weighted_sample_reference(w, rng, tc))
+        _equal(tabled, sampled)
+        _equal(split, sampled)
 
 
 def _same_runs(a, ast, b, bst):

@@ -103,8 +103,7 @@ def test_prefix_form_equals_weighted_sample_rows(F, t, seed, P):
     csum = PAR.xla_cumsum_f32(w)
     tt = torch.tensor(t, dtype=torch.int32)
     u_path = ref.tick_draws_reference(_key(seed), tt, n_flows=F, n_cand=0)[0]
-    sampled = ops.weighted_sample(csum, _key(seed), tt, prefix=True,
-                                  early=True)
+    sampled = ops.weighted_sample(csum, _key(seed), tt, prefix=True)
     assert sampled.dtype == torch.int32
     assert torch.equal(sampled, PB.weighted_sample_rows(u_path, w))
     assert torch.equal(sampled, ops.weighted_sample(w, _key(seed), t))
@@ -153,9 +152,7 @@ def test_wrappers_take_exactly_one_source_of_uniforms():
         ops.weighted_sample(w, key.int(), tt)                # not int64
     with pytest.raises(ValueError):
         ops.weighted_sample(torch.ones((F, 300)), key, tt)   # P > 256
-    with pytest.raises(ValueError, match="needs t as a tensor"):
-        ops.weighted_sample(w, key, 0, early=True)
-    with pytest.raises(ValueError, match="split=True takes neither"):
+    with pytest.raises(ValueError, match="split=True does not take"):
         ops.weighted_sample(w, key, tt, prefix=True, split=True)
 
 

@@ -10,16 +10,14 @@
    and its span on the global timer; the build also holds two floor
    kernels on the sampler's grid, one empty and one that reads ``rng``
    and ``t`` and writes F ints.
-2. Stamps each of the sampler's four forms (the prefix in the launch or
-   on the prefix table, drawing early or not) at DF-1056's F 1,056 and P
-   64, after a kernel that writes none of its inputs: the median cycles
-   of each stage over the rows, and the SM clock nvidia-smi reads.
+2. Stamps the sampler's one-warp forms (the prefix in the launch, or on
+   the prefix table) at DF-1056's F 1,056 and P 64: the median cycles of
+   each stage over the rows, and the SM clock nvidia-smi reads.
 3. Runs ugal_l on DF-1056 (``chip_smoke.py`` phase 4's spec) through the
    engine's graph loop with the sampler's place taken in turn by each
-   form (and by the in-launch prefix on two warps a row, ``split``; the
-   in-launch forms sample Valiant's weights, as the live-weight schemes
-   sample theirs) and by each floor kernel, ``--reps`` times in turns,
-   and gives the
+   form (the in-launch forms sample Valiant's weights, as the live-weight
+   schemes sample theirs) and by each floor kernel, ``--reps`` times in
+   turns, and gives the
    launch's device time a call (torch.profiler) and its exposed time (its
    end less the end of the device event before it: what the step's
    device timeline pays for it, the gap before it included), medians over
@@ -45,9 +43,8 @@ sys.path[:0] = [str(ROOT / "src"), str(ROOT / "tools")]
 
 STAGES = ("key", "u", "loads", "prefix", "count", "store")
 FORMS = {"in-launch prefix": (False, False),
-         "in-launch prefix, early": (False, True),
-         "prefix table": (True, False),
-         "prefix table, early": (True, True)}
+         "in-launch prefix, two warps a row": (False, True),
+         "prefix table": (True, False)}
 SAMPLER = re.compile(r"(?:void )?(?:weighted_sample|ws_floor_\w+)_kernel")
 
 
@@ -63,8 +60,7 @@ def build_stamped() -> ctypes.CDLL:
         sys.exit(f"nvcc failed:\n{log.stdout}{log.stderr}")
     L = ctypes.CDLL(str(lib))
     P, I = ctypes.c_void_p, ctypes.c_int
-    L.weighted_sample_stamped_launch.argtypes = [P, P, P, I, I, I, I, P, P,
-                                                 P]
+    L.weighted_sample_stamped_launch.argtypes = [P, P, P, I, I, I, P, P, P]
     L.weighted_sample_floor_launch.argtypes = [P, P, I, I, P, P]
     return L
 
@@ -108,14 +104,16 @@ def main() -> None:
     ev = torch.empty(F, dtype=torch.int32, device="cuda")
     st = torch.empty((F, 8), dtype=torch.int64, device="cuda")
     x = torch.zeros(1 << 20, device="cuda")
-    for form, (prefix, early) in FORMS.items():
+    for form, (prefix, split) in FORMS.items():
+        if split:                            # no stamps on two warps
+            continue
         rows = []
         for _ in range(20):
             x.add_(1.0)                      # the launch before it
             err = L.weighted_sample_stamped_launch(
                 (csum if prefix else w).data_ptr(), rng.data_ptr(),
-                t.data_ptr(), F, P, int(prefix), int(early), ev.data_ptr(),
-                st.data_ptr(), stream())
+                t.data_ptr(), F, P, int(prefix), ev.data_ptr(), st.data_ptr(),
+                stream())
             if err:
                 sys.exit(f"stamped launch: CUDA error {err}")
             torch.cuda.synchronize()
@@ -135,13 +133,12 @@ def main() -> None:
     ((_, _, spec),) = ER.specs(["permutation:ugal_l"])
     real = PB.sample_path
 
-    def form_of(prefix, early, split=False):
+    def form_of(prefix, split):
         def sample(ctx, w, csum=None):
             if ctx.u is not None or csum is None:
                 return real(ctx, w, csum)
             return ops.weighted_sample(csum if prefix else w, ctx.rng, ctx.t,
-                                       prefix=prefix, early=early,
-                                       split=split)
+                                       prefix=prefix, split=split)
         return sample
 
     def floor_of(io):
@@ -166,7 +163,6 @@ def main() -> None:
             return out
         return sample
     places = {f: form_of(*fl) for f, fl in FORMS.items()}
-    places["in-launch prefix, two warps a row"] = form_of(False, False, True)
     places.update({"floor: empty": floor_of(0),
                    "floor: reads rng and t, writes F ints": floor_of(1)})
     got: dict = {}
