@@ -27,9 +27,9 @@ Phases (any failure exits non-zero before the final line):
    launch and tick_draws, replayed at three ticks written to the tick's
    device tensor, equal to the plain versions at each; the draws made in
    place (the fused launch with ``rng=``, spritz_select with ``rng=`` and
-   ``weighted_sample``, in each of its forms: on a prefix table, the
-   prefix in the launch on one warp a row or on two) against tick_draws'
-   plain version then the consumer's, at the DF-1056 (F, M), ragged
+   ``weighted_sample``, on a prefix table and with the prefix in the
+   launch) against tick_draws' plain version then the consumer's, at the
+   DF-1056 (F, M), ragged
    sizes, ticks 0 and 2**31 - 1, three seeds and in a graph replayed at
    three ticks, with the device time of each beside its two-step form's;
    CUDA-event times of
@@ -1014,9 +1014,7 @@ def check_draws_in_place(ops, ref, torch, np, shapes, cu, same,
             for form, got in (
                     ("", lambda: ops.weighted_sample(w, k, t)),
                     (" on the prefix table",
-                     lambda: ops.weighted_sample(csum, k, t, prefix=True)),
-                    (" on two warps a row",
-                     lambda: ops.weighted_sample(w, k, t, split=True))):
+                     lambda: ops.weighted_sample(csum, k, t, prefix=True))):
                 err["weighted_sample"] = max(err["weighted_sample"], same(
                     f"weighted_sample{form}, {label} P {p}", got(), want))
 
@@ -1088,7 +1086,6 @@ def check_draws_in_place(ops, ref, torch, np, shapes, cu, same,
     # the main path's form (ugal_l, valiant: the prefix table)
     wsm = lambda: ops.weighted_sample(ws_csum, k, t, prefix=True)
     ws_live = lambda: ops.weighted_sample(ws, k, t)
-    ws_split = lambda: ops.weighted_sample(ws, k, t, split=True)
     ws_two = lambda: weighted_sample_rows(
         ops.tick_draws(k, t, n_flows=F, n_cand=0)[0], ws)
     for name, one, two, plain, ins, outs in (
@@ -1113,9 +1110,7 @@ def check_draws_in_place(ops, ref, torch, np, shapes, cu, same,
                                          what=f"{name} two-step"))
     out["weighted_sample"].update(
         live_ms=time_ms(ws_live), live_device_us=device_us(
-            ws_live, torch, what="weighted_sample live weights"),
-        split_ms=time_ms(ws_split), split_device_us=device_us(
-            ws_split, torch, what="weighted_sample two warps a row"))
+            ws_live, torch, what="weighted_sample live weights"))
     port, enq, q = worst                    # every entry enqueued, in band
     out["tick_rank_red_ecn"].update(
         every_entry_device_us=device_us(fused, torch,
@@ -4223,9 +4218,8 @@ def main() -> None:
     v = nums["weighted_sample"]
     print(f"kernel weighted_sample forms, device time a call: on the "
           f"prefix table (ugal_l, valiant) {v['device_us']:.2f} us; the "
-          f"prefix in the launch (PR 29's design) "
-          f"{v['live_device_us']:.2f} us, on two warps a row "
-          f"{v['split_device_us']:.2f} us", flush=True)
+          f"prefix in the launch (PR 29's design; flicr_w, ops_u, ops_w, "
+          f"reps) {v['live_device_us']:.2f} us", flush=True)
     tick_ptx = {}
     for name, lib, pattern in (
             ("spritz_select", "spritz_select", "spritz_select_kernel"),
@@ -4529,8 +4523,8 @@ def main() -> None:
             {k: nums[name][k] for k in (
                 "two_step_device_us", "two_step_ms", "given_ms",
                 "given_device_us", "every_entry_device_us",
-                "every_entry_two_step_device_us", "live_device_us",
-                "split_device_us") if k in nums[name]})
+                "every_entry_two_step_device_us", "live_device_us")
+                if k in nums[name]})
     next(r for r in rows if r["name"] == "tick_rank_red_ecn").update(
         {k: nums["tick_rank_red_ecn"][k] for k in (
             "device_us", "path", "segs", "registers", "stack_bytes",

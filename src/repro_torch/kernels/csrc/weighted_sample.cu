@@ -28,13 +28,12 @@
 //   entries 1..j of its block left to right), then the sequential sum of
 //   the earlier block totals, no tree.  Adds and multiplies are
 //   __fadd_rn/__fmul_rn and the file is built with -fmad=false.
-// - split: two warps a row, one drawing u while the other loads the row
-//   and forms its prefix, joined through shared memory.
 // Padding past P is +0.0, which leaves every real prefix unchanged and
-// is never counted.  A programmatic dependent launch, drawing before the
-// launch before it ends, was measured and dropped: the torch kernels
-// before it do not release their dependents early, so it overlapped
-// nothing and its wait cost more than it hid (PERF.md, PR 34).  With
+// is never counted.  Measured and dropped (PERF.md, PR 34): a
+// programmatic dependent launch drawing before the launch before it ends
+// (the torch kernels before it do not release their dependents early, so
+// it overlapped nothing and its wait cost more than it hid), and two
+// warps a row, one drawing while the other sums (slower alone).  With
 // WS_STAMPS (a scratch build, tools/weighted_sample_bench.py) the kernel
 // writes clock64 stamps of each stage and two floor kernels exist: an
 // empty one, and one that reads rng and t and writes F ints, on the same
@@ -174,49 +173,13 @@ __global__ void __launch_bounds__(32 * WS_WARPS)
 #endif
 }
 
-// Two warps a row (16 warps an SM at F = 1,056): the odd warp draws u
-// (its lane 0 alone), the even warp loads the row and forms its prefix
-// meanwhile, then counts once u is in shared memory.
-template <int NR>
-__global__ void __launch_bounds__(64 * WS_WARPS)
-    weighted_sample_split_kernel(const WsArgs a) {
-  __shared__ float u_row[WS_WARPS];
-  const int pair = threadIdx.x >> 6;
-  const int f = blockIdx.x * WS_WARPS + pair;
-  const bool draws = (threadIdx.x >> 5) & 1;
-  const int lane = threadIdx.x & 31;
-  float x[NR];
-  if (f < a.F) {
-    if (draws) {
-      if (lane == 0)
-        u_row[pair] = tick_uniform(tick_key(a.rng, a.t, TICK_K_PATH),
-                                   (uint32_t)f);
-    } else {
-      ws_load<NR>(a.w + (long long)f * a.P, a.P, lane, x);
-      ws_prefix<NR>(x, lane);
-    }
-  }
-  __syncthreads();
-  if (f >= a.F || draws) return;
-  const int below = ws_count<NR>(x, u_row[pair], a.P, lane);
-  if (lane == 0) a.ev[f] = min(below, a.P - 1);
-}
-
-template <int NR, bool kPrefix, bool kSplit>
-static void ws_launch(const WsArgs& a, cudaStream_t s) {
-  const int blocks = (a.F + WS_WARPS - 1) / WS_WARPS;
-  if constexpr (kSplit)
-    weighted_sample_split_kernel<NR><<<blocks, 64 * WS_WARPS, 0, s>>>(a);
-  else
-    weighted_sample_kernel<NR, kPrefix><<<blocks, 32 * WS_WARPS, 0, s>>>(a);
-}
-
-template <bool kPrefix, bool kSplit>
+template <bool kPrefix>
 static void ws_dispatch(const WsArgs& a, cudaStream_t s) {
+  const int blocks = (a.F + WS_WARPS - 1) / WS_WARPS;
   switch ((a.P + 31) / 32) {
-#define WS_CASE(n)                          \
-  case n:                                   \
-    ws_launch<n, kPrefix, kSplit>(a, s);    \
+#define WS_CASE(n)                                                        \
+  case n:                                                                 \
+    weighted_sample_kernel<n, kPrefix><<<blocks, 32 * WS_WARPS, 0, s>>>(a); \
     break;
     WS_CASE(1) WS_CASE(2) WS_CASE(3) WS_CASE(4)
     WS_CASE(5) WS_CASE(6) WS_CASE(7) WS_CASE(8)
@@ -224,27 +187,22 @@ static void ws_dispatch(const WsArgs& a, cudaStream_t s) {
   }
 }
 
-static int ws_run(const WsArgs& a, int prefix, int split, cudaStream_t s) {
-  if (a.P < 1 || a.P > 32 * WS_MAX_REGS || (prefix && split))
-    return (int)cudaErrorInvalidValue;
+static int ws_run(const WsArgs& a, int prefix, cudaStream_t s) {
+  if (a.P < 1 || a.P > 32 * WS_MAX_REGS) return (int)cudaErrorInvalidValue;
   if (a.F > 0) {
     if (prefix)
-      ws_dispatch<true, false>(a, s);
-    else if (split)
-      ws_dispatch<false, true>(a, s);
+      ws_dispatch<true>(a, s);
     else
-      ws_dispatch<false, false>(a, s);
+      ws_dispatch<false>(a, s);
   }
   return (int)cudaGetLastError();
 }
 
 // ev[f] = row f's weighted sample on element f of uniform(k_path, (F, 1))
-// at tick *t.  prefix: w holds the rows' prefix sums; split: two warps a
-// row (not with prefix).
+// at tick *t.  prefix: w holds the rows' prefix sums.
 extern "C" int weighted_sample_launch(const void* w, const void* rng,
                                       const void* t, int F, int P,
-                                      int prefix, int split, void* ev,
-                                      void* stream) {
+                                      int prefix, void* ev, void* stream) {
 #ifdef WS_STAMPS
   const WsArgs a{(const float*)w, (const long long*)rng, (const int*)t, F, P,
                  (int*)ev, nullptr};
@@ -253,7 +211,7 @@ extern "C" int weighted_sample_launch(const void* w, const void* rng,
 #else
   const WsArgs a{(const float*)w, (const long long*)rng, (const int*)t, F, P,
                  (int*)ev};
-  return ws_run(a, prefix, split, (cudaStream_t)stream);
+  return ws_run(a, prefix, (cudaStream_t)stream);
 #endif
 }
 
@@ -264,7 +222,7 @@ extern "C" int weighted_sample_stamped_launch(const void* w, const void* rng,
                                               void* stamps, void* stream) {
   const WsArgs a{(const float*)w, (const long long*)rng, (const int*)t, F, P,
                  (int*)ev, (long long*)stamps};
-  return ws_run(a, prefix, 0, (cudaStream_t)stream);
+  return ws_run(a, prefix, (cudaStream_t)stream);
 }
 
 __global__ void __launch_bounds__(32 * WS_WARPS) ws_floor_empty_kernel() {}

@@ -338,11 +338,10 @@ def test_samplers_draw_in_place(cuda, F, P, seed, t):
 @pytest.mark.parametrize("F,P", [(1056, 64), (1, 1), (100, 37), (9, 256),
                                  (50, 17)])
 @pytest.mark.parametrize("seed,t", [(0, 0), (2**31 - 1, 2**31 - 1)])
-@pytest.mark.parametrize("prefix,split", [(True, False), (False, False),
-                                          (False, True)])
-def test_weighted_sample_kernel(cuda, F, P, seed, t, prefix, split):
+@pytest.mark.parametrize("prefix", [True, False])
+def test_weighted_sample_kernel(cuda, F, P, seed, t, prefix):
     """The sampler's kernel in each form (on a prefix table, the prefix in
-    the launch on one warp a row or on two) against its plain version."""
+    the launch) against its plain version."""
     from repro_torch import _parity as PAR
     w = np.exp(RNG.normal(0, 5, (F, P))) * (RNG.random((F, P)) < 0.8)
     w[RNG.integers(0, F, 2)] = 0.0                     # all-zero rows
@@ -353,7 +352,7 @@ def test_weighted_sample_kernel(cuda, F, P, seed, t, prefix, split):
     g = [x.to(cuda) for x in (PAR.xla_cumsum_f32(w).contiguous() if prefix
                               else w, rng, tt)]
     ops.reset_launches()
-    got = ops.weighted_sample(*g, prefix=prefix, split=split)
+    got = ops.weighted_sample(*g, prefix=prefix)
     _equal(got, want)
     assert ops.LAUNCHES["weighted_sample"] == 1
 
@@ -390,7 +389,7 @@ def test_captured_kernels_read_each_replays_tick(cuda):
     """The tick is read from device memory: a graph that captured the
     fused rank + RED/ECN launch (unif given, and drawn in place), the
     draws launch and the samplers drawing in place (``weighted_sample``
-    in its three forms) gives, at each replay, the plain versions'
+    in both its forms) gives, at each replay, the plain versions'
     results at the tick it holds then."""
     from repro_torch import _parity as PAR
     M, P, F = 5024, 3960, 1056
@@ -416,12 +415,11 @@ def test_captured_kernels_read_each_replays_tick(cuda):
                 ops.spritz_select(sel[0], None, sel[1], sel[2],
                                   explore_threshold=44, rng=ins[4], t=t),
                 ops.weighted_sample(sel[0], ins[4], t),
-                ops.weighted_sample(csum, ins[4], t, prefix=True),
-                ops.weighted_sample(sel[0], ins[4], t, split=True))
+                ops.weighted_sample(csum, ins[4], t, prefix=True))
     step()                                            # build and warm up
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        out, draws, drawn, selected, sampled, tabled, split = step()
+        out, draws, drawn, selected, sampled, tabled = step()
     for tick in (0, 40, 70000):
         t.fill_(tick)
         graph.replay()
@@ -438,7 +436,6 @@ def test_captured_kernels_read_each_replays_tick(cuda):
             w, u, front, count, explore_threshold=44))
         _equal(sampled, ref.weighted_sample_reference(w, rng, tc))
         _equal(tabled, sampled)
-        _equal(split, sampled)
 
 
 def _same_runs(a, ast, b, bst):

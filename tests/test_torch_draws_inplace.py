@@ -152,8 +152,6 @@ def test_wrappers_take_exactly_one_source_of_uniforms():
         ops.weighted_sample(w, key.int(), tt)                # not int64
     with pytest.raises(ValueError):
         ops.weighted_sample(torch.ones((F, 300)), key, tt)   # P > 256
-    with pytest.raises(ValueError, match="split=True does not take"):
-        ops.weighted_sample(w, key, tt, prefix=True, split=True)
 
 
 def test_consumers_without_a_draw_raise():

@@ -10,8 +10,8 @@
    and its span on the global timer; the build also holds two floor
    kernels on the sampler's grid, one empty and one that reads ``rng``
    and ``t`` and writes F ints.
-2. Stamps the sampler's one-warp forms (the prefix in the launch, or on
-   the prefix table) at DF-1056's F 1,056 and P 64: the median cycles of
+2. Stamps the sampler's two forms (the prefix in the launch, or on the
+   prefix table) at DF-1056's F 1,056 and P 64: the median cycles of
    each stage over the rows, and the SM clock nvidia-smi reads.
 3. Runs ugal_l on DF-1056 (``chip_smoke.py`` phase 4's spec) through the
    engine's graph loop with the sampler's place taken in turn by each
@@ -42,9 +42,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT / "src"), str(ROOT / "tools")]
 
 STAGES = ("key", "u", "loads", "prefix", "count", "store")
-FORMS = {"in-launch prefix": (False, False),
-         "in-launch prefix, two warps a row": (False, True),
-         "prefix table": (True, False)}
+FORMS = {"in-launch prefix": False, "prefix table": True}
 SAMPLER = re.compile(r"(?:void )?(?:weighted_sample|ws_floor_\w+)_kernel")
 
 
@@ -104,9 +102,7 @@ def main() -> None:
     ev = torch.empty(F, dtype=torch.int32, device="cuda")
     st = torch.empty((F, 8), dtype=torch.int64, device="cuda")
     x = torch.zeros(1 << 20, device="cuda")
-    for form, (prefix, split) in FORMS.items():
-        if split:                            # no stamps on two warps
-            continue
+    for form, prefix in FORMS.items():
         rows = []
         for _ in range(20):
             x.add_(1.0)                      # the launch before it
@@ -133,12 +129,12 @@ def main() -> None:
     ((_, _, spec),) = ER.specs(["permutation:ugal_l"])
     real = PB.sample_path
 
-    def form_of(prefix, split):
+    def form_of(prefix):
         def sample(ctx, w, csum=None):
             if ctx.u is not None or csum is None:
                 return real(ctx, w, csum)
             return ops.weighted_sample(csum if prefix else w, ctx.rng, ctx.t,
-                                       prefix=prefix, split=split)
+                                       prefix=prefix)
         return sample
 
     def floor_of(io):
@@ -162,7 +158,7 @@ def main() -> None:
                 raise RuntimeError(f"floor launch: CUDA error {err}")
             return out
         return sample
-    places = {f: form_of(*fl) for f, fl in FORMS.items()}
+    places = {f: form_of(prefix) for f, prefix in FORMS.items()}
     places.update({"floor: empty": floor_of(0),
                    "floor: reads rng and t, writes F ints": floor_of(1)})
     got: dict = {}
