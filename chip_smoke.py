@@ -27,8 +27,7 @@ Phases (any failure exits non-zero before the final line):
    launch and tick_draws, replayed at three ticks written to the tick's
    device tensor, equal to the plain versions at each; the draws made in
    place (the fused launch with ``rng=``, spritz_select with ``rng=`` and
-   ``weighted_sample``, on a prefix table and with the prefix in the
-   launch) against tick_draws' plain version then the consumer's, at the
+   ``weighted_sample``) against tick_draws' plain version then the consumer's, at the
    DF-1056 (F, M), ragged
    sizes, ticks 0 and 2**31 - 1, three seeds and in a graph replayed at
    three ticks, with the device time of each beside its two-step form's;
@@ -956,7 +955,6 @@ def check_draws_in_place(ops, ref, torch, np, shapes, cu, same,
     form on the card (a tick_draws launch, then the consumer's launch on
     the drawn uniforms; the weighted sample's torch form, as the engine
     ran it before, beside it)."""
-    from repro_torch._parity import xla_cumsum_f32
     from repro_torch.net.policies.base import weighted_sample_rows
     F, M, NP_, P = (shapes[k] for k in ("F", "M", "n_ports", "P"))
     thr = shapes["explore_threshold"]
@@ -1009,35 +1007,27 @@ def check_draws_in_place(ops, ref, torch, np, shapes, cu, same,
                 ref.spritz_select_reference(w, u_path[:, 0], front, count,
                                             explore_threshold=thr)))
             w = weights(f, p)
-            csum = xla_cumsum_f32(w).contiguous()
-            want = ref.weighted_sample_reference(w, k, t)
-            for form, got in (
-                    ("", lambda: ops.weighted_sample(w, k, t)),
-                    (" on the prefix table",
-                     lambda: ops.weighted_sample(csum, k, t, prefix=True))):
-                err["weighted_sample"] = max(err["weighted_sample"], same(
-                    f"weighted_sample{form}, {label} P {p}", got(), want))
+            err["weighted_sample"] = max(err["weighted_sample"], same(
+                f"weighted_sample, {label} P {p}",
+                ops.weighted_sample(w, k, t),
+                ref.weighted_sample_reference(w, k, t)))
 
     # a graph that captured the three reads each replay's tick
     k, t = key(11), tick(0)
     port, enq, q = fused_inputs(M, NP_, 70000)
     w, _, front, count = sel_inputs(F, P)
     ws = weights(F, P)
-    ws_csum = xla_cumsum_f32(ws).contiguous()
 
     def step():
-        # the sampler on live weights and (ugal_l, valiant) on the prefix
-        # table, as the engine launches it
         return (ops.tick_rank_red_ecn(port, enq, q_tail=q, t=t, rng=k, **kw),
                 ops.spritz_select(w, None, front, count,
                                   explore_threshold=thr, rng=k, t=t),
-                ops.weighted_sample(ws, k, t),
-                ops.weighted_sample(ws_csum, k, t, prefix=True))
+                ops.weighted_sample(ws, k, t))
     step()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        g_fused, g_sel, g_ws, g_wsp = step()
+        g_fused, g_sel, g_ws = step()
     for tt in (69990, 70000, 2**31 - 1):
         t.fill_(tt)
         graph.replay()
@@ -1050,8 +1040,6 @@ def check_draws_in_place(ops, ref, torch, np, shapes, cu, same,
                                          explore_threshold=thr))
         same(f"weighted_sample captured, t {tt}", g_ws,
              ref.weighted_sample_reference(ws, k, t))
-        same(f"weighted_sample on the prefix table captured, t {tt}",
-             g_wsp, ref.weighted_sample_reference(ws, k, t))
     del graph
 
     # times at the engine's shapes: the in-place form, its two-step form
@@ -1083,9 +1071,7 @@ def check_draws_in_place(ops, ref, torch, np, shapes, cu, same,
     sel_two = lambda: ops.spritz_select(
         w, ops.tick_draws(k, t, n_flows=F, n_cand=0)[0][:, 0], front,
         count, explore_threshold=thr)
-    # the main path's form (ugal_l, valiant: the prefix table)
-    wsm = lambda: ops.weighted_sample(ws_csum, k, t, prefix=True)
-    ws_live = lambda: ops.weighted_sample(ws, k, t)
+    wsm = lambda: ops.weighted_sample(ws, k, t)
     ws_two = lambda: weighted_sample_rows(
         ops.tick_draws(k, t, n_flows=F, n_cand=0)[0], ws)
     for name, one, two, plain, ins, outs in (
@@ -1100,7 +1086,7 @@ def check_draws_in_place(ops, ref, torch, np, shapes, cu, same,
              (w, front, count, k, t), sel()),
             ("weighted_sample", wsm, ws_two,
              lambda: ref.weighted_sample_reference(ws, k, t),
-             (ws_csum, k, t), (wsm(),))):
+             (ws, k, t), (wsm(),))):
         out[name] = dict(
             max_abs_err=err[name], ms=time_ms(one), plain_ms=time_ms(plain),
             library_ms=None, bytes=nbytes(*ins, *outs),
@@ -1108,9 +1094,6 @@ def check_draws_in_place(ops, ref, torch, np, shapes, cu, same,
             two_step_ms=time_ms(two),
             two_step_device_us=device_us(two, torch,
                                          what=f"{name} two-step"))
-    out["weighted_sample"].update(
-        live_ms=time_ms(ws_live), live_device_us=device_us(
-            ws_live, torch, what="weighted_sample live weights"))
     port, enq, q = worst                    # every entry enqueued, in band
     out["tick_rank_red_ecn"].update(
         every_entry_device_us=device_us(fused, torch,
@@ -2111,109 +2094,11 @@ TRAIN_CARD_VS_CPU = ("minicpm_2b", "phi3_medium_14b", "llava_next_34b",
                      "jamba_1_5_large")
 
 
-@contextlib.contextmanager
-def plain_versions(ops, ref):
-    """Within the block the model kernels' wrappers that the hybrid's
-    train step calls (attention, the Mamba scan) are their plain
-    versions, torch ops on whatever device the tensors lie on, so that
-    the card runs the CPU's arithmetic in its own order."""
-    saved = ops.flash_attention, ops.mamba_scan
-
-    def attention(q, k, v, *, causal=True, sliding_window=0, q_offset=0):
-        return ref.mha_reference(q, k, v, causal=causal,
-                                 sliding_window=sliding_window,
-                                 q_offset=q_offset)
-    ops.flash_attention, ops.mamba_scan = attention, \
-        ref.mamba_scan_reference
-    try:
-        yield
-    finally:
-        ops.flash_attention, ops.mamba_scan = saved
-
-
-@contextlib.contextmanager
-def in_f64(torch):
-    """Within the block the port computes in f64: ``Tensor.float()`` is
-    ``.double()``, ``.to(torch.float32)`` is ``.to(torch.float64)`` and the
-    default dtype is f64, so the models' f32 casts (the router, the loss,
-    the scan's and attention's plain versions, AdamW) keep f64 on f64
-    weights.  Methods of ``torch.Tensor`` are patched, not a torch function
-    mode: a mode is off inside the ``autograd.grad`` it handles, where
-    remat recomputes the forward.  Phase 6b's yardstick for the
-    ``dt_bias`` gradient (``f64_copy`` casts the model and its state)."""
-    T, f32, f64 = torch.Tensor, torch.float32, torch.float64
-    to_ = T.float, T.to
-
-    def to(self, *a, **kw):
-        a = tuple(f64 if x is f32 else x for x in a)
-        kw = {k: f64 if v is f32 else v for k, v in kw.items()}
-        return to_[1](self, *a, **kw)
-    old = torch.get_default_dtype()
-    T.float, T.to = T.double, to
-    torch.set_default_dtype(f64)
-    try:
-        yield
-    finally:
-        T.float, T.to = to_
-        torch.set_default_dtype(old)
-
-
-def f64_copy(model, opt_state, batch):
-    """``model`` (on the CPU), its AdamW state and ``batch`` cast to f64
-    for :func:`in_f64`."""
-    return (copy.deepcopy(model).double(),
-            opt_state._replace(m={k: t.double() for k, t in opt_state.m.items()},
-                               v={k: t.double() for k, t in opt_state.v.items()},
-                               step=opt_state.step.clone()),
-            {k: v.double() if v.is_floating_point() else v
-             for k, v in batch.items()})
-
-
-def step_grads(loss_fn, model, b, mb, torch) -> dict:
-    """The gradient a train step with ``microbatch=mb`` takes: the batch's,
-    or the mean of its row shards' (a shard's loss is normalized by its
-    own token count)."""
-    named = dict(model.named_parameters())
-    n = max(mb, 1)
-    total = None
-    for i in range(n):
-        loss, _ = loss_fn(model, {k: v.reshape(n, -1, *v.shape[1:])[i]
-                                  for k, v in b.items()})
-        gs = torch.autograd.grad(loss, list(named.values()))
-        total = gs if total is None else [a + g for a, g in zip(total, gs)]
-    return {k: g / n for k, g in zip(named, total)}
-
-
-def rel_gap(got, want, skip=None) -> float:
-    """Largest |got - want| (``skip``'s elements left out) over want's
-    largest entry; ``want`` on the CPU."""
-    gap = (got.detach().cpu() - want.detach()).abs()
-    if skip is not None:
-        gap = gap.masked_fill(skip, 0)
-    return float(gap.max()) / max(float(want.detach().abs().max()), 1e-30)
-
-
-def dt_bias_gap(got: dict, exact: dict, skip: dict | None = None) -> float:
-    """The largest :func:`rel_gap` of ``got``'s ``dt_bias`` leaves to
-    ``exact``'s (by name; ``skip`` by name too)."""
-    return max((rel_gap(g, exact[n], None if skip is None else skip[n])
-                for n, g in got.items() if n.endswith(".dt_bias")),
-               default=0.0)
-
-
-def dt_bias_tol(plain_gap: float) -> float:
-    """Phase 6b's allowance for the kernel path's ``dt_bias`` gap to the f64
-    step: 1e-4, or twice the plain versions' gap on the card to the same
-    f64 step, whichever is larger (the kernels may add no error of their
-    own)."""
-    return max(1e-4, 2 * plain_gap)
-
-
 # phase 6b's CPU threads on every host (the one-card hosts' cores)
 CPU_THREADS = 8
 
 
-def train_card_vs_cpu(C, LM, step, optim, ops, ref, torch, np) -> dict:
+def train_card_vs_cpu(C, LM, step, optim, ops, torch, np) -> dict:
     """Phase 6b (run after phase 8): training, card against CPU.  Reduced
     MiniCPM, Phi-3, LLaVA, DeepSeek-MoE, Whisper (seeded frames [4, 64,
     d]), RWKV-6 and Jamba in f32 from the same weights: the loss and
@@ -2245,10 +2130,11 @@ def train_card_vs_cpu(C, LM, step, optim, ops, ref, torch, np) -> dict:
     start.  The reduced Jamba's ``dt_bias`` gradient is one sum over
     every token (of ``dt_bias.mean()``) whose terms cancel to ~1e-6, past
     f32's reach at 1e-4.  So for the hybrid each step is also taken by the
-    port on the CPU in f64 (``in_f64``, from the CPU's state and batch)
-    and on the card through the plain versions (``plain_versions``), and
+    port on the CPU in f64 (``yardstick.in_f64``, from the CPU's state and
+    batch) and on the card through the plain versions
+    (``yardstick.plain_versions``), and
     the ``dt_bias`` leaves are held against the f64 step: the kernel
-    path's gradients within ``dt_bias_tol`` of the plain versions' largest
+    path's gradients within ``yardstick.dt_bias_tol`` of the plain versions' largest
     gradient gap to it so far, its parameters and moments (masked as
     above) within ``dt_bias_tol`` of the plain versions' largest state gap
     so far: the kernels may add no error of their own.  Both card paths
@@ -2258,8 +2144,9 @@ def train_card_vs_cpu(C, LM, step, optim, ops, ref, torch, np) -> dict:
     other tensor stays within 1e-4 of the CPU's f32 step.
     Returns the reduced Jamba's launches in its loss and gradient on the
     card."""
+    from repro_torch.train import yardstick as Y
 
-    rel = rel_gap
+    rel = Y.rel_gap
     # the CPU's f32 sums split by thread, so its steps' bits (each step's
     # common start) follow the thread count: the same count on every host
     threads = torch.get_num_threads()
@@ -2342,7 +2229,7 @@ def train_card_vs_cpu(C, LM, step, optim, ops, ref, torch, np) -> dict:
             fn = step.make_train_step(cfg, warmup=1, total=3, microbatch=mb)
             bc, bg = batch()
             near, in_eps = {}, {}
-            step_g = step_grads(loss_fn, cpu, bc, mb, torch)
+            step_g = step.step_grads(loss_fn, cpu, bc, mb)
             for n, g in step_g.items():
                 a = g.abs()
                 near[n] = (a <= 1e-5 * a.max()) & (a > 0)
@@ -2357,20 +2244,21 @@ def train_card_vs_cpu(C, LM, step, optim, ops, ref, torch, np) -> dict:
                     v={k: t.cuda() for k, t in oc.v.items()},
                     step=oc.step.cuda())
             if hybrid:
-                m64, o64, b64 = f64_copy(cpu, oc, bc)
-                with in_f64(torch):
-                    g64 = step_grads(loss_fn, m64, b64, mb, torch)
+                m64, o64, b64 = Y.f64_copy(cpu, oc, bc)
+                with Y.in_f64():
+                    g64 = step.step_grads(loss_fn, m64, b64, mb)
                     o64 = fn.update(m64, o64, {n: g.clone() for n, g in
                                                g64.items()})[0]
                 mp, op = on_card()
-                with plain_versions(ops, ref):
-                    gp = step_grads(loss_fn, mp, bg, mb, torch)
-                plain_dt["grad"] = max(plain_dt["grad"], dt_bias_gap(gp, g64))
+                with Y.plain_versions():
+                    gp = step.step_grads(loss_fn, mp, bg, mb)
+                plain_dt["grad"] = max(plain_dt["grad"],
+                                       Y.dt_bias_gap(gp, g64))
                 op = fn.update(mp, op, gp)[0]
             gpu, og = on_card()
-            for n, g in step_grads(loss_fn, gpu, bg, mb, torch).items():
+            for n, g in step.step_grads(loss_fn, gpu, bg, mb).items():
                 if hybrid and n.endswith(".dt_bias"):
-                    e, tol = rel(g, g64[n]), dt_bias_tol(plain_dt["grad"])
+                    e, tol = rel(g, g64[n]), Y.dt_bias_tol(plain_dt["grad"])
                     kern_dt["grad"] = max(kern_dt["grad"], e)
                 else:
                     e, tol = rel(g, step_g[n]), 1e-4
@@ -2416,7 +2304,7 @@ def train_card_vs_cpu(C, LM, step, optim, ops, ref, torch, np) -> dict:
                                  .sum())
                 if hybrid and n.endswith(".dt_bias"):
                     e = state_gap(own, og, p64, o64, n)
-                    tol = dt_bias_tol(plain_dt["state"])
+                    tol = Y.dt_bias_tol(plain_dt["state"])
                     kern_dt["state"] = max(kern_dt["state"], e)
                 else:
                     e, tol = state_gap(own, og, mine, oc, n), 1e-4
@@ -4215,11 +4103,6 @@ def main() -> None:
               + f" ({timed_by(name + ' two-step')}); wrapper "
               f"{v['ms'] * 1e3:.2f} us against {v['two_step_ms'] * 1e3:.2f}",
               flush=True)
-    v = nums["weighted_sample"]
-    print(f"kernel weighted_sample forms, device time a call: on the "
-          f"prefix table (ugal_l, valiant) {v['device_us']:.2f} us; the "
-          f"prefix in the launch (PR 29's design; flicr_w, ops_u, ops_w, "
-          f"reps) {v['live_device_us']:.2f} us", flush=True)
     tick_ptx = {}
     for name, lib, pattern in (
             ("spritz_select", "spritz_select", "spritz_select_kernel"),
@@ -4420,8 +4303,7 @@ def main() -> None:
                                  mamba_lib.mamba_scan_bwd_blocks_per_sm,
                                  mamba_lib.mamba_scan_fwd_blocks_per_sm,
                                  mamba_lib.mamba_scan_fwd_channels))
-    reduced_hybrid = train_card_vs_cpu(C, LM, STEP, OPT, ops, KREF, torch,
-                                       np)
+    reduced_hybrid = train_card_vs_cpu(C, LM, STEP, OPT, ops, torch, np)
     for k in ("mamba_scan", "mamba_scan_bwd"):
         launches[k] += reduced_hybrid[k]
     mamba_bwd_by_path = {"train jamba_1_5_large reduced, card against CPU":
@@ -4500,15 +4382,14 @@ def main() -> None:
     agg = next(r for r in rows if r["name"] == "flow_agg")
     for key in ("device_us", "k2_device_us", "library_device_us"):
         agg[key] = nums["flow_agg"][key]
-    # the instantiation of the main path: P 64 (two registers a lane; the
-    # sampler's on Valiant's prefix table, as ugal_l runs it); 1-byte rows
-    # (phase A). All launch with no dynamic shared memory, so ptxas's
+    # the instantiation of the main path: P 64 (two registers a lane);
+    # 1-byte rows (phase A). All launch with no dynamic shared memory, so ptxas's
     # static figure is all the block holds.
     for row, key in ((next(r for r in rows if r["name"] == "spritz_select"),
                       "spritz_select_kernelILi2ELb1E"),
                      (next(r for r in rows
                            if r["name"] == "weighted_sample"),
-                      "weighted_sample_kernelILi2ELb1EE"),
+                      "weighted_sample_kernelILi2EE"),
                      (agg, "flow_agg_kernelIhE")):
         ent = next(v for k, v in tick_ptx[row["name"]].items() if key in k)
         row.update(registers=ent["registers"],
@@ -4523,7 +4404,7 @@ def main() -> None:
             {k: nums[name][k] for k in (
                 "two_step_device_us", "two_step_ms", "given_ms",
                 "given_device_us", "every_entry_device_us",
-                "every_entry_two_step_device_us", "live_device_us")
+                "every_entry_two_step_device_us")
                 if k in nums[name]})
     next(r for r in rows if r["name"] == "tick_rank_red_ecn").update(
         {k: nums["tick_rank_red_ecn"][k] for k in (

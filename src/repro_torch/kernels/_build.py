@@ -44,7 +44,7 @@ SIGNATURES = {
                                                _I, _I, _P, _P, _P, _P),
                       EXACT),
     "weighted_sample": ("weighted_sample_launch",
-                        (_P, _P, _P, _I, _I, _I, _P, _P), EXACT),
+                        (_P, _P, _P, _I, _I, _P, _P), EXACT),
     "flash_attention": ("flash_attention_launch",
                         (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _I, _F, _I, _I, _I, _P, _P, _P), ()),

@@ -19,25 +19,19 @@
 //
 // Design: one warp a row, 8 rows a block (132 blocks at F = 1,056, one
 // wave).  Lane l holds entries l, l+32, ... of its row in NR registers,
-// loaded while the warp draws u.
-// - kPrefix: w already holds the rows' XLA-order prefix sums (Valiant's
-//   table, constant per spec: the engine forms it once with
-//   xla_cumsum_f32), so the launch only draws, scales and counts.
-// - otherwise the prefix is formed in the launch as spritz_select.cu
-//   forms it: sequential inside 16-blocks (a half-warp each: lane j adds
-//   entries 1..j of its block left to right), then the sequential sum of
-//   the earlier block totals, no tree.  Adds and multiplies are
-//   __fadd_rn/__fmul_rn and the file is built with -fmad=false.
-// Padding past P is +0.0, which leaves every real prefix unchanged and
-// is never counted.  Measured and dropped (PERF.md, PR 34): a
-// programmatic dependent launch drawing before the launch before it ends
-// (the torch kernels before it do not release their dependents early, so
-// it overlapped nothing and its wait cost more than it hid), and two
-// warps a row, one drawing while the other sums (slower alone).  With
-// WS_STAMPS (a scratch build, tools/weighted_sample_bench.py) the kernel
-// writes clock64 stamps of each stage and two floor kernels exist: an
-// empty one, and one that reads rng and t and writes F ints, on the same
-// grid.
+// loaded while the warp draws u.  The prefix is formed as spritz_select.cu
+// forms it: sequential inside 16-blocks (a half-warp each: lane j adds
+// entries 1..j of its block left to right), then the sequential sum of
+// the earlier block totals, no tree.  Adds and multiplies are
+// __fadd_rn/__fmul_rn and the file is built with -fmad=false.  Padding
+// past P is +0.0, which leaves every real prefix unchanged and is never
+// counted.  Measured and dropped (PERF.md, PR 34): a programmatic
+// dependent launch drawing before the launch before it ends (the torch
+// kernels before it do not release their dependents early, so it
+// overlapped nothing and its wait cost more than it hid), two warps a
+// row, one drawing while the other sums (slower alone), and a prefix
+// table formed once a spec for Valiant's constant weights (0.09 us a
+// call in ugal_l's loop, nothing end to end).
 #include <cuda_runtime.h>
 
 #include "tick_draws.cuh"
@@ -53,29 +47,7 @@ struct WsArgs {
   const int* t;
   int F, P;
   int* ev;
-#ifdef WS_STAMPS
-  long long* stamps;  // [F, WS_N_STAMPS]
-#endif
 };
-
-#ifdef WS_STAMPS
-#define WS_N_STAMPS 8
-// the SM's clock, read after `dep` is ready (in-order issue: the read
-// waits for the instruction that produced dep)
-__device__ __forceinline__ long long ws_clock(unsigned dep) {
-  long long c;
-  asm volatile("mov.u64 %0, %%clock64;" : "=l"(c) : "r"(dep) : "memory");
-  return c;
-}
-__device__ __forceinline__ long long ws_globaltimer() {
-  long long c;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(c) :: "memory");
-  return c;
-}
-#define WS_STAMP(i, dep) st[i] = ws_clock((unsigned)(dep))
-#else
-#define WS_STAMP(i, dep)
-#endif
 
 template <int NR>
 __device__ __forceinline__ void ws_load(const float* row, int P, int lane,
@@ -85,14 +57,6 @@ __device__ __forceinline__ void ws_load(const float* row, int P, int lane,
     const int e = 32 * i + lane;
     x[i] = e < P ? __ldg(row + e) : 0.0f;
   }
-}
-
-template <int NR>
-__device__ __forceinline__ unsigned ws_sum_bits(const float (&x)[NR]) {
-  float s = x[0];
-#pragma unroll
-  for (int i = 1; i < NR; ++i) s = __fadd_rn(s, x[i]);
-  return __float_as_uint(s);
 }
 
 // XLA-order prefix of the row in x, in place (spritz_select.cu's stage)
@@ -138,14 +102,9 @@ __device__ __forceinline__ int ws_count(const float (&s)[NR], float uf,
   return below;
 }
 
-template <int NR, bool kPrefix>
+template <int NR>
 __global__ void __launch_bounds__(32 * WS_WARPS)
     weighted_sample_kernel(const WsArgs a) {
-#ifdef WS_STAMPS
-  long long st[7];
-  const long long g0 = ws_globaltimer();
-#endif
-  WS_STAMP(0, 0);
   const int f = blockIdx.x * WS_WARPS + (threadIdx.x >> 5);
   if (f >= a.F) return;  // the whole warp leaves together
   const int P = a.P;
@@ -153,99 +112,32 @@ __global__ void __launch_bounds__(32 * WS_WARPS)
   float x[NR];
   ws_load<NR>(a.w + (long long)f * P, P, lane, x);
   const uint2 key = tick_key(a.rng, a.t, TICK_K_PATH);
-  WS_STAMP(1, key.x);
   const float uf = tick_uniform(key, (uint32_t)f);
-  WS_STAMP(2, __float_as_uint(uf));
-  WS_STAMP(3, ws_sum_bits<NR>(x));
-  if constexpr (!kPrefix) ws_prefix<NR>(x, lane);
-  WS_STAMP(4, __float_as_uint(x[NR - 1]));
+  ws_prefix<NR>(x, lane);
   const int below = ws_count<NR>(x, uf, P, lane);
-  WS_STAMP(5, below);
   if (lane == 0) a.ev[f] = min(below, P - 1);
-#ifdef WS_STAMPS
-  WS_STAMP(6, below);
-  if (lane == 0) {
-    long long* o = a.stamps + (long long)f * WS_N_STAMPS;
-#pragma unroll
-    for (int i = 0; i < 7; ++i) o[i] = st[i] - st[0];
-    o[7] = ws_globaltimer() - g0;
-  }
-#endif
-}
-
-template <bool kPrefix>
-static void ws_dispatch(const WsArgs& a, cudaStream_t s) {
-  const int blocks = (a.F + WS_WARPS - 1) / WS_WARPS;
-  switch ((a.P + 31) / 32) {
-#define WS_CASE(n)                                                        \
-  case n:                                                                 \
-    weighted_sample_kernel<n, kPrefix><<<blocks, 32 * WS_WARPS, 0, s>>>(a); \
-    break;
-    WS_CASE(1) WS_CASE(2) WS_CASE(3) WS_CASE(4)
-    WS_CASE(5) WS_CASE(6) WS_CASE(7) WS_CASE(8)
-#undef WS_CASE
-  }
-}
-
-static int ws_run(const WsArgs& a, int prefix, cudaStream_t s) {
-  if (a.P < 1 || a.P > 32 * WS_MAX_REGS) return (int)cudaErrorInvalidValue;
-  if (a.F > 0) {
-    if (prefix)
-      ws_dispatch<true>(a, s);
-    else
-      ws_dispatch<false>(a, s);
-  }
-  return (int)cudaGetLastError();
 }
 
 // ev[f] = row f's weighted sample on element f of uniform(k_path, (F, 1))
-// at tick *t.  prefix: w holds the rows' prefix sums.
+// at tick *t.
 extern "C" int weighted_sample_launch(const void* w, const void* rng,
-                                      const void* t, int F, int P,
-                                      int prefix, void* ev, void* stream) {
-#ifdef WS_STAMPS
-  const WsArgs a{(const float*)w, (const long long*)rng, (const int*)t, F, P,
-                 (int*)ev, nullptr};
-  (void)a;
-  return (int)cudaErrorInvalidValue;  // the stamped build takes stamps
-#else
+                                      const void* t, int F, int P, void* ev,
+                                      void* stream) {
+  if (P < 1 || P > 32 * WS_MAX_REGS) return (int)cudaErrorInvalidValue;
   const WsArgs a{(const float*)w, (const long long*)rng, (const int*)t, F, P,
                  (int*)ev};
-  return ws_run(a, prefix, (cudaStream_t)stream);
-#endif
-}
-
-#ifdef WS_STAMPS
-extern "C" int weighted_sample_stamped_launch(const void* w, const void* rng,
-                                              const void* t, int F, int P,
-                                              int prefix, void* ev,
-                                              void* stamps, void* stream) {
-  const WsArgs a{(const float*)w, (const long long*)rng, (const int*)t, F, P,
-                 (int*)ev, (long long*)stamps};
-  return ws_run(a, prefix, (cudaStream_t)stream);
-}
-
-__global__ void __launch_bounds__(32 * WS_WARPS) ws_floor_empty_kernel() {}
-
-__global__ void __launch_bounds__(32 * WS_WARPS)
-    ws_floor_io_kernel(const long long* rng, const int* t, int F, int* ev) {
-  const int f = blockIdx.x * WS_WARPS + (threadIdx.x >> 5);
-  if (f < F && (threadIdx.x & 31) == 0)
-    ev[f] = (int)((unsigned)__ldg(rng) ^ (unsigned)__ldg(rng + 1) ^
-                  (unsigned)__ldg(t)) & 1;
-}
-
-// the floor of a launch at the sampler's place: on the sampler's grid,
-// nothing (io 0) or a read of rng and t and F ints written (io 1)
-extern "C" int weighted_sample_floor_launch(const void* rng, const void* t,
-                                            int F, int io, void* ev,
-                                            void* stream) {
-  const dim3 grid((F + WS_WARPS - 1) / WS_WARPS);
-  if (io)
-    ws_floor_io_kernel<<<grid, 32 * WS_WARPS, 0, (cudaStream_t)stream>>>(
-        (const long long*)rng, (const int*)t, F, (int*)ev);
-  else
-    ws_floor_empty_kernel<<<grid, 32 * WS_WARPS, 0, (cudaStream_t)stream>>>();
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int blocks = (F + WS_WARPS - 1) / WS_WARPS;
+  if (F > 0) {
+    switch ((P + 31) / 32) {
+#define WS_CASE(n)                                                     \
+  case n:                                                              \
+    weighted_sample_kernel<n><<<blocks, 32 * WS_WARPS, 0, s>>>(a);     \
+    break;
+      WS_CASE(1) WS_CASE(2) WS_CASE(3) WS_CASE(4)
+      WS_CASE(5) WS_CASE(6) WS_CASE(7) WS_CASE(8)
+#undef WS_CASE
+    }
+  }
   return (int)cudaGetLastError();
 }
-#endif

@@ -405,23 +405,21 @@ def spritz_select(w, u, buf_front, packet_count, *, explore_threshold: int,
     return ev, newcnt, used
 
 
-def weighted_sample(w, rng, t, *, prefix: bool = False):
+def weighted_sample(w, rng, t):
     """Each row's weighted index on the tick's path draw, int32 [F]:
     ``weighted_sample_rows(u_path, w)`` with ``u_path`` as
     :func:`tick_draws` draws it at tick ``t``, drawn in the launch.  w:
-    [F, P] f32 (P <= 256), or with ``prefix`` the rows' XLA-order prefix
-    sums already (``xla_cumsum_f32`` of the weights: a table constant per
-    spec, formed once); rng: the carry's [2] int64 key; t: an int or a 0-d
-    int32 tensor on w's device."""
+    [F, P] f32 (P <= 256); rng: the carry's [2] int64 key; t: an int or a
+    0-d int32 tensor on w's device."""
     F, P = _check_rows(w)
     _rng(rng)
     t = _tick(t, w.device)
     if _on_cpu(w, rng):
-        return R.weighted_sample_reference(w, rng, t, prefix=prefix)
+        return R.weighted_sample_reference(w, rng, t)
     ev = torch.empty(F, dtype=torch.int32, device=w.device)
     if F:
         _launch("weighted_sample", w.data_ptr(), rng.data_ptr(),
-                t.data_ptr(), F, P, int(prefix), ev.data_ptr())
+                t.data_ptr(), F, P, ev.data_ptr())
     return ev
 
 

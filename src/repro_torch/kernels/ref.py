@@ -36,22 +36,20 @@ def spritz_select_reference(w, u, buf_front, packet_count, *,
     return ev, new_count.to(torch.int32), use_buffer
 
 
-def _sample(w, u, prefix: bool = False):
+def _sample(w, u):
     """Each row's weighted index on its uniform ``u`` [F]: the count of
-    prefix sums below ``u`` times the row total, at most P - 1; with
-    ``prefix`` w holds the rows' prefix sums already."""
-    csum = w.float() if prefix else xla_cumsum_f32(w.float())
+    prefix sums below ``u`` times the row total, at most P - 1."""
+    csum = xla_cumsum_f32(w.float())
     uu = u * csum[:, -1].clamp_min(_TINY)
     return (csum < uu[:, None]).sum(1).clamp_max(w.shape[1] - 1)
 
 
-def weighted_sample_reference(w, rng, t, prefix: bool = False):
+def weighted_sample_reference(w, rng, t):
     """The tick's path draw ``u_path`` (:func:`tick_draws_reference`),
     then each row's weighted sample on it, int32 [F]: the reference's
-    ``weighted_sample_rows`` on the tick's ``k_path`` (with ``prefix``, w
-    holds the rows' XLA-order prefix sums)."""
+    ``weighted_sample_rows`` on the tick's ``k_path``."""
     u_path = tick_draws_reference(rng, t, n_flows=w.shape[0], n_cand=0)[0]
-    return _sample(w, u_path[:, 0], prefix).to(torch.int32)
+    return _sample(w, u_path[:, 0]).to(torch.int32)
 
 
 def tick_draws_reference(rng, t, *, n_flows: int, n_cand: int):

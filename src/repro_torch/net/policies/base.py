@@ -32,7 +32,6 @@ class PolicyTables(NamedTuple):
     path_lat: torch.Tensor     # [F, P] f32 path latency (Scout's sort key)
     valiant_w: torch.Tensor    # [F, P] per-hop-uniform Valiant weights
     min_path: torch.Tensor     # [F] index of the minimal/static route
-    valiant_csum: torch.Tensor  # [F, P] valiant_w's XLA-order prefix sums
 
 
 class SendCtx(NamedTuple):
@@ -119,17 +118,13 @@ def weighted_sample_rows(u: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (csum < uu).sum(-1).clamp_max(w.shape[-1] - 1).to(torch.int32)
 
 
-def sample_path(ctx: SendCtx, w: torch.Tensor,
-                csum: torch.Tensor | None = None) -> torch.Tensor:
+def sample_path(ctx: SendCtx, w: torch.Tensor) -> torch.Tensor:
     """``weighted_sample_rows`` of the tick's path draw over ``w`` [F,
     P]: one ``weighted_sample`` launch that draws ``u`` itself when the
     engine's kernels are on (``ctx.u`` is None), else the torch form on
-    ``ctx.u``.  Bit-equal either way.  ``csum``, ``w``'s prefix sums when
-    ``w`` is a constant table (``PolicyTables.valiant_csum``), spares the
-    launch its prefix stage."""
+    ``ctx.u``.  Bit-equal either way."""
     if ctx.u is None:
-        return KOPS.weighted_sample(w if csum is None else csum, ctx.rng,
-                                    ctx.t, prefix=csum is not None)
+        return KOPS.weighted_sample(w, ctx.rng, ctx.t)
     return weighted_sample_rows(ctx.u, w)
 
 

@@ -237,9 +237,7 @@ def build_tick(spec: SimSpec, device=None):
 
     tables = PB.PolicyTables(path_ports=path_ports, path_len=path_len,
                              path_lat=path_lat, valiant_w=valiant_w,
-                             min_path=min_path,
-                             valiant_csum=PAR.xla_cumsum_f32(
-                                 valiant_w).contiguous())
+                             min_path=min_path)
     pol = REG.device_policy(spec.scheme)
     cfg = pol.make_cfg(spec)
 

@@ -164,6 +164,21 @@ def make_train_step(cfg: ModelCfg, *, peak_lr=3e-4, schedule="cosine",
     return train_step
 
 
+def step_grads(loss_fn, model: LM, batch: dict, microbatch: int = 0) -> dict:
+    """The gradient, by name, that a train step with ``microbatch`` takes:
+    the batch's, or the mean of its row shards' (a shard's loss is
+    normalized by its own token count)."""
+    named = dict(model.named_parameters())
+    n = max(microbatch, 1)
+    total = None
+    for i in range(n):
+        loss, _ = loss_fn(model, {k: v.reshape(n, -1, *v.shape[1:])[i]
+                                  for k, v in batch.items()})
+        gs = torch.autograd.grad(loss, list(named.values()))
+        total = gs if total is None else [a + g for a, g in zip(total, gs)]
+    return {k: g / n for k, g in zip(named, total)}
+
+
 def make_prefill_step(model: LM, max_len: int):
     """Serve prefill: ``batch["tokens"]`` [B, S] (and, for the VLM family,
     ``batch["prefix_embed"]`` [B, Np, d]; for the enc-dec family,

@@ -338,21 +338,17 @@ def test_samplers_draw_in_place(cuda, F, P, seed, t):
 @pytest.mark.parametrize("F,P", [(1056, 64), (1, 1), (100, 37), (9, 256),
                                  (50, 17)])
 @pytest.mark.parametrize("seed,t", [(0, 0), (2**31 - 1, 2**31 - 1)])
-@pytest.mark.parametrize("prefix", [True, False])
-def test_weighted_sample_kernel(cuda, F, P, seed, t, prefix):
-    """The sampler's kernel in each form (on a prefix table, the prefix in
-    the launch) against its plain version."""
-    from repro_torch import _parity as PAR
+def test_weighted_sample_kernel(cuda, F, P, seed, t):
+    """The sampler's own kernel against its plain version."""
     w = np.exp(RNG.normal(0, 5, (F, P))) * (RNG.random((F, P)) < 0.8)
     w[RNG.integers(0, F, 2)] = 0.0                     # all-zero rows
     w = torch.as_tensor(w, dtype=torch.float32)
     rng = torch.tensor([0, seed], dtype=torch.int64)
     tt = torch.tensor(t, dtype=torch.int32)
     want = ref.weighted_sample_reference(w, rng, tt)
-    g = [x.to(cuda) for x in (PAR.xla_cumsum_f32(w).contiguous() if prefix
-                              else w, rng, tt)]
+    g = [x.to(cuda) for x in (w, rng, tt)]
     ops.reset_launches()
-    got = ops.weighted_sample(*g, prefix=prefix)
+    got = ops.weighted_sample(*g)
     _equal(got, want)
     assert ops.LAUNCHES["weighted_sample"] == 1
 
@@ -366,8 +362,8 @@ def test_step_gradients_repeat_on_card(cuda, plain):
     ``dt_bias`` gradients of both paths against the f64 step)."""
     import contextlib
 
-    import chip_smoke as CS
     from repro_torch.train import step as STEP
+    from repro_torch.train import yardstick as Y
     cfg = dataclasses.replace(C.get_reduced("jamba_1_5_large"),
                               dtype=torch.float32)
     model = LM(cfg, device="cpu",
@@ -377,10 +373,10 @@ def test_step_gradients_repeat_on_card(cuda, plain):
         0, cfg.vocab, (4, 65)), device=cuda)
     b = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
     loss_fn = STEP.make_loss_fn(cfg)
-    ctx = CS.plain_versions(ops, ref) if plain else contextlib.nullcontext()
+    ctx = Y.plain_versions() if plain else contextlib.nullcontext()
     with ctx:
         for mb in (0, 2):
-            g1, g2 = (CS.step_grads(loss_fn, model, b, mb, torch)
+            g1, g2 = (STEP.step_grads(loss_fn, model, b, mb)
                       for _ in range(2))
             assert [n for n in g1 if not torch.equal(g1[n], g2[n])] == []
 
@@ -388,10 +384,8 @@ def test_step_gradients_repeat_on_card(cuda, plain):
 def test_captured_kernels_read_each_replays_tick(cuda):
     """The tick is read from device memory: a graph that captured the
     fused rank + RED/ECN launch (unif given, and drawn in place), the
-    draws launch and the samplers drawing in place (``weighted_sample``
-    in both its forms) gives, at each replay, the plain versions'
-    results at the tick it holds then."""
-    from repro_torch import _parity as PAR
+    draws launch and the samplers drawing in place gives, at each
+    replay, the plain versions' results at the tick it holds then."""
     M, P, F = 5024, 3960, 1056
     port = torch.as_tensor(RNG.integers(0, P + 1, M), dtype=torch.int32)
     enq = torch.as_tensor(RNG.random(M) < 0.7)
@@ -399,7 +393,6 @@ def test_captured_kernels_read_each_replays_tick(cuda):
     tails = torch.as_tensor(RNG.integers(0, 90, P), dtype=torch.int32)
     rng = torch.tensor([0, 5], dtype=torch.int64)
     w = torch.as_tensor(RNG.random((F, 64)) * 8, dtype=torch.float32)
-    csum = PAR.xla_cumsum_f32(w).contiguous().to(cuda)
     front = torch.as_tensor(RNG.integers(-1, 64, F), dtype=torch.int32)
     count = torch.as_tensor(RNG.integers(0, 60, F), dtype=torch.int32)
     kw = dict(qsize=88, kmin=17.6, kmax=70.4, n_ports=P)
@@ -414,12 +407,11 @@ def test_captured_kernels_read_each_replays_tick(cuda):
                                       rng=ins[4], **kw),
                 ops.spritz_select(sel[0], None, sel[1], sel[2],
                                   explore_threshold=44, rng=ins[4], t=t),
-                ops.weighted_sample(sel[0], ins[4], t),
-                ops.weighted_sample(csum, ins[4], t, prefix=True))
+                ops.weighted_sample(sel[0], ins[4], t))
     step()                                            # build and warm up
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        out, draws, drawn, selected, sampled, tabled = step()
+        out, draws, drawn, selected, sampled = step()
     for tick in (0, 40, 70000):
         t.fill_(tick)
         graph.replay()
@@ -435,7 +427,6 @@ def test_captured_kernels_read_each_replays_tick(cuda):
         _equal(selected, ref.spritz_select_reference(
             w, u, front, count, explore_threshold=44))
         _equal(sampled, ref.weighted_sample_reference(w, rng, tc))
-        _equal(tabled, sampled)
 
 
 def _same_runs(a, ast, b, bst):

@@ -93,17 +93,15 @@ def test_samplers_draw_u_path_like_tick_draws(F, M, t, seed, P):
 @pytest.mark.parametrize("P", [1, 17, 64, 256])
 @pytest.mark.parametrize("F,t,seed", [(1056, 0, 0), (37, 2**31 - 1, 7),
                                       (3, 513, 2**31 - 1)])
-def test_prefix_form_equals_weighted_sample_rows(F, t, seed, P):
-    """The sampler on a constant table's prefix sums (``prefix=True``,
-    Valiant's ``PolicyTables.valiant_csum``), with all-zero rows, equals
-    the torch form and the reference's sampler on the tick's k_path."""
-    from repro_torch import _parity as PAR
+def test_weighted_sample_rows_up_to_256_paths(F, t, seed, P):
+    """The sampler at P 1 to 256 (a lane's eight registers full), on a
+    tensor tick, with all-zero rows, equals the torch form and the
+    reference's sampler on the tick's k_path."""
     w = _weights(F, P)
     w[0] = 0.0
-    csum = PAR.xla_cumsum_f32(w)
     tt = torch.tensor(t, dtype=torch.int32)
     u_path = ref.tick_draws_reference(_key(seed), tt, n_flows=F, n_cand=0)[0]
-    sampled = ops.weighted_sample(csum, _key(seed), tt, prefix=True)
+    sampled = ops.weighted_sample(w, _key(seed), tt)
     assert sampled.dtype == torch.int32
     assert torch.equal(sampled, PB.weighted_sample_rows(u_path, w))
     assert torch.equal(sampled, ops.weighted_sample(w, _key(seed), t))
@@ -122,9 +120,6 @@ def test_sample_path_equals_weighted_sample_rows(drawn):
     ctx = PB.SendCtx(u=None if drawn else u_path, t=tt, active=z.bool(),
                      occ=z, weights=w, static_path=z, rng=_key(3))
     assert torch.equal(PB.sample_path(ctx, w),
-                       PB.weighted_sample_rows(u_path, w))
-    from repro_torch import _parity as PAR
-    assert torch.equal(PB.sample_path(ctx, w, PAR.xla_cumsum_f32(w)),
                        PB.weighted_sample_rows(u_path, w))
 
 

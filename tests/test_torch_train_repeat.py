@@ -7,10 +7,10 @@ bits run to run; ``chip_smoke.py`` phase 6b's ``dt_bias`` rule compared
 two such draws.  The embedding is now ``F.embedding``, whose backward
 sums in a fixed order on the CPU and on the card, and the rule holds the
 card's kernel path against the port's own step in f64
-(``chip_smoke.in_f64``): within 1e-4, or twice the plain versions' gap
-to the same f64 step (``chip_smoke.dt_bias_tol``).  On the card
-``tests/test_torch_cuda.py`` holds both card paths to the same bits
-twice, and ``tools/grad_repeat.py`` across processes.
+(``repro_torch.train.yardstick.in_f64``): within 1e-4, or twice the
+plain versions' gap to the same f64 step (``yardstick.dt_bias_tol``).
+On the card ``tests/test_torch_cuda.py`` holds both card paths to the
+same bits twice, and ``tools/grad_repeat.py`` across processes.
 """
 import copy
 import dataclasses
@@ -20,11 +20,11 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-import chip_smoke as CS  # noqa: E402
 from repro_torch import configs as C  # noqa: E402
 from repro_torch.models.lm import LM  # noqa: E402
 from repro_torch.train import optim as TOPT  # noqa: E402
 from repro_torch.train import step as TSTEP  # noqa: E402
+from repro_torch.train import yardstick as Y  # noqa: E402
 
 ARCH = "jamba_1_5_large"
 
@@ -58,7 +58,7 @@ def threads():
 def test_step_gradients_repeat_bit_for_bit(jamba, threads, mb):
     cfg, model, batches = jamba
     loss_fn = TSTEP.make_loss_fn(cfg)
-    a, b = (CS.step_grads(loss_fn, model, batches[0], mb, torch)
+    a, b = (TSTEP.step_grads(loss_fn, model, batches[0], mb)
             for _ in range(2))
     differ = [n for n in a if not torch.equal(a[n], b[n])]
     assert not differ, differ
@@ -91,7 +91,7 @@ def test_update_is_the_train_steps_update(jamba):
     s1 = TOPT.adamw_init(dict(m1.named_parameters()))
     s2 = TOPT.adamw_init(dict(m2.named_parameters()))
     m1, s1, _ = fn(m1, s1, batches[0])
-    g = CS.step_grads(TSTEP.make_loss_fn(cfg), m2, batches[0], 0, torch)
+    g = TSTEP.step_grads(TSTEP.make_loss_fn(cfg), m2, batches[0], 0)
     s2 = fn.update(m2, s2, g)[0]
     p1, p2 = dict(m1.named_parameters()), dict(m2.named_parameters())
     for n in p1:
@@ -107,18 +107,18 @@ def test_f64_step_runs_in_f64(jamba):
     loss_fn = TSTEP.make_loss_fn(cfg)
     fn = TSTEP.make_train_step(cfg, warmup=1, total=3)
     st = TOPT.adamw_init(dict(model.named_parameters()))
-    m64, s64, b64 = CS.f64_copy(model, st, batches[0])
-    with CS.in_f64(torch):
+    m64, s64, b64 = Y.f64_copy(model, st, batches[0])
+    with Y.in_f64():
         loss, _ = loss_fn(m64, b64)
-        g64 = CS.step_grads(loss_fn, m64, b64, 0, torch)
+        g64 = TSTEP.step_grads(loss_fn, m64, b64, 0)
         s64 = fn.update(m64, s64, {n: g.clone() for n, g in g64.items()})[0]
     assert loss.dtype == torch.float64
     assert all(g.dtype == torch.float64 for g in g64.values())
     assert all(t.dtype == torch.float64 for t in s64.m.values())
     assert torch.ones(1).float().dtype == torch.float32
     assert torch.get_default_dtype() == torch.float32
-    g32 = CS.step_grads(loss_fn, model, batches[0], 0, torch)
-    assert max(CS.rel_gap(g32[n], g64[n]) for n in g32) <= 1e-4
+    g32 = TSTEP.step_grads(loss_fn, model, batches[0], 0)
+    assert max(Y.rel_gap(g32[n], g64[n]) for n in g32) <= 1e-4
 
 
 def test_dt_bias_rule(jamba):
@@ -127,21 +127,38 @@ def test_dt_bias_rule(jamba):
     1e-4) is added to one ``dt_bias`` element."""
     cfg, model, batches = jamba
     loss_fn = TSTEP.make_loss_fn(cfg)
-    m64, _, b64 = CS.f64_copy(model, TOPT.adamw_init(
+    m64, _, b64 = Y.f64_copy(model, TOPT.adamw_init(
         dict(model.named_parameters())), batches[0])
-    with CS.in_f64(torch):
-        g64 = CS.step_grads(loss_fn, m64, b64, 0, torch)
-    plain = CS.step_grads(loss_fn, model, batches[0], 0, torch)
-    p_gap = CS.dt_bias_gap(plain, g64)
+    with Y.in_f64():
+        g64 = TSTEP.step_grads(loss_fn, m64, b64, 0)
+    plain = TSTEP.step_grads(loss_fn, model, batches[0], 0)
+    p_gap = Y.dt_bias_gap(plain, g64)
     assert 0 < p_gap < 1e-4
-    tol = CS.dt_bias_tol(p_gap)
-    assert tol == 1e-4 and CS.dt_bias_tol(1e-3) == 2e-3
-    assert CS.dt_bias_gap(plain, g64) <= tol
+    tol = Y.dt_bias_tol(p_gap)
+    assert tol == 1e-4 and Y.dt_bias_tol(1e-3) == 2e-3
+    assert Y.dt_bias_gap(plain, g64) <= tol
     name = next(n for n in plain if n.endswith(".dt_bias"))
     bad = dict(plain)
     bad[name] = plain[name].clone()
     bad[name][3] += 3 * tol * float(g64[name].abs().max())
-    assert CS.dt_bias_gap(bad, g64) > tol
+    assert Y.dt_bias_gap(bad, g64) > tol
     # other tensors are not the rule's
     other = dict(plain, embed=plain["embed"] * 2)
-    assert CS.dt_bias_gap(other, g64) == p_gap
+    assert Y.dt_bias_gap(other, g64) == p_gap
+
+
+def test_plain_versions_swap_the_wrappers_back(jamba):
+    """Within ``plain_versions`` attention and the Mamba scan are their
+    plain versions (on the CPU the wrappers run those too, so the step's
+    gradients are the same bits); after it the wrappers are back."""
+    from repro_torch.kernels import ops, ref
+    cfg, model, batches = jamba
+    loss_fn = TSTEP.make_loss_fn(cfg)
+    wrappers = ops.flash_attention, ops.mamba_scan
+    want = TSTEP.step_grads(loss_fn, model, batches[0], 0)
+    with Y.plain_versions():
+        assert ops.mamba_scan is ref.mamba_scan_reference
+        assert ops.flash_attention is not wrappers[0]
+        got = TSTEP.step_grads(loss_fn, model, batches[0], 0)
+    assert (ops.flash_attention, ops.mamba_scan) == wrappers
+    assert [n for n in want if not torch.equal(want[n], got[n])] == []

@@ -4,7 +4,7 @@ three step gradients (microbatch 0, 2, 0; ``chip_smoke.py`` phase 6b's
 seeded batches, each from the initial state), each taken twice on the
 card through the kernels, twice through the plain versions, twice on the
 CPU at the host's default thread count, once on the CPU with one thread
-and once by the port in f64 on the CPU (``chip_smoke.in_f64``):
+and once by the port in f64 on the CPU (``yardstick.in_f64``):
 
     python3 tools/grad_repeat.py [--arch jamba_1_5_large] [--digest F]
         [--trace] [--deterministic] [--device cpu]
@@ -103,10 +103,9 @@ def main() -> None:
 
     import chip_smoke as CS
     from repro_torch import configs as C
-    from repro_torch.kernels import ops
-    from repro_torch.kernels import ref as KREF
     from repro_torch.models.lm import LM
     from repro_torch.train import step as STEP
+    from repro_torch.train import yardstick as Y
     dev = args.device
     if dev == "cuda":
         if not torch.cuda.is_available():
@@ -132,31 +131,31 @@ def main() -> None:
     batch()                      # phase 6b's first batch (its first check)
     steps = [(mb, batch()) for mb in (0, 2, 0)]
     loss_fn = STEP.make_loss_fn(cfg)
-    m64, _, _ = CS.f64_copy(cpu, STEP.optim.adamw_init(
+    m64, _, _ = Y.f64_copy(cpu, STEP.optim.adamw_init(
         dict(cpu.named_parameters())), {})
     for m in (cpu, card, m64):
         m.requires_grad_(True)
 
     def grads(path, mb, b):
         if path == "f64":
-            with CS.in_f64(torch):
-                return CS.step_grads(loss_fn, m64, b, mb, torch)
+            with Y.in_f64():
+                return STEP.step_grads(loss_fn, m64, b, mb)
         if path.startswith("cpu"):
             torch.set_num_threads(1 if path == "cpu1" else threads)
             try:
-                return CS.step_grads(loss_fn, cpu, b, mb, torch)
+                return STEP.step_grads(loss_fn, cpu, b, mb)
             finally:
                 torch.set_num_threads(threads)
         bd = {k: v.to(dev) for k, v in b.items()}
         if path == "plain":
-            with CS.plain_versions(ops, KREF):
-                return CS.step_grads(loss_fn, card, bd, mb, torch)
-        return CS.step_grads(loss_fn, card, bd, mb, torch)
+            with Y.plain_versions():
+                return STEP.step_grads(loss_fn, card, bd, mb)
+        return STEP.step_grads(loss_fn, card, bd, mb)
 
     def pair(a, b):
         diff = [n for n in a if not torch.equal(a[n].cpu(), b[n].cpu())]
         return {"same": not diff, "tensors_differing": len(diff),
-                "gap": max((CS.rel_gap(a[n], b[n].cpu()) for n in diff),
+                "gap": max((Y.rel_gap(a[n], b[n].cpu()) for n in diff),
                            default=0.0), "first": diff[:3]}
 
     digest = {}
@@ -170,7 +169,7 @@ def main() -> None:
             line[f"{p} twice"] = pair(*g[p])
         line["cpu vs cpu1"] = pair(g["cpu"][0], g["cpu1"][0])
         line["dt_bias gap to f64"] = {
-            p: CS.dt_bias_gap(g[p][0], g["f64"][0])
+            p: Y.dt_bias_gap(g[p][0], g["f64"][0])
             for p in ("kernel", "plain", "cpu", "cpu1")}
         print(json.dumps(line), flush=True)
         for p, takes in g.items():

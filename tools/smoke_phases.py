@@ -60,8 +60,7 @@ def main() -> None:
         if args.arch:
             CS.TRAIN_CARD_VS_CPU = tuple(args.arch)
         t1 = time.perf_counter()
-        counts = CS.train_card_vs_cpu(C, LM, STEP, OPT, ops, KREF, torch,
-                                      np)
+        counts = CS.train_card_vs_cpu(C, LM, STEP, OPT, ops, torch, np)
         print(f"6b {', '.join(CS.TRAIN_CARD_VS_CPU)} passed in "
               f"{time.perf_counter() - t1:.1f} s; launches {counts}",
               flush=True)
