@@ -25,7 +25,7 @@
 // the earlier block totals, no tree.  Adds and multiplies are
 // __fadd_rn/__fmul_rn and the file is built with -fmad=false.  Padding
 // past P is +0.0, which leaves every real prefix unchanged and is never
-// counted.  Measured and dropped (PERF.md, PR 34): a programmatic
+// counted.  Measured and dropped (PERF.md): a programmatic
 // dependent launch drawing before the launch before it ends (the torch
 // kernels before it do not release their dependents early, so it
 // overlapped nothing and its wait cost more than it hid), two warps a
