@@ -10,7 +10,7 @@ card's kernel path against the port's own step in f64
 (``repro_torch.train.yardstick.in_f64``): within 1e-4, or twice the
 plain versions' gap to the same f64 step (``yardstick.dt_bias_tol``).
 On the card ``tests/test_torch_cuda.py`` holds both card paths to the
-same bits twice, and ``tools/grad_repeat.py`` across processes.
+same bits twice.
 """
 import copy
 import dataclasses
